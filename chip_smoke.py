@@ -4,20 +4,31 @@ end to end.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --phases 01  # build and kernel checks only
+    python3 chip_smoke.py --out DIR    # where the profile table goes
+                                       # (default build/profiles)
 
 Phases, each printing JSON lines:
   0. the card (name, power limit, count) and the kernels' build with nvcc;
   1. each kernel against its plain PyTorch version on the card, at the main
-     path's widths: ``fused_knn`` over 1,000,000 x 128 rows (2,048 queries;
+     paths' widths: ``fused_knn`` over 1,000,000 x 128 rows (2,048 queries;
      modes f32 / f32x3 / bf16 / s8, l2 with and without sqrt, ip, k in
-     {1, 10, 64}, a keep-mask that keeps fewer than k rows, a ragged n), and
+     {1, 10, 64}, a keep-mask that keeps fewer than k rows, a ragged n);
      ``topk`` on a 10,000 x 100,003 float32 matrix (k in {10, 64, 128, 256},
-     min and max, planted ties and infinities);
-  2. the main path: ``BruteForce("sqeuclidean").build(x).search(q, k=10)``
+     min and max, planted ties and infinities); ``pq_scan`` bit for bit
+     (pq4 at S=64 with float32 and bfloat16 LUTs, split pq8 at S=32, S of 24
+     and 96, caps that are not a multiple of the block, repeated lists, 1,024
+     pairs over a 1,024-list index of real size);
+  2. the main paths, each with the launch counts set to 0 just before it and
+     read just after: ``BruteForce("sqeuclidean").build(x).search(q, k=10)``
      at 1M x 128 float32 (uniform data from seed 0, 10,000 queries from
-     seed 1), checked against the plain version; then ``select_k`` on a
-     10,000 x 100,003 matrix. Each path runs with the launch counts set to 0
-     just before it and read just after;
+     seed 1), checked against the plain version; ``select_k`` on a
+     10,000 x 100,003 matrix; and IVF-PQ at SIFT-1M's shape in the JAX
+     package's regression configuration (bench.py:660-668): 1M x 128 float32
+     from 1,000 Gaussian blobs, ``build(n_lists=1024, pq_bits=4, pq_dim=64)``,
+     ``search(n_probes=8, lut_dtype="bfloat16")`` at k=40 for 10,000 queries,
+     ``refine`` to k=10; checked against the plain scan (``scan_impl=
+     "onehot"``) and for recall@10 against exact ground truth on 1,000
+     queries, and profiled for one batch;
   3. kernel times (CUDA events) beside their bound, their plain version's
      time and one library call's time.
 
@@ -40,6 +51,9 @@ H100_BYTES_S = 3.35e12   # HBM3, H100 SXM data sheet
 
 N_MAIN, D_MAIN, M_MAIN, K_MAIN = 1_000_000, 128, 10_000, 10
 TOPK_SHAPE = (10_000, 100_003)
+PQ_LISTS, PQ_CAP = 1024, 1272   # a 1M-row, 1,024-list index bounded at 1.3x the mean list
+IVF_BLOBS, IVF_Q, IVF_K0, IVF_CHECK = 1_000, 10_000, 40, 1_000
+IVF_RECALL_FLOOR = 0.85         # recall@10 after refine; the card's first run read 0.9153
 
 
 def emit(**kw):
@@ -66,6 +80,10 @@ def knn_equiv(dv, di, rd, ri, rtol, atol):
 
 
 def cuda_ms(fn, reps=3, warm=1):
+    """Device milliseconds per call of ``fn`` (CUDA events). The timed calls
+    are queued behind a ~0.1 s device-side wait, so they run back to back and
+    the host's launch cost (tens of microseconds a call, more than a short
+    kernel takes) does not show; ``fn`` must not synchronise."""
     import torch
 
     for _ in range(warm):
@@ -73,6 +91,7 @@ def cuda_ms(fn, reps=3, warm=1):
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     t0.record()
     for _ in range(reps):
         fn()
@@ -187,6 +206,52 @@ def phase_kernels(st):
                  select_min=smin, max_abs_err=0.0, ok=True)
             del pv, pi
     st["topk_err"] = err
+    phase_pq_kernel(st)
+
+
+def phase_pq_kernel(st):
+    """``pq_scan`` against ``pq_scan_plain`` on the card, bit for bit."""
+    import torch
+
+    from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    n_lists, cap = PQ_LISTS, PQ_CAP
+    cases = [   # (S, split, lut dtype, lists, cap, pairs, probes, code range)
+        (64, False, torch.float32, n_lists, cap, 1024, "random", 16),
+        (64, False, torch.bfloat16, n_lists, cap, 1024, "random", 16),
+        (32, True, torch.float32, n_lists, cap, 1024, "random", 256),
+        (32, True, torch.bfloat16, n_lists, cap, 1024, "random", 256),
+        (24, False, torch.float32, 64, 1000, 256, "random", 16),
+        (24, True, torch.bfloat16, 64, 1000, 256, "random", 256),
+        (96, False, torch.bfloat16, 64, 777, 300, "random", 16),
+        (64, False, torch.bfloat16, n_lists, cap, 1024, "repeated", 16),
+        (32, True, torch.float32, n_lists, cap, 1024, "repeated", 256),
+        (64, False, torch.float32, 64, 1000, 256, "random", 256),   # stray bytes: & 15
+    ]
+    for s, split, dt, nl, cp, pairs, how, hi in cases:
+        codes = torch.randint(0, hi, (nl, cp, s), generator=g, device=dev,
+                              dtype=torch.uint8)
+        top = 4 if how == "repeated" else nl
+        probes = torch.randint(0, top, (pairs,), generator=g, device=dev,
+                               dtype=torch.int32)
+        if how == "repeated":
+            probes[: pairs // 2] = 1
+        lut = (torch.randn((pairs, s, 32 if split else 16), generator=g, device=dev)
+               * 50.0).to(dt)
+        before = pq_scan.launches
+        got = pq_scan(codes, probes, lut, split=split)
+        torch.cuda.synchronize()
+        assert pq_scan.launches == before + 1, "pq_scan did not launch"
+        want = pq_scan_plain(codes, probes, lut, split=split)
+        assert torch.equal(got, want), (
+            f"pq_scan differs from its plain version: S={s} split={split} {dt} "
+            f"max abs err {float((got - want).abs().max())}")
+        emit(phase="check", kernel="pq_scan", n_lists=nl, cap=cp, S=s, split=split,
+             lut_dtype=str(dt).split(".")[1], pairs=pairs, probes=how,
+             code_range=hi, max_abs_err=0.0, bit_equal=True, ok=True)
+    st["pq_err"] = 0.0
 
 
 def phase_main(st):
@@ -261,6 +326,190 @@ def phase_main(st):
     st["select"] = vals
 
 
+def blobs(n, centers, seed):
+    """n rows, each one of ``centers`` plus unit Gaussian noise."""
+    import torch
+
+    g = torch.Generator(device=centers.device).manual_seed(seed)
+    lab = torch.randint(0, centers.shape[0], (n,), generator=g, device=centers.device)
+    return centers[lab] + torch.randn((n, centers.shape[1]), generator=g,
+                                      device=centers.device)
+
+
+def recall(ids, truth):
+    return float((ids[:, :, None] == truth[:, None, :]).any(-1).sum()) / truth.numel()
+
+
+def phase_ivf(st):
+    """IVF-PQ build, search and refine at 1M x 128 (the synthetic stand-in for
+    SIFT-1M, whose files the repository does not hold)."""
+    import dataclasses
+
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.neighbors.brute_force import BruteForce
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.ops.fused_knn import fused_knn
+    from raft_tpu_torch.ops.pq_scan import pq_scan
+    from raft_tpu_torch.ops.topk import topk
+
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+    centers = 2.0 * torch.randn((IVF_BLOBS, D_MAIN), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(10))
+    x = blobs(N_MAIN, centers, 11)
+    q = blobs(IVF_Q, centers, 12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = ivf_pq.build(ivf_pq.IndexParams(n_lists=1024, pq_bits=4, pq_dim=64, seed=0),
+                         x, res=res)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index_bytes = sum(t.numel() * t.element_size() for t in (
+        index.centers, index.centers_rot, index.rotation, index.codebooks,
+        index.list_codes, index.list_ids, index.list_sizes, index.list_consts))
+    assert index.size == N_MAIN and index.pq_dim == 64 and not index.pq_split
+    emit(phase="ivf_build", n=N_MAIN, d=D_MAIN, blobs=IVF_BLOBS, build_seconds=build_s,
+         n_lists=index.n_lists, capacity=index.capacity, pq_dim=index.pq_dim,
+         pq_bits=index.pq_bits, index_bytes=index_bytes,
+         code_bytes=index.list_codes.numel(), card=st["card"])
+
+    sp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
+    d, i = ivf_pq.search(sp, index, q, IVF_K0, res=res)      # warm-up
+    refine(x, q, i, K_MAIN, res=res)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()      # data, index and earlier phases' tensors
+    batches = 3
+    fused_knn.launches = topk.launches = pq_scan.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        d, i = ivf_pq.search(sp, index, q, IVF_K0, res=res)
+    torch.cuda.synchronize()
+    search_s = (time.perf_counter() - t0) / batches
+    launches = {"fused_knn": fused_knn.launches, "topk": topk.launches,
+                "pq_scan": pq_scan.launches}
+    assert launches["pq_scan"] > 0, "the IVF-PQ search did not launch pq_scan"
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        d, i = ivf_pq.search(sp, index, q, IVF_K0, res=res)
+        rd, ri = refine(x, q, i, K_MAIN, res=res)
+    torch.cuda.synchronize()
+    both_s = (time.perf_counter() - t0) / batches
+    peak = torch.cuda.max_memory_allocated()
+    assert d.shape == (IVF_Q, IVF_K0) and rd.shape == (IVF_Q, K_MAIN)
+    assert bool(torch.isfinite(rd).all()) and bool((ri >= 0).all())
+    assert bool((ri < N_MAIN).all())
+
+    # the plain route (the one-hot contraction) on 1,000 of the queries
+    pd, pi = ivf_pq.search(dataclasses.replace(sp, scan_impl="onehot"), index,
+                           q[:IVF_CHECK], IVF_K0, res=res)
+    err = knn_equiv(d[:IVF_CHECK], i[:IVF_CHECK], pd, pi, rtol=1e-5, atol=1e-5)
+    _, truth = BruteForce("sqeuclidean").build(x, res=res).search(q[:IVF_CHECK], K_MAIN)
+    rec = recall(ri[:IVF_CHECK], truth)
+    rec_pq = recall(i[:IVF_CHECK, :K_MAIN], truth)
+    assert rec >= IVF_RECALL_FLOOR, f"recall@10 {rec} below {IVF_RECALL_FLOOR}"
+    st["launches"]["pq_scan"] = launches["pq_scan"]
+    emit(phase="main", path="ivf_pq.search + refine", n=N_MAIN, d=D_MAIN, m=IVF_Q,
+         n_probes=8, lut_dtype="bfloat16", k0=IVF_K0, k=K_MAIN, batches=batches,
+         qps_search=IVF_Q / search_s, qps_search_refine=IVF_Q / both_s,
+         seconds_per_batch_search=search_s, seconds_per_batch_search_refine=both_s,
+         peak_device_bytes=peak, peak_above_live_bytes=peak - live, launches=launches,
+         pq_scan_launches_per_batch=launches["pq_scan"] / batches,
+         onehot_check_rows=IVF_CHECK, max_abs_err=err, recall_at_10=rec,
+         recall_at_10_before_refine=rec_pq, recall_floor=IVF_RECALL_FLOOR,
+         card=st["card"])
+    profile_ivf(st, index, x, q, sp, res)
+    st["ivf"] = (index, q)
+
+
+def profile_ivf(st, index, x, q, sp, res):
+    """Device time by kernel over one search + refine batch (torch.profiler),
+    and the device's idle share of the batch's host time. The whole table
+    goes to ivf_profile.txt in the ``--out`` directory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.neighbors.refine import refine
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, i = ivf_pq.search(sp, index, q, IVF_K0, res=res)
+        refine(x, q, i, K_MAIN, res=res)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key, str(e.device_type).endswith("CUDA")))
+    if any(r[3] for r in rows):
+        rows = [r for r in rows if r[3]]       # kernels only: ops would count twice
+    rows = sorted((r[:3] for r in rows), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    os.makedirs(st["out"], exist_ok=True)
+    with open(os.path.join(st["out"], "ivf_profile.txt"), "w") as f:
+        f.write(f"# {st['card']}; one {IVF_Q}-query ivf_pq.search + refine batch; "
+                f"host {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n")
+        for ms, n, key in rows:
+            f.write(f"{ms:12.3f} ms {n:8d}  {key}\n")
+    emit(phase="profile", path="ivf_pq.search + refine", wall_ms=wall_ms,
+         device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+         top=[dict(ms=ms, count=n, kernel=key[:100]) for ms, n, key in rows[:15]],
+         card=st["card"])
+
+
+def time_pq_scan(st):
+    """``pq_scan`` at the main path's shape: the 1,024 (query, probe) pairs of
+    one query tile of the 1M index, bfloat16 LUT."""
+    import torch
+
+    from raft_tpu_torch.distance.pairwise import full_f32
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_plain
+
+    index, q = st.pop("ivf")
+    qf = q[:128]
+    probes = ivf_pq._coarse_probes(index, qf, 8).to(torch.int64)
+    with full_f32():
+        qrot = qf @ index.rotation.T
+    lut, _ = ivf_pq._probe_luts(index, qrot, probes, *ivf_pq._codebooks_f32(index))
+    pairs, s, cap = probes.numel(), index.pq_dim, index.capacity
+    lut = lut.reshape(pairs, s, 16).to(torch.bfloat16).contiguous()
+    plist = probes.reshape(-1).to(torch.int32).contiguous()
+    codes = index.list_codes
+    saved = pq_scan.launches
+    ms = cuda_ms(lambda: pq_scan(codes, plist, lut), reps=50, warm=3)
+    plain_ms = cuda_ms(lambda: pq_scan_plain(codes, plist, lut), reps=3)
+    gathered = codes[plist.to(torch.int64)].to(torch.int64)[..., None]   # (pairs, cap, S, 1)
+    lutf = lut.to(torch.float32)[:, None].expand(pairs, cap, s, 16)
+
+    def library():
+        # the same sum as two PyTorch calls over the codes gathered beforehand
+        torch.gather(lutf, 3, gathered).sum(dim=(2, 3))
+
+    lib_ms = cuda_ms(library, reps=10)
+    assert torch.equal(pq_scan(codes, plist, lut), pq_scan_plain(codes, plist, lut))
+    lists = int(torch.unique(plist).numel())
+    nbytes = lists * cap * s + pairs * s * 16 * 2 + pairs * 4 + pairs * cap * 4
+    ops = pairs * cap * s
+    t_bytes, t_ops = nbytes / H100_BYTES_S, ops / H100_F32_FLOPS
+    st["pq_t"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                      bound_ms=max(t_bytes, t_ops) * 1e3,
+                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+    emit(phase="time", kernel="pq_scan", pairs=pairs, distinct_lists=lists, cap=cap, S=s,
+         lut_dtype="bfloat16", bytes=nbytes, adds=ops,
+         library="torch.gather + .sum over the gathered codes (two calls)",
+         card=st["card"], **st["pq_t"])
+    pq_scan.launches = saved
+
+
 def phase_times(st):
     import torch
 
@@ -317,6 +566,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="0123",
                     help="phases to run, e.g. 01 (default: all)")
+    ap.add_argument("--out", default=os.path.join("build", "profiles"),
+                    help="directory for the IVF-PQ profile table")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -332,14 +583,16 @@ def main(argv=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    st = {"card": "not read"}
+    st = {"card": "not read", "out": args.out}
     phase_build(st)
     if "1" in args.phases:
         phase_kernels(st)
     if "2" in args.phases:
         phase_main(st)
+        phase_ivf(st)
     if "3" in args.phases and "2" in args.phases:
         phase_times(st)
+        time_pq_scan(st)
     if all(p in args.phases for p in "123"):
         launches = st["launches"]
         emit(kernels=[
@@ -351,6 +604,9 @@ def main(argv=None):
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
                  replaces="raft_tpu/ops/topk.py:91", launches=launches["topk"],
                  max_abs_err=st["topk_err"], **st["topk_t"]),
+            dict(name="pq_scan", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
+                 replaces="raft_tpu/ops/pq_scan.py:61", launches=launches["pq_scan"],
+                 max_abs_err=st["pq_err"], **st["pq_t"]),
         ])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

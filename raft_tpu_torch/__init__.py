@@ -10,10 +10,13 @@ Entry points run on ``cuda`` unless the caller passes
 ``Resources(device="cpu")``; a CPU tensor takes each kernel's plain version.
 
 Ported so far:
-  core       errors, resource handle
-  distance   metric vocabulary, pairwise distances (L2, inner product, cosine)
+  core       errors, resource handle, index-file serialization (raft_tpu/13)
+  cluster    balanced k-means
+  distance   metric vocabulary, pairwise distances (L2, inner product, cosine),
+             fused L2 nearest neighbour
   matrix     select_k (row-wise top-k; wide rows run the ``topk`` kernel)
-  neighbors  brute-force kNN (the ``fused_knn`` kernel), sample filters
+  neighbors  brute-force kNN (the ``fused_knn`` kernel), IVF-PQ (the
+             ``pq_scan`` kernel), exact refine, sample filters
   ops        the kernels and their build
 """
 
@@ -22,7 +25,7 @@ import importlib
 from .core import RaftError, Resources, default_resources, set_default_resources
 from .version import __version__
 
-_SUBMODULES = {"core", "distance", "matrix", "neighbors", "ops"}
+_SUBMODULES = {"cluster", "core", "distance", "matrix", "neighbors", "ops"}
 
 
 def __getattr__(name):

@@ -14,8 +14,10 @@ import torch
 
 from raft_tpu_torch.core import Resources
 from raft_tpu_torch.matrix import select_k
+from raft_tpu_torch.neighbors import ivf_pq
 from raft_tpu_torch.neighbors.brute_force import BruteForce
 from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
+from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_plain
 from raft_tpu_torch.ops.topk import topk, topk_plain
 
 pytestmark = pytest.mark.gpu
@@ -98,3 +100,44 @@ def test_search_and_select_k_launch_kernels(cuda):
     assert topk.launches == before + 1
     ref = torch.sort(v, dim=1, stable=True)
     assert torch.equal(sv, ref.values[:, :5]) and torch.equal(si.long(), ref.indices[:, :5])
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pq_scan_kernel_bit_equal_to_plain(cuda, split, dtype):
+    """S=24 takes the byte loads, S=64 the 16-byte loads; pairs repeat lists."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for s in (24, 64):
+        codes = torch.randint(0, 256 if split else 16, (50, 333, s), generator=g,
+                              device=cuda, dtype=torch.uint8)
+        probes = torch.randint(0, 6, (700,), generator=g, device=cuda, dtype=torch.int32)
+        lut = (torch.randn((700, s, 32 if split else 16), generator=g, device=cuda)
+               * 30).to(dtype)
+        before = pq_scan.launches
+        got = pq_scan(codes, probes, lut, split=split)
+        torch.cuda.synchronize()
+        assert pq_scan.launches == before + 1
+        assert torch.equal(got, pq_scan_plain(codes, probes, lut, split=split))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_ivf_pq_search_on_card_equals_cpu(cuda, tmp_path, bits):
+    """An index built on the CPU, loaded onto the card: the card's search
+    (through the pq_scan kernel) answers as the CPU's (its plain version)."""
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(60, 32)) * 3.0
+    x = (centers[rng.integers(0, 60, 4000)] + rng.normal(size=(4000, 32))).astype(np.float32)
+    q = (centers[rng.integers(0, 60, 50)] + rng.normal(size=(50, 32))).astype(np.float32)
+    cpu = Resources(device="cpu")
+    index = ivf_pq.build(ivf_pq.IndexParams(n_lists=32, pq_bits=bits,
+                                            pq_dim=16 if bits == 4 else 8), x, res=cpu)
+    path = str(tmp_path / "index.bin")
+    ivf_pq.save(index, path)
+    card = ivf_pq.load(path, res=Resources(device="cuda"))
+    params = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
+    before = pq_scan.launches
+    d, i = ivf_pq.search(params, card, q, 20)
+    torch.cuda.synchronize()
+    assert pq_scan.launches > before
+    rd, ri = ivf_pq.search(params, index, q, 20, res=cpu)
+    _knn_equiv(d.cpu(), i.cpu(), rd, ri, rtol=1e-5, atol=1e-4)
