@@ -4,7 +4,7 @@ end to end.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --phases 01  # build and kernel checks only
-    python3 chip_smoke.py --out DIR    # where the profile table goes
+    python3 chip_smoke.py --out DIR    # where the profile tables go
                                        # (default build/profiles)
 
 Phases, each printing JSON lines:
@@ -15,22 +15,33 @@ Phases, each printing JSON lines:
      {1, 10, 64}, a keep-mask that keeps fewer than k rows, a ragged n);
      ``topk`` on a 10,000 x 100,003 float32 matrix (k in {10, 64, 128, 256},
      min and max, planted ties and infinities); ``pq_scan`` bit for bit
-     (pq4 at S=64 with float32 and bfloat16 LUTs, split pq8 at S=32, S of 24
-     and 96, caps that are not a multiple of the block, repeated lists, 1,024
-     pairs over a 1,024-list index of real size);
+     (pq4 at S=64 and S=128 with float32 and bfloat16 LUTs, split pq8 at
+     S=32, S of 24 and 96, caps that are not a multiple of the block,
+     repeated lists, 1,024 pairs over indexes of real size); ``cagra_hop``
+     bit for bit (2,048 queries over the 1M x 128 CAGRA set, itopk 32 and
+     64, width 1 and 2, both merges, float32 and int8 rows, d of 100 and
+     126, the prime call, -1 ids, invalid lanes and repeated ids);
   2. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``BruteForce("sqeuclidean").build(x).search(q, k=10)``
      at 1M x 128 float32 (uniform data from seed 0, 10,000 queries from
      seed 1), checked against the plain version; ``select_k`` on a
-     10,000 x 100,003 matrix; and IVF-PQ at SIFT-1M's shape in the JAX
+     10,000 x 100,003 matrix; IVF-PQ at SIFT-1M's shape in the JAX
      package's regression configuration (bench.py:660-668): 1M x 128 float32
      from 1,000 Gaussian blobs, ``build(n_lists=1024, pq_bits=4, pq_dim=64)``,
      ``search(n_probes=8, lut_dtype="bfloat16")`` at k=40 for 10,000 queries,
      ``refine`` to k=10; checked against the plain scan (``scan_impl=
      "onehot"``) and for recall@10 against exact ground truth on 1,000
-     queries, and profiled for one batch;
+     queries, and profiled for one batch; and CAGRA in the JAX package's
+     ``cagra_1m_itopk32`` row (bench.py:3242-3260, data bench.py:527-552):
+     1M x 128 float32 around 2,000 centers uniform in [0, 10) with N(0, 0.5^2)
+     noise (seeds 20-22), ``cagra.build(IndexParams())`` and
+     ``search(SearchParams(itopk_size=32))`` at k=10 for 10,000 queries;
+     checked for graph validity, recall@10 against exact ground truth and
+     against the ``hop_impl="xla"`` route on 1,000 queries, and profiled for
+     one batch;
   3. kernel times (CUDA events) beside their bound, their plain version's
-     time and one library call's time.
+     time and one library call's time (for ``cagra_hop``, which no single
+     PyTorch call computes, the ``"xla"`` hop body's time instead).
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -54,6 +65,9 @@ TOPK_SHAPE = (10_000, 100_003)
 PQ_LISTS, PQ_CAP = 1024, 1272   # a 1M-row, 1,024-list index bounded at 1.3x the mean list
 IVF_BLOBS, IVF_Q, IVF_K0, IVF_CHECK = 1_000, 10_000, 40, 1_000
 IVF_RECALL_FLOOR = 0.85         # recall@10 after refine; the card's first run read 0.9153
+CAGRA_CENTERS, CAGRA_Q, CAGRA_CHECK, HOP_M = 2_000, 10_000, 1_000, 2_048
+CAGRA_ITOPK = 32
+CAGRA_RECALL_FLOOR = 0.95       # recall@10 at itopk 32; the card's first full run read 0.9725
 
 
 def emit(**kw):
@@ -207,6 +221,7 @@ def phase_kernels(st):
             del pv, pi
     st["topk_err"] = err
     phase_pq_kernel(st)
+    phase_hop_kernel(st)
 
 
 def phase_pq_kernel(st):
@@ -229,6 +244,7 @@ def phase_pq_kernel(st):
         (64, False, torch.bfloat16, n_lists, cap, 1024, "repeated", 16),
         (32, True, torch.float32, n_lists, cap, 1024, "repeated", 256),
         (64, False, torch.float32, 64, 1000, 256, "random", 256),   # stray bytes: & 15
+        (128, False, torch.float32, 1000, 1300, 1024, "random", 16),  # the CAGRA build's
     ]
     for s, split, dt, nl, cp, pairs, how, hi in cases:
         codes = torch.randint(0, hi, (nl, cp, s), generator=g, device=dev,
@@ -252,6 +268,96 @@ def phase_pq_kernel(st):
              lut_dtype=str(dt).split(".")[1], pairs=pairs, probes=how,
              code_range=hi, max_abs_err=0.0, bit_equal=True, ok=True)
     st["pq_err"] = 0.0
+
+
+def hop_candidates(beam_i, lq, lx, cw, g):
+    """(m, cw) candidate ids: half from each query's own cluster (they beat
+    a random beam and get merged), half uniform; with a beam id, a repeat
+    within the row and a -1 planted."""
+    import torch
+
+    m, dev = beam_i.shape[0], beam_i.device
+    order = torch.argsort(lx)
+    counts = torch.bincount(lx, minlength=CAGRA_CENTERS)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = starts[lq][:, None] + (torch.rand((m, cw), generator=g, device=dev)
+                                 * counts[lq][:, None]).long()
+    near = order[pos]
+    far = torch.randint(0, lx.shape[0], (m, cw), generator=g, device=dev)
+    nbrs = torch.where(torch.rand((m, cw), generator=g, device=dev) < 0.5, near, far)
+    nbrs = nbrs.to(torch.int32)
+    nbrs[::2, 0] = beam_i[::2, 1]
+    nbrs[::3, 1] = nbrs[::3, 2]
+    nbrs[::4, 3] = -1
+    return nbrs.contiguous()
+
+
+def phase_hop_kernel(st):
+    """``cagra_hop`` against ``cagra_hop_plain`` on the card, bit for bit, on
+    2,048 queries of the CAGRA set. Each case starts from a beam of random
+    ids with their true distances (every 7th row half full), sorted by one
+    plain prime call, then checks the kernel's prime call and one hop."""
+    import torch
+
+    from raft_tpu_torch.ops.cagra_hop import cagra_hop, cagra_hop_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    x, q, lx, lq = cagra_data()
+    q, lq = q[:HOP_M].contiguous(), lq[:HOP_M]
+    sets = {("f32", 128): (x, q),
+            ("int8", 128): ((x * 12.7 - 64.0).round().clamp(-128, 127).to(torch.int8),
+                            q * 12.7 - 64.0),
+            ("f32", 100): (x[:, :100].contiguous(), q[:, :100].contiguous()),
+            ("f32", 126): (x[:, :126].contiguous(), q[:, :126].contiguous()),
+            ("int8", 100): (x[:, :100].mul(12.7).sub(64.0).round().clamp(-128, 127)
+                            .to(torch.int8).contiguous(), q[:, :100] * 12.7 - 64.0)}
+    cases = [   # (itopk, width, merge, rows, d)
+        (32, 1, "extract", "f32", 128), (32, 1, "arena", "f32", 128),
+        (32, 2, "extract", "f32", 128), (32, 2, "arena", "f32", 128),
+        (64, 1, "arena", "f32", 128), (64, 2, "extract", "f32", 128),
+        (64, 2, "arena", "f32", 128), (32, 1, "arena", "int8", 128),
+        (64, 2, "extract", "int8", 128), (32, 1, "extract", "f32", 100),
+        (32, 2, "arena", "f32", 126), (32, 1, "arena", "int8", 100),
+    ]
+    m = HOP_M
+    for itopk, width, merge, kind, d in cases:
+        data, qq = sets[(kind, d)]
+        qq = qq.contiguous()
+        cw = 32 * width
+        ids = torch.randint(0, N_MAIN, (m, itopk), generator=g, device=dev, dtype=torch.int32)
+        bd = torch.full((m, 128), float("inf"), device=dev)
+        bi = torch.full((m, 128), -1, dtype=torch.int32, device=dev)
+        bv = torch.ones((m, 128), dtype=torch.int32, device=dev)
+        bd[:, :itopk] = ((data[ids.long()].float() - qq[:, None]) ** 2).sum(-1)
+        bi[:, :itopk] = ids
+        bv[:, :itopk] = 0
+        bd[::7, itopk // 2:itopk] = float("inf")
+        bi[::7, itopk // 2:itopk] = -1
+        none = torch.full((m, cw), -1, dtype=torch.int32, device=dev)
+        zero = torch.zeros((m, cw), dtype=torch.int32, device=dev)
+        prime = (qq, bd, bi, bv, none, data, zero, itopk, width)
+        beam = cagra_hop_plain(*prime, merge="extract")[:3]
+        nbrs = hop_candidates(beam[1], lq, lx, cw, g)
+        valid = (torch.rand((m, cw), generator=g, device=dev) > 0.1).to(torch.int32)
+        valid[5::11] = 0
+        for what, args in (("prime", prime), ("hop", (qq, *beam, nbrs, data, valid, itopk,
+                                                      width))):
+            before = cagra_hop.launches
+            got = cagra_hop(*args, merge=merge)
+            torch.cuda.synchronize()
+            assert cagra_hop.launches == before + 1, "cagra_hop did not launch"
+            want = cagra_hop_plain(*args, merge=merge)
+            for name, a, b in zip(("beam_d", "beam_i", "beam_v", "pick", "no_cand"), got, want):
+                assert torch.equal(a, b), (
+                    f"cagra_hop differs from its plain version in {name}: {what} itopk={itopk} "
+                    f"width={width} {merge} {kind} d={d}; {int((a != b).sum())} entries")
+            inserted = int((got[2][:, :itopk] == 0).sum()) if what == "hop" else 0
+            emit(phase="check", kernel="cagra_hop", call=what, m=m, n=data.shape[0], d=d,
+                 rows=kind, itopk=itopk, width=width, cw=cw, merge=merge,
+                 unvisited_after=inserted, no_cand_rows=int(got[4][:, 0].sum()),
+                 max_abs_err=0.0, bit_equal=True, ok=True)
+    st["hop_err"] = 0.0
 
 
 def phase_main(st):
@@ -326,14 +432,28 @@ def phase_main(st):
     st["select"] = vals
 
 
-def blobs(n, centers, seed):
-    """n rows, each one of ``centers`` plus unit Gaussian noise."""
+def blobs(n, centers, seed, scale=1.0):
+    """n rows, each one of ``centers`` plus N(0, scale^2) noise, and their
+    center labels."""
     import torch
 
     g = torch.Generator(device=centers.device).manual_seed(seed)
     lab = torch.randint(0, centers.shape[0], (n,), generator=g, device=centers.device)
-    return centers[lab] + torch.randn((n, centers.shape[1]), generator=g,
-                                      device=centers.device)
+    return centers[lab] + scale * torch.randn((n, centers.shape[1]), generator=g,
+                                              device=centers.device), lab
+
+
+def cagra_data():
+    """The CAGRA set (bench.py's ``_make_clustered(1_000_000, 128, 10_000,
+    2000)`` drawn with torch): dataset, queries and their labels."""
+    import torch
+
+    dev = torch.device("cuda")
+    centers = 10.0 * torch.rand((CAGRA_CENTERS, D_MAIN), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(20))
+    x, lx = blobs(N_MAIN, centers, 21, 0.5)
+    q, lq = blobs(CAGRA_Q, centers, 22, 0.5)
+    return x, q, lx, lq
 
 
 def recall(ids, truth):
@@ -359,8 +479,8 @@ def phase_ivf(st):
     dev = torch.device("cuda")
     centers = 2.0 * torch.randn((IVF_BLOBS, D_MAIN), device=dev,
                                 generator=torch.Generator(device=dev).manual_seed(10))
-    x = blobs(N_MAIN, centers, 11)
-    q = blobs(IVF_Q, centers, 12)
+    x, _ = blobs(N_MAIN, centers, 11)
+    q, _ = blobs(IVF_Q, centers, 12)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = ivf_pq.build(ivf_pq.IndexParams(n_lists=1024, pq_bits=4, pq_dim=64, seed=0),
@@ -421,25 +541,23 @@ def phase_ivf(st):
          onehot_check_rows=IVF_CHECK, max_abs_err=err, recall_at_10=rec,
          recall_at_10_before_refine=rec_pq, recall_floor=IVF_RECALL_FLOOR,
          card=st["card"])
-    profile_ivf(st, index, x, q, sp, res)
+    profile_batch(st, "ivf_pq.search + refine", "ivf_profile.txt",
+                  lambda: refine(x, q, ivf_pq.search(sp, index, q, IVF_K0, res=res)[1],
+                                 K_MAIN, res=res))
     st["ivf"] = (index, q)
 
 
-def profile_ivf(st, index, x, q, sp, res):
-    """Device time by kernel over one search + refine batch (torch.profiler),
+def profile_batch(st, path, filename, batch):
+    """Device time by kernel over one call of ``batch`` (torch.profiler),
     and the device's idle share of the batch's host time. The whole table
-    goes to ivf_profile.txt in the ``--out`` directory."""
+    goes to ``filename`` in the ``--out`` directory."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from raft_tpu_torch.neighbors import ivf_pq
-    from raft_tpu_torch.neighbors.refine import refine
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, i = ivf_pq.search(sp, index, q, IVF_K0, res=res)
-        refine(x, q, i, K_MAIN, res=res)
+        batch()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -454,15 +572,201 @@ def profile_ivf(st, index, x, q, sp, res):
     rows = sorted((r[:3] for r in rows), reverse=True)
     busy_ms = sum(r[0] for r in rows)
     os.makedirs(st["out"], exist_ok=True)
-    with open(os.path.join(st["out"], "ivf_profile.txt"), "w") as f:
-        f.write(f"# {st['card']}; one {IVF_Q}-query ivf_pq.search + refine batch; "
+    with open(os.path.join(st["out"], filename), "w") as f:
+        f.write(f"# {st['card']}; one 10,000-query {path} batch; "
                 f"host {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n")
         for ms, n, key in rows:
             f.write(f"{ms:12.3f} ms {n:8d}  {key}\n")
-    emit(phase="profile", path="ivf_pq.search + refine", wall_ms=wall_ms,
+    emit(phase="profile", path=path, wall_ms=wall_ms,
          device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
          top=[dict(ms=ms, count=n, kernel=key[:100]) for ms, n, key in rows[:15]],
          card=st["card"])
+
+
+def phase_cagra(st):
+    """CAGRA build and search at 1M x 128 in the JAX package's
+    ``cagra_1m_itopk32`` configuration: ``IndexParams()`` (every default),
+    ``SearchParams(itopk_size=32)``, k=10, 10,000-query batches."""
+    import dataclasses
+    import logging
+    import re
+
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import cagra, ivf_pq
+    from raft_tpu_torch.neighbors.brute_force import BruteForce
+    from raft_tpu_torch.ops.cagra_hop import cagra_hop
+    from raft_tpu_torch.ops.fused_knn import fused_knn
+    from raft_tpu_torch.ops.pq_scan import pq_scan
+    from raft_tpu_torch.ops.topk import topk
+
+    def counts():
+        return {"fused_knn": fused_knn.launches, "topk": topk.launches,
+                "pq_scan": pq_scan.launches, "cagra_hop": cagra_hop.launches}
+
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+    x, q, _, _ = cagra_data()
+    notes = []
+    handler = logging.Handler()
+    handler.emit = lambda record: notes.append(record.getMessage())
+    log = logging.getLogger("raft_tpu_torch")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    params = cagra.IndexParams()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    fused_knn.launches = topk.launches = pq_scan.launches = cagra_hop.launches = 0
+    t0 = time.perf_counter()
+    index = cagra.build(params, x, res=res)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = counts()
+    build_peak = torch.cuda.max_memory_allocated() - live
+    log.removeHandler(handler)
+    tuned = [m for m in notes if "build_n_probes auto" in m]
+    probes = int(re.search(r"using (\d+) probes", tuned[0]).group(1)) if (
+        tuned and "using" in tuned[0]) else 32
+    g = index.graph
+    n_self = int((g == torch.arange(N_MAIN, device=dev, dtype=torch.int32)[:, None]).sum())
+    assert g.shape == (N_MAIN, params.graph_degree) and g.dtype == torch.int32
+    assert int(g.min()) >= 0 and int(g.max()) < N_MAIN, "graph ids out of range"
+    assert n_self == 0, f"{n_self} self-edges"
+    k, gpu_top_k, n_lists, pq_bits = cagra.knn_build_plan(params, N_MAIN, D_MAIN)
+    assert build_launches["pq_scan"] > 0, "the CAGRA build did not launch pq_scan"
+    emit(phase="cagra_build", n=N_MAIN, d=D_MAIN, centers=CAGRA_CENTERS,
+         build_seconds=build_s, n_lists=n_lists, pq_bits=pq_bits,
+         pq_dim=ivf_pq._default_pq_dim(D_MAIN, pq_bits), self_search_k=gpu_top_k + 1, refine_k=k + 1,
+         probes_after_chunk_0=probes, autotune_note=tuned, seed_pool_hint=index.seed_pool_hint,
+         graph_shape=list(g.shape), self_edges=n_self, graph_ids_in_range=True,
+         launches=build_launches, peak_above_live_bytes=build_peak, card=st["card"])
+
+    sp = cagra.SearchParams(itopk_size=CAGRA_ITOPK)
+    impl = cagra.resolve_hop_impl(sp, index.graph_degree, index.dim)
+    assert impl == "fused_arena", impl
+    cagra.search(sp, index, q, K_MAIN, res=res)              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    batches = 3
+    fused_knn.launches = topk.launches = pq_scan.launches = cagra_hop.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        d, i = cagra.search(sp, index, q, K_MAIN, res=res)
+    torch.cuda.synchronize()
+    search_s = (time.perf_counter() - t0) / batches
+    launches = counts()
+    assert launches["cagra_hop"] > 0, "the CAGRA search did not launch cagra_hop"
+    peak = torch.cuda.max_memory_allocated()
+    assert d.shape == (CAGRA_Q, K_MAIN) and i.shape == (CAGRA_Q, K_MAIN)
+    assert bool(torch.isfinite(d).all()) and bool((i >= 0).all()) and bool((i < N_MAIN).all())
+
+    qc = q[:CAGRA_CHECK]
+    _, truth = BruteForce("sqeuclidean").build(x, res=res).search(qc, K_MAIN)
+    rec = recall(i[:CAGRA_CHECK], truth)
+    # the kernel route against the "xla" route: ids overlap >= 0.99; where a
+    # row's id set agrees, its sorted distances agree within rtol 1e-4. The
+    # routes score in different forms (direct against expanded, ~3e-3 apart
+    # at distances ~64), so a near-tie can swap an id: on such a row the
+    # kernel route's k-th distance is no worse than the "xla" route's
+    # (1 + 1e-4) plus 3e-3, and both rows' distances are printed.
+    kd, ki = cagra.search(sp, index, qc, K_MAIN, res=res)
+    xd, xi = cagra.search(dataclasses.replace(sp, hop_impl="xla"), index, qc, K_MAIN, res=res)
+    overlap = recall(ki, xi)
+    same = (torch.sort(ki, 1).values == torch.sort(xi, 1).values).all(1)
+    ks, xs = torch.sort(kd[same], 1).values, torch.sort(xd[same], 1).values
+    route_err = float((ks - xs).abs().max()) if bool(same.any()) else 0.0
+    route_ok = bool(torch.allclose(ks, xs, rtol=1e-4, atol=1e-4))
+    kth_k = torch.sort(kd[~same], 1).values[:, -1]
+    kth_x = torch.sort(xd[~same], 1).values[:, -1]
+    kth_ok = bool((kth_k <= kth_x * (1 + 1e-4) + 3e-3).all())
+    for r in torch.nonzero(~same)[:, 0].tolist():
+        emit(phase="route_row", row=r, kernel_dists=torch.sort(kd[r]).values.tolist(),
+             xla_dists=torch.sort(xd[r]).values.tolist(),
+             kernel_recall=recall(ki[r:r + 1], truth[r:r + 1]),
+             xla_recall=recall(xi[r:r + 1], truth[r:r + 1]))
+    st["launches"]["cagra_hop"] = launches["cagra_hop"]
+    emit(phase="main", path="cagra.search", n=N_MAIN, d=D_MAIN, m=CAGRA_Q, k=K_MAIN,
+         itopk=CAGRA_ITOPK, hop_impl=impl, batches=batches, qps=CAGRA_Q / search_s,
+         seconds_per_batch=search_s, launches=launches,
+         cagra_hop_launches_per_batch=launches["cagra_hop"] / batches,
+         hops_per_batch=launches["cagra_hop"] / batches - 1,
+         peak_device_bytes=peak, peak_above_live_bytes=peak - live,
+         recall_at_10=rec, recall_floor=CAGRA_RECALL_FLOOR, check_rows=CAGRA_CHECK,
+         xla_route_overlap=overlap, xla_route_recall_at_10=recall(xi, truth),
+         xla_route_rows_differing=int((~same).sum()),
+         xla_route_max_abs_err_same_rows=route_err, card=st["card"])
+    assert rec >= CAGRA_RECALL_FLOOR, f"recall@10 {rec} below {CAGRA_RECALL_FLOOR}"
+    assert overlap >= 0.99, f"kernel route overlaps the xla route at {overlap}"
+    assert route_ok, f"kernel and xla route distances differ by {route_err}"
+    assert kth_ok, "where the ids differ, the kernel route's k-th distance is worse"
+    profile_batch(st, "cagra.search", "cagra_profile.txt",
+                  lambda: cagra.search(sp, index, q, K_MAIN, res=res))
+    st["cagra"] = (index, q)
+
+
+def time_cagra_hop(st):
+    """``cagra_hop`` at the main path's shape: 10,000 queries, a mid-search
+    beam (the best 32 of a 10-hop search, the best 10 visited), cw=32,
+    d=128, arena merge."""
+    import torch
+
+    from raft_tpu_torch.neighbors import cagra
+    from raft_tpu_torch.ops.cagra_hop import cagra_hop, cagra_hop_plain
+
+    index, q = st.pop("cagra")
+    x, graph = index.dataset, index.graph
+    m, d = q.shape
+    it = CAGRA_ITOPK
+    dev = q.device
+    dist, ids = cagra.search(cagra.SearchParams(itopk_size=it, max_iterations=10), index, q, it)
+    bd = torch.full((m, 128), float("inf"), device=dev)
+    bi = torch.full((m, 128), -1, dtype=torch.int32, device=dev)
+    bv = torch.ones((m, 128), dtype=torch.int32, device=dev)
+    bd[:, :it], bi[:, :it], bv[:, 10:it] = dist, ids, 0
+    _, _, _, pick, nocand = cagra_hop_plain(
+        q, bd, bi, bv, torch.full((m, 32), -1, dtype=torch.int32, device=dev), x,
+        torch.zeros((m, 32), dtype=torch.int32, device=dev), it, 1, merge="arena")
+    nbrs = graph[pick.long().clamp_max(N_MAIN - 1)].reshape(m, 32).contiguous()
+    valid = (1 - nocand).repeat_interleave(32, dim=1).contiguous()
+    args = (q, bd, bi, bv, nbrs, x, valid, it, 1)
+    saved = cagra_hop.launches
+    ms = cuda_ms(lambda: cagra_hop(*args, merge="arena"), reps=20, warm=3)
+    extract_ms = cuda_ms(lambda: cagra_hop(*args, merge="extract"), reps=20, warm=3)
+    plain_ms = cuda_ms(lambda: cagra_hop_plain(*args, merge="arena"), reps=2)
+    for a, b in zip(cagra_hop(*args, merge="arena"), cagra_hop_plain(*args, merge="arena")):
+        assert torch.equal(a, b), "cagra_hop differs from its plain version at the timed shape"
+    # the "xla" route's hop body on the same beam: its beam is (m, itopk + cw)
+    # and holds distances without |q|^2
+    qn = (q * q).sum(1, keepdim=True)
+    xb_i = torch.cat([ids, torch.full((m, 32), -1, dtype=torch.int32, device=dev)], 1)
+    xb_d = torch.cat([dist - qn, torch.full((m, 32), float("inf"), device=dev)], 1)
+    xb_v = torch.zeros((m, it + 32), dtype=torch.bool, device=dev)
+    xb_v[:, :10] = True
+    dn2 = x.square().sum(1)
+    xla_ms = cuda_ms(lambda: cagra._xla_hop(x, dn2, q, graph, xb_i, xb_d, xb_v, it, 1),
+                     reps=10)
+    # bytes: each distinct candidate row read once (queries share clusters,
+    # so their neighbour lists overlap); operations: every valid pair scored
+    ok = (nbrs >= 0) & (valid > 0)
+    rows = int(ok.sum())
+    distinct = int(torch.unique(nbrs[ok]).numel())
+    nbytes = distinct * d * 4 + m * d * 4 + 3 * m * 128 * 4 * 2 + 2 * m * 32 * 4 + 2 * m * 4
+    ops = 3 * rows * d
+    t_bytes, t_ops = nbytes / H100_BYTES_S, ops / H100_F32_FLOPS
+    st["hop_t"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       xla_hop_ms=xla_ms)
+    emit(phase="time", kernel="cagra_hop", m=m, cw=32, d=d, itopk=it, merge="arena",
+         pairs_scored=rows, distinct_rows=distinct, bytes=nbytes, flops=ops, extract_ms=extract_ms,
+         library="none: no single PyTorch call computes a hop",
+         xla_hop="the port's hop_impl='xla' hop body (gather, bmm, three stable sorts: "
+                 "several calls)",
+         card=st["card"], **st["hop_t"])
+    cagra_hop.launches = saved
 
 
 def time_pq_scan(st):
@@ -567,7 +871,7 @@ def main(argv=None):
     ap.add_argument("--phases", default="0123",
                     help="phases to run, e.g. 01 (default: all)")
     ap.add_argument("--out", default=os.path.join("build", "profiles"),
-                    help="directory for the IVF-PQ profile table")
+                    help="directory for the IVF-PQ and CAGRA profile tables")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -590,9 +894,11 @@ def main(argv=None):
     if "2" in args.phases:
         phase_main(st)
         phase_ivf(st)
+        phase_cagra(st)
     if "3" in args.phases and "2" in args.phases:
         phase_times(st)
         time_pq_scan(st)
+        time_cagra_hop(st)
     if all(p in args.phases for p in "123"):
         launches = st["launches"]
         emit(kernels=[
@@ -607,6 +913,10 @@ def main(argv=None):
             dict(name="pq_scan", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
                  replaces="raft_tpu/ops/pq_scan.py:61", launches=launches["pq_scan"],
                  max_abs_err=st["pq_err"], **st["pq_t"]),
+            dict(name="cagra_hop", route="cuda",
+                 source="raft_tpu_torch/ops/csrc/cagra_hop.cu",
+                 replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
+                 max_abs_err=st["hop_err"], **st["hop_t"]),
         ])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

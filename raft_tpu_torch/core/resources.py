@@ -65,6 +65,15 @@ class Resources:
             x = torch.from_numpy(a if a.flags.writeable else a.copy())
         return x.to(device=dev, dtype=dtype)
 
+    def check_holds(self, device, what: str) -> None:
+        """Raise unless ``device`` is the handle's device (a device with no
+        index, such as ``"cuda"``, matches any of its type)."""
+        mine, theirs = torch.device(self.device), torch.device(device)
+        same = mine.type == theirs.type and (
+            mine.index is None or theirs.index is None or mine.index == theirs.index)
+        expects(same, "%s lives on %s but the handle names %s; move it or pass "
+                "Resources(device=%r)", what, theirs, mine, str(theirs))
+
     def sync(self) -> None:
         """Wait for all work queued on the handle's device."""
         if self.torch_device.type == "cuda":

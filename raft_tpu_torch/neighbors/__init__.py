@@ -1,5 +1,6 @@
-"""Nearest-neighbour search: exact brute force, IVF-PQ and exact refine."""
+"""Nearest-neighbour search: exact brute force, IVF-PQ, exact refine and
+CAGRA."""
 
-from . import brute_force, ivf_pq, refine, sample_filter
+from . import brute_force, cagra, ivf_pq, refine, sample_filter
 
-__all__ = ["brute_force", "ivf_pq", "refine", "sample_filter"]
+__all__ = ["brute_force", "cagra", "ivf_pq", "refine", "sample_filter"]

@@ -52,6 +52,23 @@ def _as_signed(x):
     return x
 
 
+def _coerce_queries(data_kind: str, queries):
+    """Queries in a byte index's storage domain (the search-side half of the
+    :func:`_as_signed` contract): integer queries must match the index's
+    original dtype and shift with it, to float32; float queries against a
+    shifted uint8 index shift by -128. Float indexes take queries as given."""
+    if data_kind not in ("int8", "uint8"):
+        return queries
+    if queries.dtype in _INT_DTYPES:
+        expects(str(queries.dtype).split(".")[-1] == data_kind,
+                "this index stores %s vectors; got %s queries",
+                data_kind, str(queries.dtype).split(".")[-1])
+        return _as_signed(queries).to(torch.float32)
+    if data_kind == "uint8":
+        return queries.to(torch.float32) - 128.0
+    return queries
+
+
 def _bf_knn_s8(dataset, queries, k, metric, keep_mask):
     """int8 / uint8 pairs through the kernel's s8 mode; distances are exact
     integers for d <= ~340."""

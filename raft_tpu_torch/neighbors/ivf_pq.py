@@ -703,7 +703,10 @@ def search(params: SearchParams, index: IvfPqIndex, queries, k: int,
            sample_filter=None, res: Resources | None = None):
     """Search (reference: ivf_pq::search :723). Returns (distances (m, k)
     float32, ids (m, k) int32) on the index's device; distances are the
-    PQ-quantized ones, id -1 marks empty candidate slots."""
+    PQ-quantized ones, id -1 marks empty candidate slots. A handle ``res``
+    that names another device than the index's raises."""
+    if res is not None:
+        res.check_holds(index.device, "the ivf_pq index")
     res = res or default_resources()
     if sample_filter is not None:
         _not_ported("sample_filter")

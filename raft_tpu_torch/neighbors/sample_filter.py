@@ -8,7 +8,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["NoFilter", "BitsetFilter", "resolve_filter"]
+from ..core.errors import expects
+
+__all__ = ["NoFilter", "BitsetFilter", "resolve_filter", "validate_filter_covers"]
 
 
 def _as_bool_tensor(x) -> torch.Tensor:
@@ -37,3 +39,14 @@ def resolve_filter(f, device=None):
         return None
     mask = f.mask if isinstance(f, BitsetFilter) else _as_bool_tensor(f)
     return mask if device is None else mask.to(device)
+
+
+def validate_filter_covers(index, keep_mask) -> None:
+    """Check that the keep-mask covers every stored id: the largest of an
+    IVF index's ``list_ids``, or ``size - 1`` for an index whose ids are its
+    dataset rows (cagra)."""
+    ids = getattr(index, "list_ids", None)
+    max_id = index.size - 1 if ids is None else int(ids.max())
+    expects(keep_mask.shape[0] > max_id,
+            "sample filter length %d must cover max stored id %d",
+            keep_mask.shape[0], max_id)

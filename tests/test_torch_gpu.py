@@ -14,8 +14,9 @@ import torch
 
 from raft_tpu_torch.core import Resources
 from raft_tpu_torch.matrix import select_k
-from raft_tpu_torch.neighbors import ivf_pq
+from raft_tpu_torch.neighbors import cagra, ivf_pq
 from raft_tpu_torch.neighbors.brute_force import BruteForce
+from raft_tpu_torch.ops.cagra_hop import cagra_hop, cagra_hop_plain
 from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
 from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_plain
 from raft_tpu_torch.ops.topk import topk, topk_plain
@@ -141,3 +142,68 @@ def test_ivf_pq_search_on_card_equals_cpu(cuda, tmp_path, bits):
     assert pq_scan.launches > before
     rd, ri = ivf_pq.search(params, index, q, 20, res=cpu)
     _knn_equiv(d.cpu(), i.cpu(), rd, ri, rtol=1e-5, atol=1e-4)
+
+
+def _hop_inputs(cuda, rows, d, itopk, width, seed):
+    """A beam of random ids at their true distances, sorted by a plain prime
+    call, and a hop's candidates: a beam id, a repeat, a -1, invalid lanes."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    m, n, cw = 300, 5000, 32 * width
+    if rows == "int8":
+        data = torch.randint(-128, 128, (n, d), generator=g, device=cuda, dtype=torch.int8)
+        q = torch.rand((m, d), generator=g, device=cuda) * 200.0 - 100.0
+    else:
+        data = torch.rand((n, d), generator=g, device=cuda)
+        q = torch.rand((m, d), generator=g, device=cuda)
+    ids = torch.randint(0, n, (m, itopk), generator=g, device=cuda, dtype=torch.int32)
+    bd = torch.full((m, 128), float("inf"), device=cuda)
+    bi = torch.full((m, 128), -1, dtype=torch.int32, device=cuda)
+    bv = torch.ones((m, 128), dtype=torch.int32, device=cuda)
+    bd[:, :itopk] = ((data[ids.long()].float() - q[:, None]) ** 2).sum(-1)
+    bi[:, :itopk], bv[:, :itopk] = ids, 0
+    none = torch.full((m, cw), -1, dtype=torch.int32, device=cuda)
+    zero = torch.zeros((m, cw), dtype=torch.int32, device=cuda)
+    bd, bi, bv = cagra_hop_plain(q, bd, bi, bv, none, data, zero, itopk, width)[:3]
+    nbrs = torch.randint(0, n, (m, cw), generator=g, device=cuda, dtype=torch.int32)
+    nbrs[::2, 0] = bi[::2, 1]
+    nbrs[::3, 1] = nbrs[::3, 2]
+    nbrs[::4, 3] = -1
+    valid = (torch.rand((m, cw), generator=g, device=cuda) > 0.1).to(torch.int32)
+    return q, bd, bi, bv, nbrs, data, valid
+
+
+@pytest.mark.parametrize("merge", ["extract", "arena"])
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("rows,d", [("f32", 128), ("f32", 70), ("int8", 128)])
+def test_cagra_hop_kernel_bit_equal_to_plain(cuda, merge, width, rows, d):
+    """d=70 takes the kernel's scalar loads; every output is bit-equal."""
+    args = _hop_inputs(cuda, rows, d, 32, width, seed=width * 7 + d)
+    before = cagra_hop.launches
+    got = cagra_hop(*args, 32, width, merge=merge)
+    torch.cuda.synchronize()
+    assert cagra_hop.launches == before + 1
+    for a, b in zip(got, cagra_hop_plain(*args, 32, width, merge=merge)):
+        assert torch.equal(a, b)
+
+
+def test_cagra_search_on_card_equals_cpu(cuda, tmp_path):
+    """An index built on the CPU, loaded onto the card: the card's fused
+    search (through the cagra_hop kernel) answers as the CPU's."""
+    rng = np.random.default_rng(4)
+    x = rng.random((3000, 24)).astype(np.float32)
+    q = rng.random((40, 24)).astype(np.float32)
+    cpu = Resources(device="cpu")
+    index = cagra.build(cagra.IndexParams(intermediate_graph_degree=32, graph_degree=16),
+                        x, res=cpu)
+    path = str(tmp_path / "cagra.bin")
+    cagra.save(index, path)
+    card = cagra.load(path, res=Resources(device="cuda"))
+    ids = torch.from_numpy(np.random.default_rng(5).permutation(3000)[:64])
+    before = cagra_hop.launches
+    d, i = cagra._cagra_search(card, torch.from_numpy(q).to(cuda), 10, 32, 42, 1, False,
+                               seed_pool=64, hop_impl="fused_arena", pool_ids=ids)
+    torch.cuda.synchronize()
+    assert cagra_hop.launches > before
+    rd, ri = cagra._cagra_search(index, torch.from_numpy(q), 10, 32, 42, 1, False,
+                                 seed_pool=64, hop_impl="fused_arena", pool_ids=ids)
+    _knn_equiv(d.cpu(), i.cpu(), rd, ri, rtol=1e-5, atol=1e-5)

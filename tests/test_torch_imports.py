@@ -26,4 +26,4 @@ def test_port_imports_neither_jax_nor_raft_tpu():
 
 def test_port_keeps_kernel_sources_beside_wrappers():
     csrc = ROOT / "raft_tpu_torch" / "ops" / "csrc"
-    assert {p.stem for p in csrc.glob("*.cu")} == {"fused_knn", "topk", "pq_scan"}
+    assert {p.stem for p in csrc.glob("*.cu")} == {"fused_knn", "topk", "pq_scan", "cagra_hop"}

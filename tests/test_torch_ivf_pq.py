@@ -283,3 +283,11 @@ def test_not_yet_ported_and_contract_errors(data, jax_files):
             tpq.build(tpq.IndexParams(n_lists=8), x[:500])
         with pytest.raises(RaftError, match="CUDA"):
             tpq.load(jax_files["pq4"][1])
+
+
+def test_search_refuses_a_handle_on_another_device(data, jax_files):
+    """The search runs on the index's device; a handle naming another raises."""
+    _, q, _ = data
+    index = tpq.load(jax_files["pq4"][1], res=CPU)
+    with pytest.raises(RaftError, match="lives on cpu"):
+        tpq.search(tpq.SearchParams(n_probes=4), index, q, 10, res=Resources(device="cuda"))
