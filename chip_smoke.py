@@ -13,8 +13,12 @@ Phases, each printing JSON lines:
      paths' widths: ``fused_knn`` over 1,000,000 x 128 rows (2,048 queries;
      modes f32 / f32x3 / bf16 / s8, l2 with and without sqrt, ip, k in
      {1, 10, 64}, a keep-mask that keeps fewer than k rows, a ragged n);
-     ``topk`` on a 10,000 x 100,003 float32 matrix (k in {10, 64, 128, 256},
-     min and max, planted ties and infinities); ``pq_scan`` bit for bit
+     ``topk`` bit for bit, ids and value bits, on a 10,000 x 100,003
+     float32 matrix (k in {10, 64, 128, 256}, min and max, int64 payload ids
+     at k=10) and on the index paths' narrow rows (10,000 and 128 rows x
+     1,024, 10,176 and 16,384 columns, float32 / bfloat16 / float16, k in
+     {10, 40, 193}), each with ties, infinities, clamped extremes, -0 and
+     NaN planted, one row all NaN and one sorted; ``pq_scan`` bit for bit
      (pq4 at S=64 and S=128 with float32 and bfloat16 LUTs, split pq8 at
      S=32, S of 24 and 96, caps that are not a multiple of the block,
      repeated lists, 1,024 pairs over indexes of real size); ``cagra_hop``
@@ -38,10 +42,16 @@ Phases, each printing JSON lines:
      ``search(SearchParams(itopk_size=32))`` at k=10 for 10,000 queries;
      checked for graph validity, recall@10 against exact ground truth and
      against the ``hop_impl="xla"`` route on 1,000 queries, and profiled for
-     one batch;
+     one batch. On both indexes the plain top-k route (``select_impl=
+     "xla"``; for CAGRA the wide-select threshold pinned above every row)
+     must give the routed search's ids and values exactly, and is timed and
+     profiled beside it in the same run;
   3. kernel times (CUDA events) beside their bound, their plain version's
      time and one library call's time (for ``cagra_hop``, which no single
-     PyTorch call computes, the ``"xla"`` hop body's time instead).
+     PyTorch call computes, the ``"xla"`` hop body's time instead); and a
+     sweep of ``topk`` against the plain route and ``torch.topk`` over
+     10,000 and 128 rows, 1,024 to 100,003 columns and k in {10, 32, 40,
+     193}, with the crossover it gives beside ``WIDE_SELECT_COLS_DEFAULT``.
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -51,6 +61,7 @@ exits non-zero without that line; so does a machine without CUDA.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import subprocess
@@ -67,6 +78,9 @@ IVF_BLOBS, IVF_Q, IVF_K0, IVF_CHECK = 1_000, 10_000, 40, 1_000
 IVF_RECALL_FLOOR = 0.85         # recall@10 after refine; the card's first run read 0.9153
 CAGRA_CENTERS, CAGRA_Q, CAGRA_CHECK, HOP_M = 2_000, 10_000, 1_000, 2_048
 CAGRA_ITOPK = 32
+SWEEP_ROWS = (10_000, 128)      # a 10k-query batch; the IVF-PQ query tile
+SWEEP_COLS = (1_024, 4_096, 10_176, 16_384, 32_768, 65_536, 100_003)
+SWEEP_K = (10, 32, 40, 193)     # select_k; the CAGRA pool; IVF-PQ's k0; the CAGRA build
 CAGRA_RECALL_FLOOR = 0.95       # recall@10 at itopk 32; the card's first full run read 0.9725
 
 
@@ -142,7 +156,6 @@ def phase_kernels(st):
     import torch
 
     from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
-    from raft_tpu_torch.ops.topk import topk, topk_plain
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -200,28 +213,79 @@ def phase_kernels(st):
 
     m, n = TOPK_SHAPE
     v = torch.rand(TOPK_SHAPE, generator=g, device=dev)
-    rows = torch.arange(m, device=dev)[:, None]
-    cols = torch.randint(0, n, (m, 300), generator=g, device=dev)
-    v[rows[:1000], cols[:1000]] = 0.0                # ties among the smallest
-    v[rows[1000:2000], cols[1000:2000]] = 1.0        # ties among the largest
-    v[rows[2000:3000], cols[2000:3000, :40]] = float("inf")
-    v[rows[2000:3000], cols[2000:3000, 40:80]] = float("-inf")
-    v[rows[3000:4000], cols[3000:4000, :40]] = 3.1e38   # clamps to 2.9e38
-    v[rows[3000:4000], cols[3000:4000, 40:80]] = -3.3e38
-    err = 0.0
+    plant_topk_rows(v, g)
+    ids = torch.randint(0, 1 << 30, TOPK_SHAPE, generator=g, device=dev)
     for k in (10, 64, 128, 256):
         for smin in (True, False):
-            ov, oi = topk(v, k, select_min=smin)
-            torch.cuda.synchronize()
-            pv, pi = topk_plain(v, k, select_min=smin)
-            assert torch.equal(oi, pi), f"topk ids differ k={k} min={smin}"
-            assert torch.equal(ov, pv), f"topk values differ k={k} min={smin}"
+            check_topk(v, k, smin, ids if k == 10 else None)
             emit(phase="check", kernel="topk", shape=list(TOPK_SHAPE), k=k,
-                 select_min=smin, max_abs_err=0.0, ok=True)
-            del pv, pi
+                 select_min=smin, payload=k == 10, nan_rows=True, max_abs_err=0.0,
+                 bit_equal=True, ok=True)
+    del v, ids
+    # the index paths' narrow rows: the IVF-PQ tile (128 rows), the CAGRA
+    # entry pool's 16,384 columns, each float type
+    for rows, n, dt in [(r, c, t) for r in (10_000, 128) for c in (1_024, 10_176, 16_384)
+                        for t in (torch.float32, torch.bfloat16, torch.float16)]:
+        v = torch.rand((rows, n), generator=g, device=dev)
+        plant_topk_rows(v, g)
+        v = v.to(dt)
+        for k in (10, 40, 193):
+            for smin in (True, False):
+                check_topk(v, k, smin)
+        emit(phase="check", kernel="topk", shape=[rows, n], dtype=str(dt).split(".")[1],
+             k=[10, 40, 193], select_min=[True, False], nan_rows=True, max_abs_err=0.0,
+             bit_equal=True, ok=True)
+    err = 0.0
     st["topk_err"] = err
     phase_pq_kernel(st)
     phase_hop_kernel(st)
+
+
+def plant_topk_rows(v, g):
+    """Plant ties, infinities, clamped extremes, -0 and NaN in rows of ``v``
+    (in place), a tenth of the rows each; one row all NaN, one sorted."""
+    import torch
+
+    m, n = v.shape
+    rows = torch.arange(m, device=v.device)[:, None]
+    cols = torch.randint(0, n, (m, min(n, 300)), generator=g, device=v.device)
+    t = max(1, m // 10)
+    part = [slice(i * t, (i + 1) * t) for i in range(7)]
+    v[rows[part[0]], cols[part[0]]] = 0.0                  # ties among the smallest
+    v[rows[part[1]], cols[part[1]]] = 1.0                  # ties among the largest
+    v[rows[part[2]], cols[part[2], :40]] = float("inf")
+    v[rows[part[2]], cols[part[2], 40:80]] = float("-inf")
+    v[rows[part[3]], cols[part[3], :40]] = 3.1e38          # clamps to 2.9e38
+    v[rows[part[3]], cols[part[3], 40:80]] = -3.3e38
+    v[rows[part[4]], cols[part[4], :40]] = float("nan")
+    v[rows[part[4]], cols[part[4], 40:80]] = -float("nan")
+    v[rows[part[5]], cols[part[5], :100]] = -0.0
+    v[rows[part[6]], cols[part[6], :100]] = float("nan")
+    v[rows[part[6]], cols[part[6], 100:]] = -0.0
+    v[-1] = float("nan")
+    v[-2] = torch.sort(v[-2], descending=True).values
+
+
+def check_topk(v, k, smin, ids=None):
+    """``topk`` (one launch: values, ids) against ``topk_plain`` on the card,
+    bit for bit: ids, and the values' bits (NaN included)."""
+    import torch
+
+    from raft_tpu_torch.ops.topk import topk, topk_plain
+
+    before = topk.launches
+    ov, oi = topk(v, k, select_min=smin, in_idx=ids)
+    torch.cuda.synchronize()
+    assert topk.launches == before + 1, "topk did not launch once"
+    pv, pi = topk_plain(v, k, select_min=smin)
+    if ids is not None:
+        pi = torch.gather(ids, 1, pi.long()).to(torch.int32)
+    as_int = torch.int32 if v.element_size() == 4 else torch.int16
+    same_i = torch.equal(oi, pi)
+    same_v = torch.equal(ov.view(as_int), pv.view(as_int))
+    assert same_i and same_v, (
+        f"topk differs from topk_plain: shape {tuple(v.shape)} {v.dtype} k={k} "
+        f"min={smin}; rows {(oi != pi).any(1).nonzero().flatten()[:5].tolist()}")
 
 
 def phase_pq_kernel(st):
@@ -531,6 +595,19 @@ def phase_ivf(st):
     rec = recall(ri[:IVF_CHECK], truth)
     rec_pq = recall(i[:IVF_CHECK, :K_MAIN], truth)
     assert rec >= IVF_RECALL_FLOOR, f"recall@10 {rec} below {IVF_RECALL_FLOOR}"
+    # the plain top-k route ("xla") answers as the routed one ("auto"); its
+    # search time and device profile, in this same run, stand beside them
+    sp_x = dataclasses.replace(sp, select_impl="xla")
+    xd, xi = ivf_pq.search(sp_x, index, q, IVF_K0, res=res)
+    xla_same = torch.equal(xi, i) and torch.equal(xd, d)
+    assert xla_same, (f"select_impl='xla' and 'auto' differ on "
+                      f"{int((xi != i).any(1).sum())} of {IVF_Q} rows")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        ivf_pq.search(sp_x, index, q, IVF_K0, res=res)
+    torch.cuda.synchronize()
+    xla_s = (time.perf_counter() - t0) / batches
     st["launches"]["pq_scan"] = launches["pq_scan"]
     emit(phase="main", path="ivf_pq.search + refine", n=N_MAIN, d=D_MAIN, m=IVF_Q,
          n_probes=8, lut_dtype="bfloat16", k0=IVF_K0, k=K_MAIN, batches=batches,
@@ -538,11 +615,16 @@ def phase_ivf(st):
          seconds_per_batch_search=search_s, seconds_per_batch_search_refine=both_s,
          peak_device_bytes=peak, peak_above_live_bytes=peak - live, launches=launches,
          pq_scan_launches_per_batch=launches["pq_scan"] / batches,
+         topk_launches_per_batch=launches["topk"] / batches,
+         select_xla_equals_auto=xla_same, qps_search_select_xla=IVF_Q / xla_s,
          onehot_check_rows=IVF_CHECK, max_abs_err=err, recall_at_10=rec,
          recall_at_10_before_refine=rec_pq, recall_floor=IVF_RECALL_FLOOR,
          card=st["card"])
     profile_batch(st, "ivf_pq.search + refine", "ivf_profile.txt",
                   lambda: refine(x, q, ivf_pq.search(sp, index, q, IVF_K0, res=res)[1],
+                                 K_MAIN, res=res))
+    profile_batch(st, "ivf_pq.search + refine, select_impl xla", "ivf_profile_select_xla.txt",
+                  lambda: refine(x, q, ivf_pq.search(sp_x, index, q, IVF_K0, res=res)[1],
                                  K_MAIN, res=res))
     st["ivf"] = (index, q)
 
@@ -687,12 +769,31 @@ def phase_cagra(st):
              xla_dists=torch.sort(xd[r]).values.tolist(),
              kernel_recall=recall(ki[r:r + 1], truth[r:r + 1]),
              xla_recall=recall(xi[r:r + 1], truth[r:r + 1]))
+    # the plain top-k route answers as the routed one: a threshold above
+    # every row sends the entry pool's select to the plain route ("xla")
+    sk = importlib.import_module("raft_tpu_torch.matrix.select_k")
+    sk.set_wide_cols_threshold(1 << 30)
+    try:
+        pd, pi = cagra.search(sp, index, q, K_MAIN, res=res)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            cagra.search(sp, index, q, K_MAIN, res=res)
+        torch.cuda.synchronize()
+        plain_s = (time.perf_counter() - t0) / batches
+        profile_batch(st, "cagra.search, plain top-k", "cagra_profile_plain_topk.txt",
+                      lambda: cagra.search(sp, index, q, K_MAIN, res=res))
+    finally:
+        sk.set_wide_cols_threshold(None)
+    select_same = torch.equal(pi, i) and torch.equal(pd, d)
     st["launches"]["cagra_hop"] = launches["cagra_hop"]
     emit(phase="main", path="cagra.search", n=N_MAIN, d=D_MAIN, m=CAGRA_Q, k=K_MAIN,
          itopk=CAGRA_ITOPK, hop_impl=impl, batches=batches, qps=CAGRA_Q / search_s,
          seconds_per_batch=search_s, launches=launches,
          cagra_hop_launches_per_batch=launches["cagra_hop"] / batches,
          hops_per_batch=launches["cagra_hop"] / batches - 1,
+         topk_launches_per_batch=launches["topk"] / batches,
+         select_xla_equals_auto=select_same, qps_plain_topk=CAGRA_Q / plain_s,
          peak_device_bytes=peak, peak_above_live_bytes=peak - live,
          recall_at_10=rec, recall_floor=CAGRA_RECALL_FLOOR, check_rows=CAGRA_CHECK,
          xla_route_overlap=overlap, xla_route_recall_at_10=recall(xi, truth),
@@ -702,6 +803,8 @@ def phase_cagra(st):
     assert overlap >= 0.99, f"kernel route overlaps the xla route at {overlap}"
     assert route_ok, f"kernel and xla route distances differ by {route_err}"
     assert kth_ok, "where the ids differ, the kernel route's k-th distance is worse"
+    assert select_same, (f"the plain and routed entry-pool top-k differ on "
+                         f"{int((pi != i).any(1).sum())} of {CAGRA_Q} rows")
     profile_batch(st, "cagra.search", "cagra_profile.txt",
                   lambda: cagra.search(sp, index, q, K_MAIN, res=res))
     st["cagra"] = (index, q)
@@ -863,7 +966,49 @@ def phase_times(st):
     emit(phase="time", kernel="topk", shape=[mm, nn, k], ms=ms, plain_ms=plain_ms,
          library_ms=lib_ms, library="torch.topk", bound_ms=t_bound,
          bound_by="bytes", card=st["card"])
+    del vals
+    topk_sweep(st)
     fused_knn.launches, topk.launches = saved
+
+
+def topk_sweep(st):
+    """``topk`` against the plain route (``_select_k``) and ``torch.topk``
+    over the rows of the index paths, and the crossover it gives: the
+    smallest swept width at and above which the kernel beats the plain
+    route at every swept k and row count (``WIDE_SELECT_COLS_DEFAULT``)."""
+    import torch
+
+    from raft_tpu_torch.ops.topk import topk
+
+    sk = importlib.import_module("raft_tpu_torch.matrix.select_k")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    wins = {}
+    for n in SWEEP_COLS:
+        for rows in SWEEP_ROWS:
+            x = torch.rand((rows, n), generator=g, device=dev)
+            for k in SWEEP_K:
+                ov, oi = topk(x, k)
+                pv, pi = sk._select_k(x, None, k, True)
+                assert torch.equal(oi, pi) and torch.equal(ov, pv), (
+                    f"topk and the plain route differ at {rows} x {n}, k={k}")
+                ms = cuda_ms(lambda: topk(x, k), reps=5)
+                plain_ms = cuda_ms(lambda: sk._select_k(x, None, k, True), reps=2)
+                lib_ms = cuda_ms(lambda: torch.topk(x, k, dim=1, largest=False), reps=3)
+                bound = (rows * n * 4 + rows * k * 8) / H100_BYTES_S * 1e3
+                wins[(n, rows, k)] = ms < plain_ms
+                emit(phase="sweep", kernel="topk", rows=rows, n=n, k=k, ms=ms,
+                     plain_ms=plain_ms, torch_topk_ms=lib_ms, bound_ms=bound,
+                     kernel_wins=ms < plain_ms, card=st["card"])
+            del x
+    crossover = None
+    for n in reversed(SWEEP_COLS):
+        if not all(w for (c, _, _), w in wins.items() if c == n):
+            break
+        crossover = n
+    emit(phase="sweep", kernel="topk", crossover_cols=crossover,
+         wide_select_cols_default=sk.WIDE_SELECT_COLS_DEFAULT,
+         matches_default=crossover == sk.WIDE_SELECT_COLS_DEFAULT, card=st["card"])
 
 
 def main(argv=None):

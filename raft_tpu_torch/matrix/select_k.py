@@ -3,11 +3,13 @@
 Counterpart of raft_tpu/matrix/select_k.py (reference:
 cpp/include/raft/matrix/select_k.cuh, two algorithms picked by a
 heuristic). Two routes, split by one rule, :func:`wide_dispatch_ok`: rows of
-65,536 columns or more of a float type on a CUDA device go to the ``topk``
-kernel (ops/topk.py, k <= 256); everything else goes to :func:`_select_k`,
-a plain PyTorch top-k whose ties go to the lowest column, as ``lax.top_k``'s
-do. The 65,536-column threshold is the JAX package's; it stays until a run
-on the card moves it (:func:`set_wide_cols_threshold` pins another).
+:data:`WIDE_SELECT_COLS_DEFAULT` columns or more of a float type on a CUDA
+device go to the ``topk`` kernel (ops/topk.py, k <= 256, one launch for
+values and payload ids); everything else goes to :func:`_select_k`, a plain
+PyTorch top-k that ranks as ``lax.top_k`` does: the total order of the
+values (-0 below +0, NaN by its bits), ties to the lowest column. The
+threshold was measured on the card (``chip_smoke.py``'s sweep);
+:func:`set_wide_cols_threshold` pins another.
 
 Integer values always take the plain route, which ranks them exactly (the
 kernel ranks after a float32 cast).
@@ -19,15 +21,22 @@ import torch
 
 from ..core.errors import expects
 from ..core.resources import Resources, default_resources
-from ..ops.topk import top_k_lowest_index
+from ..ops.topk import (float_order_key, gather_exact, lowest_index_positions,
+                        top_k_lowest_index)
 
 __all__ = ["select_k", "select_k_impl", "wide_dispatch_ok",
            "set_wide_cols_threshold", "wide_cols_threshold"]
 
 # widest k the kernel is dispatched for; equals ops.topk.TOPK_MAX_K
 SELECT_K_DISPATCH_MAX_K = 256
-WIDE_SELECT_COLS_DEFAULT = 65536
+# The smallest width of chip_smoke.py's sweep (1,024 to 100,003 columns;
+# 10,000 and 128 rows; k of 10, 32, 40 and 193) at and above which the
+# topk kernel beat the plain route at every k and row count, on an NVIDIA
+# H100 80GB HBM3 at a 700 W power limit (at 1,024 columns 0.0097-0.31 ms
+# against 0.060-1.75 ms; PERF.md has the sweep).
+WIDE_SELECT_COLS_DEFAULT = 1024
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+_KEY_MAX = (1 << 32) - 1      # float_order_key's largest key
 
 _wide_cols_override: int | None = None
 
@@ -42,7 +51,7 @@ def set_wide_cols_threshold(n: int | None) -> None:
 
 def wide_cols_threshold() -> int:
     """The live threshold: a :func:`set_wide_cols_threshold` pin, else
-    65536 columns."""
+    :data:`WIDE_SELECT_COLS_DEFAULT` columns."""
     if _wide_cols_override is not None:
         return _wide_cols_override
     return WIDE_SELECT_COLS_DEFAULT
@@ -64,17 +73,21 @@ def _is_integer(dtype) -> bool:
 
 
 def _select_k(values, in_idx, k: int, select_min: bool):
-    """Plain top-k, ties to the lowest column."""
+    """Plain top-k, ties to the lowest column. Values are gathered from the
+    input, so they stay exact."""
     if _is_integer(values.dtype):
         # ~v flips the order without wrapping (signed: -v - 1, unsigned:
-        # max - v); values are gathered from the input, so they stay exact
+        # max - v)
         key = ~values if select_min else values
         _, top_i = top_k_lowest_index(key, k)
-        top_v = torch.gather(values, 1, top_i)
+    elif values.dtype in _FLOATS:
+        # lax.top_k's total order, from the float32 bits (no float
+        # arithmetic, so NaN ranks alike on every device)
+        key = float_order_key(values.to(torch.float32).view(torch.int32))
+        top_i = lowest_index_positions(_KEY_MAX - key if select_min else key, k)
     else:
-        top_v, top_i = top_k_lowest_index(-values if select_min else values, k)
-        if select_min:
-            top_v = -top_v
+        _, top_i = top_k_lowest_index(-values if select_min else values, k)
+    top_v = gather_exact(values, top_i)
     if in_idx is not None:
         top_i = torch.gather(in_idx, 1, top_i)
     return top_v, top_i.to(torch.int32)
@@ -98,9 +111,7 @@ def select_k_impl(values, in_idx, k: int, select_min: bool,
                 "float64 values (%s) need the plain route", values.dtype)
         from ..ops.topk import topk
 
-        out_v, pos = topk(values, int(k), select_min=bool(select_min))
-        out_i = pos if in_idx is None else torch.gather(in_idx, 1, pos.to(torch.int64))
-        return out_v, out_i.to(torch.int32)
+        return topk(values, int(k), select_min=bool(select_min), in_idx=in_idx)
     return _select_k(values, in_idx, int(k), bool(select_min))
 
 

@@ -51,7 +51,7 @@ from ..core.serialize import (atomic_write, check_header, deserialize_mdspan,
                               serialize_mdspan, serialize_scalar, serialize_tuned)
 from ..distance.pairwise import full_f32
 from ..distance.types import DistanceType, resolve_metric
-from ..matrix.select_k import _select_k
+from ..matrix.select_k import _select_k, select_k_impl
 from . import ivf_pq as ivf_pq_mod
 from .ivf_pq import _L2_METRICS, _SQRT_METRICS
 from .refine import refine
@@ -517,7 +517,8 @@ def _cagra_search(index: CagraIndex, queries, k: int, itopk: int, max_iter: int,
     if keep_mask is not None:
         init_d = torch.where(keep_mask[pool_ids][None, :], init_d, math.inf)
     if scored:
-        init_d, best = _select_k(init_d, None, n_init, True)
+        # the wide-select rule routes this (m, pool) select like any other
+        init_d, best = select_k_impl(init_d, None, n_init, True, impl="auto")
         init_ids = pool_ids[best.to(torch.int64)]
     else:
         init_ids = pool_ids[None, :].expand(m, n_init)

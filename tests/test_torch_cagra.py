@@ -173,6 +173,34 @@ def test_jax_drawn_entry_pool(data, jax_built, impl):
     _assert_same_search(td, ti, jd, ji)
 
 
+@pytest.mark.parametrize("route", ["torch", "kernel"])
+def test_entry_pool_select_routes_answer_as_jax(data, jax_built, monkeypatch, route):
+    """The entry pool's top-k goes through select_k_impl(impl="auto"), so it
+    takes the topk kernel wherever the wide-select rule says. Forced onto
+    either route (the kernel's contract runs as its plain version on the
+    CPU), the search answers as the JAX package's, whose pool select is
+    lax.top_k."""
+    x, q, _ = data
+    _, jindex = jax_built
+    pool, seed = 1024, 7
+    jd, ji = jc.search(jc.SearchParams(itopk_size=32, seed_pool=pool, seed=seed,
+                                       hop_impl="xla"), jindex, jnp.asarray(q), 10)
+    pool_ids = np.array(jax.random.choice(as_key(seed), x.shape[0], (pool,),
+                                          replace=False))
+    calls = []
+    routed = tc.select_k_impl
+
+    def forced(values, in_idx, k, select_min, impl="auto"):
+        calls.append((tuple(values.shape), k, impl))
+        return routed(values, in_idx, k, select_min, impl=route)
+
+    monkeypatch.setattr(tc, "select_k_impl", forced)
+    td, ti = tc._cagra_search(_state(jindex), torch.from_numpy(q), 10, 32, 42, 1, False,
+                              seed_pool=pool, hop_impl="xla", pool_ids=pool_ids)
+    assert calls == [((q.shape[0], pool), 32, "auto")]
+    _assert_same_search(td, ti, jd, ji)
+
+
 @pytest.mark.parametrize("impl", ["xla", "fused_arena"])
 def test_byte_index_searches_as_jax(data, jax_built, impl):
     """A uint8 index (held as shifted int8): byte and float queries."""

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from raft_tpu_torch.core import Resources
-from raft_tpu_torch.matrix import select_k
+from raft_tpu_torch.matrix import select_k, wide_cols_threshold
 from raft_tpu_torch.neighbors import cagra, ivf_pq
 from raft_tpu_torch.neighbors.brute_force import BruteForce
 from raft_tpu_torch.ops.cagra_hop import cagra_hop, cagra_hop_plain
@@ -66,23 +66,75 @@ def test_fused_knn_kernel_matches_plain(cuda, mode):
             _knn_equiv(kd, ki, pd, pi)
 
 
-@pytest.mark.parametrize("k", [1, 10, 64, 100, 256])
+def _topk_rows(rng, rows, n):
+    """Rows with ties, ±inf, clamped extremes, -0 and NaN of both signs,
+    one all NaN and one sorted (each later entry better for select_min)."""
+    x = rng.random((rows, n)).astype(np.float32)
+    nan = np.float32(np.nan)
+    specials = [("ties", 0.25), ("ints", None), ("inf", np.inf), ("-inf", -np.inf),
+                ("-0", -0.0), ("nan", nan), ("-nan", -nan), ("big", 3.1e38)]
+    for r in range(rows):
+        name, val = specials[r % len(specials)]
+        if name == "ints":
+            x[r] = rng.integers(0, 12, n)
+        else:
+            x[r, rng.integers(0, n, max(1, n // 5))] = val
+    if rows > 2:
+        x[-1] = nan
+        x[-2] = np.sort(x[-2])[::-1]
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 10, 40, 64, 100, 193, 256])
 def test_topk_kernel_matches_plain(cuda, k):
+    """Bit for bit (ids and value bits) at the index paths' widths, around
+    the first in-row reduce of the candidate buffer (2,304 entries kept
+    before it) and past 65,536 columns; float32, bfloat16 and float16; one
+    row and 128 rows (fewer blocks than SMs)."""
     rng = np.random.default_rng(k)
-    x = rng.random((64, 70_001)).astype(np.float32)
-    x[0, ::3] = 0.25
-    x[1] = rng.integers(0, 12, x.shape[1])
-    x[2, 5:] = np.inf
-    x[3, ::2] = -np.inf
-    x[4, 100:400] = -0.0
-    x = torch.from_numpy(x).to(cuda)
-    for select_min in (True, False):
-        before = topk.launches
-        kv, ki = topk(x, k, select_min=select_min)
-        torch.cuda.synchronize()
-        assert topk.launches == before + 1
-        pv, pi = topk_plain(x, k, select_min=select_min)
-        assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    for n in (1_024, 2_304, 2_305, 10_176, 16_384, 70_001):
+        for rows in (1, 128):
+            x = torch.from_numpy(_topk_rows(rng, rows, n)).to(cuda)
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                xd = x.to(dtype)
+                as_int = torch.int32 if dtype == torch.float32 else torch.int16
+                for select_min in (True, False):
+                    before = topk.launches
+                    kv, ki = topk(xd, k, select_min=select_min)
+                    torch.cuda.synchronize()
+                    assert topk.launches == before + 1
+                    pv, pi = topk_plain(xd, k, select_min=select_min)
+                    assert torch.equal(ki, pi), (n, rows, dtype, select_min)
+                    assert torch.equal(kv.view(as_int), pv.view(as_int)), (n, rows, dtype)
+
+
+@pytest.mark.parametrize("payload", [torch.int32, torch.int64])
+def test_topk_kernel_payload_ids_and_unaligned_rows(cuda, payload):
+    """One launch writes the payload's ids; rows that start off a 16-byte
+    boundary (n odd) take the kernel's head and tail entries."""
+    rng = np.random.default_rng(3)
+    for n, dtype in ((4_099, torch.float32), (10_177, torch.bfloat16), (333, torch.float16)):
+        x = torch.from_numpy(_topk_rows(rng, 37, n)).to(cuda).to(dtype)
+        ids = torch.randint(0, 1 << 30, (37, n), device=cuda).to(payload)
+        for k in (7, 40):
+            kv, ki = topk(x, k, select_min=True, in_idx=ids)
+            torch.cuda.synchronize()
+            pv, pi = topk_plain(x, k, select_min=True)
+            assert torch.equal(ki, torch.gather(ids, 1, pi.long()).to(torch.int32))
+            as_int = torch.int32 if dtype == torch.float32 else torch.int16
+            assert torch.equal(kv.view(as_int), pv.view(as_int))
+
+
+def test_select_k_nan_row_same_on_card_and_cpu(cuda):
+    """A select_k of a row with NaN, routed to the kernel on the card, gives
+    the CPU's ids (and lax.top_k's: tests/test_torch_topk.py)."""
+    x = np.full((1, max(5, wide_cols_threshold())), 0.25, np.float32)
+    x[0, :5] = [1, np.nan, 0.5, -np.inf, 2]
+    cpu = select_k(x, 3, select_min=False, res=Resources(device="cpu"))
+    before = topk.launches
+    card = select_k(x, 3, select_min=False, res=Resources(device="cuda"))
+    assert topk.launches == before + 1
+    assert card[1].cpu().tolist() == cpu[1].tolist() == [[1, 4, 0]]
 
 
 def test_search_and_select_k_launch_kernels(cuda):
@@ -95,7 +147,7 @@ def test_search_and_select_k_launch_kernels(cuda):
     assert fused_knn.launches == before + 1
     rd, ri = fused_knn_plain(x, q, 10)
     _knn_equiv(d, i, rd, ri)
-    v = torch.rand((16, 65_536), generator=g, device=cuda)
+    v = torch.rand((16, wide_cols_threshold()), generator=g, device=cuda)
     before = topk.launches
     sv, si = select_k(v, 5, res=res)
     assert topk.launches == before + 1
