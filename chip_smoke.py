@@ -21,8 +21,14 @@ Phases, each printing JSON lines:
      NaN planted, one row all NaN and one sorted; ``pq_scan`` bit for bit
      (pq4 at S=64 and S=128 with float32 and bfloat16 LUTs, split pq8 at
      S=32, S of 24 and 96, caps that are not a multiple of the block,
-     repeated lists, 1,024 pairs over indexes of real size); ``cagra_hop``
-     bit for bit (2,048 queries over the 1M x 128 CAGRA set, itopk 32 and
+     repeated lists, 1,024 pairs over indexes of real size);
+     ``pq_scan_topk`` bit for bit, values' bits and ids (the GPU tests'
+     grid of 180 cases: pq4 and split pq8, float32 and bfloat16 LUTs, L2 and
+     inner product, k in {1, 7, 40, 256}, 1, 3 and 8 probes, S of 24, 64
+     and 128, with ties, holes, short lists and an underfilled query; the
+     main tile, 128 queries x 8 probes of a 1,024-list index at cap 1,272,
+     S=64, k=40; the CAGRA build's, S=128, k=193, 8 and 32 probes);
+     ``cagra_hop`` bit for bit (2,048 queries over the 1M x 128 CAGRA set, itopk 32 and
      64, width 1 and 2, both merges, float32 and int8 rows, d of 100 and
      126, the prime call, -1 ids, invalid lanes and repeated ids);
   2. the main paths, each with the launch counts set to 0 just before it and
@@ -35,7 +41,13 @@ Phases, each printing JSON lines:
      ``search(n_probes=8, lut_dtype="bfloat16")`` at k=40 for 10,000 queries,
      ``refine`` to k=10; checked against the plain scan (``scan_impl=
      "onehot"``) and for recall@10 against exact ground truth on 1,000
-     queries, and profiled for one batch; and CAGRA in the JAX package's
+     queries, and profiled for one batch; the search must launch
+     ``pq_scan_topk`` once per 128-query tile and ``topk`` never; the
+     unfused kernel route (``pq_scan``, bias, mask, ``topk``) must give its
+     ids and values exactly and is timed and profiled beside it, the plain
+     select route (``select_impl="xla"``, which launches ``pq_scan``) too,
+     and ``_pq_search`` is timed at query tiles of 128 and 1,024; and CAGRA
+     in the JAX package's
      ``cagra_1m_itopk32`` row (bench.py:3242-3260, data bench.py:527-552):
      1M x 128 float32 around 2,000 centers uniform in [0, 10) with N(0, 0.5^2)
      noise (seeds 20-22), ``cagra.build(IndexParams())`` and
@@ -48,7 +60,8 @@ Phases, each printing JSON lines:
      profiled beside it in the same run;
   3. kernel times (CUDA events) beside their bound, their plain version's
      time and one library call's time (for ``cagra_hop``, which no single
-     PyTorch call computes, the ``"xla"`` hop body's time instead); and a
+     PyTorch call computes, the ``"xla"`` hop body's time instead; for
+     ``pq_scan_topk`` also the unfused kernel route's time); and a
      sweep of ``topk`` against the plain route and ``torch.topk`` over
      10,000 and 128 rows, 1,024 to 100,003 columns and k in {10, 32, 40,
      193}, with the crossover it gives beside ``WIDE_SELECT_COLS_DEFAULT``.
@@ -238,6 +251,7 @@ def phase_kernels(st):
     err = 0.0
     st["topk_err"] = err
     phase_pq_kernel(st)
+    phase_pq_topk_kernel(st)
     phase_hop_kernel(st)
 
 
@@ -332,6 +346,95 @@ def phase_pq_kernel(st):
              lut_dtype=str(dt).split(".")[1], pairs=pairs, probes=how,
              code_range=hi, max_abs_err=0.0, bit_equal=True, ok=True)
     st["pq_err"] = 0.0
+
+
+def pq_topk_case(g, n_lists, cap, s, t, pc, split, dt, inner, top):
+    """Inputs of ``pq_scan_topk`` on the card: lists with holes and short
+    fills, list 0 empty, query 0's probes all on list 0 but one (fewer
+    filled slots than k), a duplicated code row probed twice by query 1 with
+    equal LUTs and biases (ties across probes and within a list)."""
+    import torch
+
+    dev = torch.device("cuda")
+    kk = 32 if split else 16
+    codes = torch.randint(0, 256 if split else 16, (n_lists, cap, s), generator=g, device=dev,
+                          dtype=torch.uint8)
+    codes[2, 9] = codes[2, 5]
+    codes[3, 0] = codes[2, 5]
+    size = cap - (torch.arange(n_lists, device=dev)[:, None] * 37) % (cap // 3 + 1)
+    ids = torch.randperm(n_lists * cap, generator=g, device=dev).to(torch.int32)
+    ids = torch.where(torch.arange(cap, device=dev)[None, :] < size,
+                      ids.reshape(n_lists, cap), -1)
+    ids[1::7, ::5] = -1
+    ids[0] = -1
+    probes = torch.randint(1, top, (t, pc), generator=g, device=dev, dtype=torch.int32)
+    lut = torch.randn((t, pc, s, kk), generator=g, device=dev) * 20
+    bias = torch.randn((t, pc), generator=g, device=dev) * 100
+    probes[0] = 0
+    probes[0, -1] = 5
+    probes[1, 0] = 2
+    if pc > 1:
+        probes[1, 1] = 3
+        lut[1, 1] = lut[1, 0]
+        bias[1, 1] = bias[1, 0]
+    consts = None
+    if split and not inner:
+        consts = torch.randn((n_lists, cap), generator=g, device=dev) * 5
+        consts[2, 9] = consts[3, 0] = consts[2, 5]
+    return codes, ids, probes.contiguous(), lut.to(dt).contiguous(), bias, consts
+
+
+def phase_pq_topk_kernel(st):
+    """``pq_scan_topk`` against ``pq_scan_topk_plain`` on the card, bit for
+    bit (values' bits and ids): the GPU tests' grid (pq4 and split pq8, f32
+    and bf16 LUTs, L2 and inner product, k in {1, 7, 40, 256}, pc in {1, 3,
+    8}, S of 24, 64 and 128), the main tile (128 queries x 8 probes of a
+    1,024-list index, cap 1,272, S=64, bf16, k=40) and the CAGRA build's
+    (1,000 lists, cap 1,300, S=128, f32, k=193, pc 8 and 32)."""
+    import torch
+
+    from raft_tpu_torch.ops.pq_scan import pq_scan_topk, pq_scan_topk_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    grid = [dict(n_lists=40, cap=300, s=s, t=16, pc=pc, split=split, dt=dt, inner=inner,
+                 top=40, k=k)
+            for split, dt, inner in ((False, torch.float32, False),
+                                     (False, torch.bfloat16, True),
+                                     (True, torch.float32, False),
+                                     (True, torch.bfloat16, False),
+                                     (True, torch.float32, True))
+            for s in (24, 64, 128) for pc in (1, 3, 8) for k in (1, 7, 40, 256)]
+    main = [dict(n_lists=PQ_LISTS, cap=PQ_CAP, s=64, t=128, pc=8, split=False,
+                 dt=torch.bfloat16, inner=False, top=300, k=40),
+            dict(n_lists=1000, cap=1300, s=128, t=128, pc=8, split=False,
+                 dt=torch.float32, inner=False, top=1000, k=193),
+            dict(n_lists=1000, cap=1300, s=128, t=128, pc=32, split=False,
+                 dt=torch.float32, inner=False, top=1000, k=193)]
+    for n, c in enumerate(grid + main):
+        c = dict(c)
+        k, inner = c.pop("k"), c["inner"]
+        codes, ids, probes, lut, bias, consts = pq_topk_case(g, **c)
+        before = pq_scan_topk.launches
+        v, i = pq_scan_topk(codes, ids, probes, lut, bias, k, not inner, split=c["split"],
+                            list_consts=consts)
+        torch.cuda.synchronize()
+        assert pq_scan_topk.launches == before + 1, "pq_scan_topk did not launch"
+        pv, pi = pq_scan_topk_plain(codes, ids, probes, lut, bias, k, not inner, c["split"],
+                                    consts)
+        same_v = torch.equal(v.view(torch.int32), pv.view(torch.int32))
+        assert same_v and torch.equal(i, pi), (
+            f"pq_scan_topk differs from its plain version: {c} k={k}; rows "
+            f"{(i != pi).any(1).nonzero().flatten()[:5].tolist()}")
+        if n >= len(grid) or (k == 256 and c["pc"] == 8 and c["s"] == 64):
+            emit(phase="check", kernel="pq_scan_topk", n_lists=c["n_lists"], cap=c["cap"],
+                 S=c["s"], T=c["t"], pc=c["pc"], k=k, split=c["split"],
+                 lut_dtype=str(c["dt"]).split(".")[1], inner_product=inner,
+                 underfilled_rows=int((i == -1).any(1).sum()), max_abs_err=0.0,
+                 bit_equal=True, ok=True)
+    emit(phase="check", kernel="pq_scan_topk", grid_cases=len(grid), main_cases=len(main),
+         max_abs_err=0.0, bit_equal=True, ok=True)
+    st["pq_topk_err"] = 0.0
 
 
 def hop_candidates(beam_i, lq, lx, cw, g):
@@ -536,8 +639,15 @@ def phase_ivf(st):
     from raft_tpu_torch.neighbors.brute_force import BruteForce
     from raft_tpu_torch.neighbors.refine import refine
     from raft_tpu_torch.ops.fused_knn import fused_knn
-    from raft_tpu_torch.ops.pq_scan import pq_scan
+    from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_topk
     from raft_tpu_torch.ops.topk import topk
+
+    def reset():
+        fused_knn.launches = topk.launches = pq_scan.launches = pq_scan_topk.launches = 0
+
+    def counts():
+        return {"fused_knn": fused_knn.launches, "topk": topk.launches,
+                "pq_scan": pq_scan.launches, "pq_scan_topk": pq_scan_topk.launches}
 
     res = Resources(device="cuda")
     dev = torch.device("cuda")
@@ -567,15 +677,18 @@ def phase_ivf(st):
     torch.cuda.reset_peak_memory_stats()
     live = torch.cuda.memory_allocated()      # data, index and earlier phases' tensors
     batches = 3
-    fused_knn.launches = topk.launches = pq_scan.launches = 0
+    reset()
     t0 = time.perf_counter()
     for _ in range(batches):
         d, i = ivf_pq.search(sp, index, q, IVF_K0, res=res)
     torch.cuda.synchronize()
     search_s = (time.perf_counter() - t0) / batches
-    launches = {"fused_knn": fused_knn.launches, "topk": topk.launches,
-                "pq_scan": pq_scan.launches}
-    assert launches["pq_scan"] > 0, "the IVF-PQ search did not launch pq_scan"
+    launches = counts()
+    tiles = -(-IVF_Q // 128)
+    assert launches["pq_scan_topk"] == tiles * batches, (
+        f"the IVF-PQ search launched pq_scan_topk {launches['pq_scan_topk']} times, "
+        f"not {tiles} a batch")
+    assert launches["topk"] == 0 and launches["pq_scan"] == 0, launches
     t0 = time.perf_counter()
     for _ in range(batches):
         d, i = ivf_pq.search(sp, index, q, IVF_K0, res=res)
@@ -598,25 +711,69 @@ def phase_ivf(st):
     # the plain top-k route ("xla") answers as the routed one ("auto"); its
     # search time and device profile, in this same run, stand beside them
     sp_x = dataclasses.replace(sp, select_impl="xla")
+    reset()
     xd, xi = ivf_pq.search(sp_x, index, q, IVF_K0, res=res)
+    torch.cuda.synchronize()
+    xla_launches = counts()            # the plain-select route: the unfused scan
+    assert xla_launches["pq_scan"] == tiles and xla_launches["pq_scan_topk"] == 0, xla_launches
     xla_same = torch.equal(xi, i) and torch.equal(xd, d)
     assert xla_same, (f"select_impl='xla' and 'auto' differ on "
                       f"{int((xi != i).any(1).sum())} of {IVF_Q} rows")
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(batches):
         ivf_pq.search(sp_x, index, q, IVF_K0, res=res)
     torch.cuda.synchronize()
     xla_s = (time.perf_counter() - t0) / batches
-    st["launches"]["pq_scan"] = launches["pq_scan"]
+    # the unfused kernel route (pq_scan, bias, mask, topk, merge), as before
+    # the fused kernel: the same answers, timed and profiled in this run
+    fuses = ivf_pq._fuses_scan_and_select
+    ivf_pq._fuses_scan_and_select = lambda *a: False
+    try:
+        reset()
+        ud, ui = ivf_pq.search(sp, index, q, IVF_K0, res=res)
+        torch.cuda.synchronize()
+        unfused_launches = counts()
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            ivf_pq.search(sp, index, q, IVF_K0, res=res)
+        torch.cuda.synchronize()
+        unfused_s = (time.perf_counter() - t0) / batches
+        profile_batch(st, "ivf_pq.search + refine, unfused scan and select",
+                      "ivf_profile_unfused.txt",
+                      lambda: refine(x, q, ivf_pq.search(sp, index, q, IVF_K0, res=res)[1],
+                                     K_MAIN, res=res))
+    finally:
+        ivf_pq._fuses_scan_and_select = fuses
+    assert unfused_launches["pq_scan"] == tiles and unfused_launches["topk"] == tiles, (
+        unfused_launches)
+    unfused_same = torch.equal(ui, i) and torch.equal(ud, d)
+    assert unfused_same, (f"the fused and unfused routes differ on "
+                          f"{int((ui != i).any(1).sum())} of {IVF_Q} rows")
+    # the query tile (the JAX package's cap is 128), for the record
+    tile_s = {}
+    for qt in (128, 1024):
+        ivf_pq._pq_search(index, q, 8, IVF_K0, qt, 8, "bfloat16", "kernel")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            ivf_pq._pq_search(index, q, 8, IVF_K0, qt, 8, "bfloat16", "kernel")
+        torch.cuda.synchronize()
+        tile_s[qt] = (time.perf_counter() - t0) / batches
+    emit(phase="query_tile", path="ivf_pq._pq_search", m=IVF_Q,
+         seconds_per_batch={str(k): v for k, v in tile_s.items()},
+         qps={str(k): IVF_Q / v for k, v in tile_s.items()}, default=128, card=st["card"])
+    st["launches"]["pq_scan_topk"] = launches["pq_scan_topk"]
+    st["launches"]["pq_scan"] = xla_launches["pq_scan"]
     emit(phase="main", path="ivf_pq.search + refine", n=N_MAIN, d=D_MAIN, m=IVF_Q,
          n_probes=8, lut_dtype="bfloat16", k0=IVF_K0, k=K_MAIN, batches=batches,
          qps_search=IVF_Q / search_s, qps_search_refine=IVF_Q / both_s,
          seconds_per_batch_search=search_s, seconds_per_batch_search_refine=both_s,
          peak_device_bytes=peak, peak_above_live_bytes=peak - live, launches=launches,
-         pq_scan_launches_per_batch=launches["pq_scan"] / batches,
+         pq_scan_topk_launches_per_batch=launches["pq_scan_topk"] / batches,
          topk_launches_per_batch=launches["topk"] / batches,
          select_xla_equals_auto=xla_same, qps_search_select_xla=IVF_Q / xla_s,
+         launches_select_xla=xla_launches, unfused_equals_fused=unfused_same,
+         qps_search_unfused=IVF_Q / unfused_s, launches_unfused=unfused_launches,
          onehot_check_rows=IVF_CHECK, max_abs_err=err, recall_at_10=rec,
          recall_at_10_before_refine=rec_pq, recall_floor=IVF_RECALL_FLOOR,
          card=st["card"])
@@ -660,7 +817,8 @@ def profile_batch(st, path, filename, batch):
         for ms, n, key in rows:
             f.write(f"{ms:12.3f} ms {n:8d}  {key}\n")
     emit(phase="profile", path=path, wall_ms=wall_ms,
-         device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+         device_busy_ms=busy_ms, device_ops=sum(r[1] for r in rows),
+         idle_share=1.0 - busy_ms / wall_ms,
          top=[dict(ms=ms, count=n, kernel=key[:100]) for ms, n, key in rows[:15]],
          card=st["card"])
 
@@ -680,12 +838,17 @@ def phase_cagra(st):
     from raft_tpu_torch.neighbors.brute_force import BruteForce
     from raft_tpu_torch.ops.cagra_hop import cagra_hop
     from raft_tpu_torch.ops.fused_knn import fused_knn
-    from raft_tpu_torch.ops.pq_scan import pq_scan
+    from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_topk
     from raft_tpu_torch.ops.topk import topk
 
     def counts():
         return {"fused_knn": fused_knn.launches, "topk": topk.launches,
-                "pq_scan": pq_scan.launches, "cagra_hop": cagra_hop.launches}
+                "pq_scan": pq_scan.launches, "pq_scan_topk": pq_scan_topk.launches,
+                "cagra_hop": cagra_hop.launches}
+
+    def reset():
+        fused_knn.launches = topk.launches = pq_scan.launches = 0
+        pq_scan_topk.launches = cagra_hop.launches = 0
 
     res = Resources(device="cuda")
     dev = torch.device("cuda")
@@ -700,7 +863,7 @@ def phase_cagra(st):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     live = torch.cuda.memory_allocated()
-    fused_knn.launches = topk.launches = pq_scan.launches = cagra_hop.launches = 0
+    reset()
     t0 = time.perf_counter()
     index = cagra.build(params, x, res=res)
     torch.cuda.synchronize()
@@ -717,7 +880,7 @@ def phase_cagra(st):
     assert int(g.min()) >= 0 and int(g.max()) < N_MAIN, "graph ids out of range"
     assert n_self == 0, f"{n_self} self-edges"
     k, gpu_top_k, n_lists, pq_bits = cagra.knn_build_plan(params, N_MAIN, D_MAIN)
-    assert build_launches["pq_scan"] > 0, "the CAGRA build did not launch pq_scan"
+    assert build_launches["pq_scan_topk"] > 0, "the CAGRA build did not launch pq_scan_topk"
     emit(phase="cagra_build", n=N_MAIN, d=D_MAIN, centers=CAGRA_CENTERS,
          build_seconds=build_s, n_lists=n_lists, pq_bits=pq_bits,
          pq_dim=ivf_pq._default_pq_dim(D_MAIN, pq_bits), self_search_k=gpu_top_k + 1, refine_k=k + 1,
@@ -733,7 +896,7 @@ def phase_cagra(st):
     torch.cuda.reset_peak_memory_stats()
     live = torch.cuda.memory_allocated()
     batches = 3
-    fused_knn.launches = topk.launches = pq_scan.launches = cagra_hop.launches = 0
+    reset()
     t0 = time.perf_counter()
     for _ in range(batches):
         d, i = cagra.search(sp, index, q, K_MAIN, res=res)
@@ -873,25 +1036,34 @@ def time_cagra_hop(st):
 
 
 def time_pq_scan(st):
-    """``pq_scan`` at the main path's shape: the 1,024 (query, probe) pairs of
-    one query tile of the 1M index, bfloat16 LUT."""
+    """``pq_scan`` and ``pq_scan_topk`` at the main path's shape: one query
+    tile of the 1M index (128 queries x 8 probes, 1,024 pairs), bfloat16
+    LUT, k=40; beside the fused kernel, the unfused kernel route it replaced
+    (``pq_scan``, bias, mask, ``topk``, the one-chunk merge) in this call."""
     import torch
 
     from raft_tpu_torch.distance.pairwise import full_f32
+    from raft_tpu_torch.matrix.select_k import select_k_impl
     from raft_tpu_torch.neighbors import ivf_pq
-    from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_plain
+    from raft_tpu_torch.ops.pq_scan import (pq_scan, pq_scan_plain, pq_scan_topk,
+                                            pq_scan_topk_plain)
+    from raft_tpu_torch.ops.topk import topk
 
     index, q = st.pop("ivf")
-    qf = q[:128]
-    probes = ivf_pq._coarse_probes(index, qf, 8).to(torch.int64)
+    t, pc, k = 128, 8, IVF_K0
+    qf = q[:t]
+    probes = ivf_pq._coarse_probes(index, qf, pc).to(torch.int64)
     with full_f32():
         qrot = qf @ index.rotation.T
-    lut, _ = ivf_pq._probe_luts(index, qrot, probes, *ivf_pq._codebooks_f32(index))
+    lut, bias = ivf_pq._probe_luts(index, qrot, probes, *ivf_pq._codebooks_f32(index))
     pairs, s, cap = probes.numel(), index.pq_dim, index.capacity
-    lut = lut.reshape(pairs, s, 16).to(torch.bfloat16).contiguous()
+    lut4 = lut.to(torch.bfloat16).contiguous()                  # (T, pc, S, K)
+    lut = lut4.reshape(pairs, s, 16)
     plist = probes.reshape(-1).to(torch.int32).contiguous()
-    codes = index.list_codes
-    saved = pq_scan.launches
+    probes32 = probes.to(torch.int32).contiguous()
+    bias = bias.contiguous()
+    codes, ids = index.list_codes, index.list_ids
+    saved = pq_scan.launches, pq_scan_topk.launches, topk.launches
     ms = cuda_ms(lambda: pq_scan(codes, plist, lut), reps=50, warm=3)
     plain_ms = cuda_ms(lambda: pq_scan_plain(codes, plist, lut), reps=3)
     gathered = codes[plist.to(torch.int64)].to(torch.int64)[..., None]   # (pairs, cap, S, 1)
@@ -899,7 +1071,7 @@ def time_pq_scan(st):
 
     def library():
         # the same sum as two PyTorch calls over the codes gathered beforehand
-        torch.gather(lutf, 3, gathered).sum(dim=(2, 3))
+        return torch.gather(lutf, 3, gathered).sum(dim=(2, 3))
 
     lib_ms = cuda_ms(library, reps=10)
     assert torch.equal(pq_scan(codes, plist, lut), pq_scan_plain(codes, plist, lut))
@@ -914,7 +1086,57 @@ def time_pq_scan(st):
          lut_dtype="bfloat16", bytes=nbytes, adds=ops,
          library="torch.gather + .sum over the gathered codes (two calls)",
          card=st["card"], **st["pq_t"])
-    pq_scan.launches = saved
+
+    def fused():
+        return pq_scan_topk(codes, ids, probes32, lut4, bias, k, True)
+
+    def unfused():
+        sc = pq_scan(codes, plist, lut).reshape(t, pc, cap) + bias[:, :, None]
+        sid = ids[probes]
+        sc = torch.where(sid >= 0, sc, float("inf"))
+        v, i = topk(sc.reshape(t, -1), k, True, in_idx=sid.reshape(t, -1))
+        return select_k_impl(v, i, k, True)     # the merge the route ran on one chunk
+
+    def library_topk():
+        # the scan as above, then torch.topk over the tile's pc x cap scores
+        # (three calls; the bias and the mask are left out)
+        return torch.topk(library().reshape(t, pc * cap), k, dim=1, largest=False)
+
+    f_ms = cuda_ms(fused, reps=50, warm=3)
+    f_plain_ms = cuda_ms(lambda: pq_scan_topk_plain(codes, ids, probes32, lut4, bias, k, True),
+                         reps=3)
+    unfused_ms = cuda_ms(unfused, reps=20, warm=3)
+    f_lib_ms = cuda_ms(library_topk, reps=10)
+    fv, fi = fused()
+    pv, pi = pq_scan_topk_plain(codes, ids, probes32, lut4, bias, k, True)
+    uv, ui = unfused()
+    assert torch.equal(fv, pv) and torch.equal(fi, pi), "pq_scan_topk differs at the timed tile"
+    assert torch.equal(fv, uv) and torch.equal(fi, ui), "fused and unfused differ at the tile"
+    # bytes: each distinct probed list's codes and ids once, the LUTs, the
+    # probe ids and biases, the (T, k) values and ids written
+    f_bytes = lists * cap * (s + 4) + pairs * s * 16 * 2 + pairs * 8 + t * k * 8
+    t_bytes = f_bytes / H100_BYTES_S
+    st["pq_topk_t"] = dict(ms=f_ms, plain_ms=f_plain_ms, library_ms=f_lib_ms,
+                           bound_ms=max(t_bytes, t_ops) * 1e3,
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           unfused_route_ms=unfused_ms)
+    # by tile size: a block's latency (8 queries) against the card's
+    # throughput (1,024 queries, many blocks an SM in turn)
+    by_t = {}
+    for tt in (8, 128, 1024):
+        pt = ivf_pq._coarse_probes(index, q[:tt], pc)
+        with full_f32():
+            lt, bt = ivf_pq._probe_luts(index, q[:tt] @ index.rotation.T, pt.to(torch.int64),
+                                        *ivf_pq._codebooks_f32(index))
+        pt, lt = pt.to(torch.int32).contiguous(), lt.to(torch.bfloat16).contiguous()
+        by_t[str(tt)] = cuda_ms(lambda: pq_scan_topk(codes, ids, pt, lt, bt.contiguous(), k, True),
+                                reps=20, warm=2)
+    emit(phase="time", kernel="pq_scan_topk", T=t, pc=pc, k=k, distinct_lists=lists, cap=cap,
+         S=s, lut_dtype="bfloat16", bytes=f_bytes, adds=ops,
+         library="torch.gather + .sum + torch.topk (three calls, no bias or mask)",
+         unfused_route="pq_scan + bias + torch.where + topk + merge (the route before)",
+         ms_by_queries=by_t, card=st["card"], **st["pq_topk_t"])
+    pq_scan.launches, pq_scan_topk.launches, topk.launches = saved
 
 
 def phase_times(st):
@@ -1057,7 +1279,11 @@ def main(argv=None):
                  max_abs_err=st["topk_err"], **st["topk_t"]),
             dict(name="pq_scan", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
                  replaces="raft_tpu/ops/pq_scan.py:61", launches=launches["pq_scan"],
+                 launches_on="ivf_pq.search, select_impl='xla'",
                  max_abs_err=st["pq_err"], **st["pq_t"]),
+            dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
+                 replaces="raft_tpu/ops/pq_scan.py:61", launches=launches["pq_scan_topk"],
+                 max_abs_err=st["pq_topk_err"], **st["pq_topk_t"]),
             dict(name="cagra_hop", route="cuda",
                  source="raft_tpu_torch/ops/csrc/cagra_hop.cu",
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],

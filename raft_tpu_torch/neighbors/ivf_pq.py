@@ -15,14 +15,18 @@ detail/ivf_pq_search.cuh). The same index layout and the same algorithm:
   of :func:`~raft_tpu_torch.neighbors._list_utils.plan_search_tiles`: the
   LUT ``|c|² - 2·r·c`` per subspace (one batched product), the scan
   ``Σ_s LUT[s, code_s]``, bias and constants, a per-chunk select_k, then a
-  merge of the chunks in order, so ties go to the lowest flat position.
+  merge of the chunks in order (skipped for a tile of one chunk), so ties
+  go to the lowest flat position.
 - **Scan**: ``scan_impl`` takes the JAX package's names. "pallas" (or
   "kernel") is the ``pq_scan`` kernel (ops/pq_scan.py), which on a CUDA
   tensor follows the probed list ids itself; "onehot" and "select" are
   plain PyTorch formulations of the same sum. "auto" takes the kernel where
   the LUT stages are 16 wide (pq4 or split pq8) and ``lut_dtype`` is float32
   or bfloat16, and "onehot" otherwise (joint 256-entry pq8, int8 LUTs).
-  On a CPU tensor the kernel's route runs its plain version.
+  Where the chunk's select would go to the ``topk`` kernel too, the kernel
+  route runs ``pq_scan_topk`` instead: the scan, bias, constants, mask and
+  top-k in one launch per chunk, the scores never written out. On a CPU
+  tensor the kernel's route runs its plain version.
 
 Entry points run on the handle's device ("cuda" unless the caller passes
 ``Resources(device="cpu")``); an index lives on the device it was built or
@@ -54,7 +58,7 @@ from ..core.serialize import (check_header, deserialize_mdspan, deserialize_scal
                               serialize_scalar, serialize_tuned, version_number)
 from ..distance.pairwise import _choose_tile, full_f32
 from ..distance.types import DistanceType, resolve_metric
-from ..matrix.select_k import _select_k, select_k_impl
+from ..matrix.select_k import _select_k, select_k_impl, wide_dispatch_ok
 from ._list_utils import (assign_to_lists, bound_capacity, list_positions,
                           plan_search_tiles, pq_scan_bytes_per_probe_row)
 
@@ -616,21 +620,25 @@ def _onehot_scores(codes, lut, split: bool, lut_dtype: str):
     return scores.reshape(*lead, cap)
 
 
+def _lut_type(lut_dtype: str):
+    """The type the scan kernels and the "select" form read the LUT in."""
+    return torch.bfloat16 if lut_dtype == "bfloat16" else torch.float32
+
+
 def _scan(index: IvfPqIndex, pc, lut, scan_impl: str, lut_dtype: str):
     """Scores (T, pc, cap) of every slot of each probed list."""
     t, p = pc.shape
     if scan_impl == "kernel":
         from ..ops.pq_scan import pq_scan
 
-        ct = torch.bfloat16 if lut_dtype == "bfloat16" else torch.float32
-        lut_t = lut.reshape(t * p, index.pq_dim, lut.shape[-1]).to(ct).contiguous()
+        lut_t = lut.reshape(t * p, index.pq_dim, lut.shape[-1]).to(_lut_type(lut_dtype))
+        lut_t = lut_t.contiguous()
         scores = pq_scan(index.list_codes, pc.reshape(-1).to(torch.int32).contiguous(),
                          lut_t, split=index.pq_split)
         return scores.reshape(t, p, index.capacity)
     codes = index.list_codes[pc.to(torch.int64)]        # (T, pc, cap, pq_dim)
     if scan_impl == "select":
-        ct = torch.bfloat16 if lut_dtype == "bfloat16" else torch.float32
-        return _select_scores(codes, lut.to(ct), index.pq_split)
+        return _select_scores(codes, lut.to(_lut_type(lut_dtype)), index.pq_split)
     return _onehot_scores(codes, lut, index.pq_split, lut_dtype)
 
 
@@ -658,10 +666,30 @@ def _probe_luts(index: IvfPqIndex, qrot, pc, cb, cb_n2):
                 (r * r).sum(dim=(2, 3)))
 
 
+def _fuses_scan_and_select(index: IvfPqIndex, scan_impl: str, select_impl: str, pc: int,
+                           k: int, lut_dtype: str) -> bool:
+    """True when a chunk step of ``pc`` probes takes ``pq_scan_topk``, the
+    scan fused with its select: the kernel scan, a select that would go to
+    the ``topk`` kernel under ``select_k_impl``'s own rule ("kernel", or
+    "auto" with :func:`wide_dispatch_ok` on the chunk's pc x cap float32
+    scores), and a shape whose shared memory fits the fused kernel."""
+    from ..ops.pq_scan import pq_scan_topk_fits
+
+    if scan_impl != "kernel" or select_impl == "torch":
+        return False
+    if select_impl == "auto" and not wide_dispatch_ok(pc * index.capacity, k, torch.float32,
+                                                      index.device):
+        return False
+    return pq_scan_topk_fits(index.pq_dim, index.pq_split, _lut_type(lut_dtype), pc)
+
+
 def _pq_search(index: IvfPqIndex, queries, n_probes: int, k: int, query_tile: int,
                probe_chunk: int, lut_dtype: str, scan_impl: str,
                select_impl: str = "auto"):
-    """The tiled search (the JAX package's ``_pq_search``)."""
+    """The tiled search (the JAX package's ``_pq_search``). A chunk step
+    either runs ``pq_scan_topk`` (:func:`_fuses_scan_and_select`) or scans,
+    adds the bias (and split L2's constants), masks empty slots and selects;
+    a tile of one chunk keeps that chunk's k, a tile of several merges them."""
     m = queries.shape[0]
     qf = queries.to(torch.float32)
     inner = index.metric == DistanceType.InnerProduct
@@ -670,6 +698,8 @@ def _pq_search(index: IvfPqIndex, queries, n_probes: int, k: int, query_tile: in
         qrot = qf @ index.rotation.T
     cb, cb_n2 = _codebooks_f32(index)
     bad = -math.inf if inner else math.inf
+    consts = index.list_consts if index.pq_split and not inner else None
+    fused = _fuses_scan_and_select(index, scan_impl, select_impl, probe_chunk, k, lut_dtype)
     dists, idx = [], []
     for t0 in range(0, m, query_tile):
         q = qrot[t0:t0 + query_tile]
@@ -679,17 +709,27 @@ def _pq_search(index: IvfPqIndex, queries, n_probes: int, k: int, query_tile: in
         for c0 in range(0, n_probes, probe_chunk):
             pc = pr[:, c0:c0 + probe_chunk]               # (T, pc)
             lut, bias = _probe_luts(index, q, pc, cb, cb_n2)
-            scores = _scan(index, pc, lut, scan_impl, lut_dtype) + bias[:, :, None]
-            if index.pq_split and not inner:
-                scores = scores + index.list_consts[pc]
-            ids = index.list_ids[pc]                      # (T, pc, cap)
-            scores = torch.where(ids >= 0, scores, bad)
-            v, i = select_k_impl(scores.reshape(t, -1), ids.reshape(t, -1), k,
-                                 not inner, impl=select_impl)
+            if fused:
+                from ..ops.pq_scan import pq_scan_topk
+
+                v, i = pq_scan_topk(index.list_codes, index.list_ids,
+                                    pc.to(torch.int32).contiguous(),
+                                    lut.to(_lut_type(lut_dtype)).contiguous(),
+                                    bias.contiguous(), k, not inner, split=index.pq_split,
+                                    list_consts=consts)
+            else:
+                scores = _scan(index, pc, lut, scan_impl, lut_dtype) + bias[:, :, None]
+                if consts is not None:
+                    scores = scores + consts[pc]
+                ids = index.list_ids[pc]                  # (T, pc, cap)
+                scores = torch.where(ids >= 0, scores, bad)
+                v, i = select_k_impl(scores.reshape(t, -1), ids.reshape(t, -1), k,
+                                     not inner, impl=select_impl)
             cvs.append(v)
             cis.append(i)
-        v, i = select_k_impl(torch.cat(cvs, dim=1), torch.cat(cis, dim=1), k,
-                             not inner, impl=select_impl)
+        if len(cvs) > 1:
+            v, i = select_k_impl(torch.cat(cvs, dim=1), torch.cat(cis, dim=1), k,
+                                 not inner, impl=select_impl)
         dists.append(v)
         idx.append(i)
     dists = torch.cat(dists)

@@ -31,7 +31,9 @@
 // column asc). On random rows the buffer takes the first ~4k entries, then
 // only the few that beat the threshold; the slow cases are rows whose entries
 // keep improving in column order (a sorted row), which reduce every ~2k
-// entries, all in shared memory.
+// entries, all in shared memory. The key, the buffer, the reduce and the
+// sort live in select_block.cuh, which pq_scan.cu's fused scan-and-select
+// shares.
 //
 // Bound. The function reads x once and writes (m, k) values and ids: at the
 // main path's shape (10,000 x 100,003 float32) that is 4.0 GB, ~1.19 ms at
@@ -45,20 +47,16 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include "select_block.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAXK = 256;
+using namespace select_block;
+
 constexpr int E = 8;                    // entries a thread ranks per step
 constexpr int STEP = THREADS * E;       // entries a block ranks per step
 constexpr int CAP = 2 * STEP + MAXK;    // candidate buffer entries
-constexpr int BINS = 256;               // 8-bit radix digits
-constexpr uint32_t SIGN = 0x80000000u;
-constexpr uint32_t CLAMP_BITS = 0x7f5a2bf8u;  // 2.9e38f
-constexpr uint32_t INF_BITS = 0x7f800000u;
-constexpr unsigned FULL = 0xffffffffu;
-static_assert(THREADS == BINS, "reduce's scan gives each thread one digit");
+using Sel = select_block::Smem<CAP, false>;
 
 // float32 bits of one element
 __device__ __forceinline__ uint32_t bits_of(float v) { return __float_as_uint(v); }
@@ -102,149 +100,6 @@ template <> struct Load<__half> {
   }
 };
 
-// Order-preserving key of float32 bits b: larger = better.
-__device__ __forceinline__ uint32_t rank_key(uint32_t b, uint32_t flip) {
-  b ^= flip;                                   // select_min: negate
-  const uint32_t mag = b & ~SIGN;
-  if (mag > CLAMP_BITS && mag <= INF_BITS) b = (b & SIGN) | CLAMP_BITS;  // NaN kept
-  if (b == SIGN) b = 0u;                       // -0 ranks with +0
-  return (b & SIGN) ? ~b : (b | SIGN);
-}
-
-struct Smem {
-  uint32_t key[CAP];
-  uint32_t col[CAP];
-  int hist[WARPS][BINS];
-  uint32_t tkey[MAXK], tcol[MAXK];
-  int wsum[WARPS];
-  unsigned long long wmin[WARPS];
-  int count, sel, digit, kk, bin;
-};
-
-// Append this thread's passing entries (bit e of mask) to the buffer, one
-// shared atomic per warp. Returns, on the lane that made the atomic, whether
-// the buffer then holds more than lim entries; the last atomic of a step sees
-// every append before it, so a block-wide OR of the results is exact.
-template <int N, typename Col>
-__device__ __forceinline__ bool append(Smem& S, uint32_t mask, const uint32_t* key,
-                                       Col col, int lim) {
-  const int lane = threadIdx.x & 31;
-  const int np = __popc(mask);
-  if (__ballot_sync(FULL, np > 0) == 0u) return false;
-  int incl = np;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl += v;
-  }
-  const int total = __shfl_sync(FULL, incl, 31);
-  int base = 0;
-  if (lane == 31) base = atomicAdd(&S.count, total);
-  base = __shfl_sync(FULL, base, 31);
-  int p = base + incl - np;
-#pragma unroll
-  for (int e = 0; e < N; ++e) {
-    if ((mask >> e) & 1u) {
-      S.key[p] = key[e];
-      S.col[p] = col(e);
-      ++p;
-    }
-  }
-  return lane == 31 && base + total > lim;
-}
-
-// Reduce the buffer to its best k entries (all threads, after a barrier) and
-// set the threshold (tk, tc) to the k-th best. A buffer of fewer than k
-// entries is left as it is.
-__device__ void reduce(Smem& S, int k, uint32_t& tk, uint32_t& tc) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __syncthreads();
-  const int C = S.count;
-  if (C < k) return;
-  if (C > k) {
-    // radix select of the k-th largest composite (key << 32 | ~col); the
-    // kept entries are those whose masked composite is >= the prefix
-    uint32_t phi = 0u, plo = 0u, mhi = 0u, mlo = 0u;
-    int kk = k;
-    for (int pass = 0; pass < 8; ++pass) {
-      const bool hiw = pass < 4;
-      const int sh = 24 - 8 * (pass & 3);
-      for (int i = tid; i < WARPS * BINS; i += THREADS) (&S.hist[0][0])[i] = 0;
-      __syncthreads();
-      for (int i = tid; i < C; i += THREADS) {
-        const uint32_t h = S.key[i], l = ~S.col[i];
-        if ((h & mhi) == phi && (l & mlo) == plo)
-          atomicAdd(&S.hist[warp][((hiw ? h : l) >> sh) & (BINS - 1)], 1);
-      }
-      __syncthreads();
-      // thread t owns digit 255 - t: a scan from the best digit down
-      int c = 0;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) c += S.hist[w][BINS - 1 - tid];
-      int incl = c;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(FULL, incl, o);
-        if (lane >= o) incl += v;
-      }
-      if (lane == 31) S.wsum[warp] = incl;
-      __syncthreads();
-      for (int w = 0; w < warp; ++w) incl += S.wsum[w];
-      if (incl >= kk && incl - c < kk) {
-        S.digit = BINS - 1 - tid;
-        S.kk = kk - (incl - c);
-        S.bin = c;
-      }
-      __syncthreads();
-      const uint32_t d = (uint32_t)S.digit;
-      const int bin = S.bin;
-      kk = S.kk;
-      if (hiw) {
-        phi |= d << sh;
-        mhi |= 0xffu << sh;
-      } else {
-        plo |= d << sh;
-        mlo |= 0xffu << sh;
-      }
-      if (bin == kk) break;  // the digit's whole bin is kept (block-uniform)
-    }
-    if (tid == 0) S.sel = 0;
-    __syncthreads();
-    for (int i = tid; i < C; i += THREADS) {
-      const uint32_t h = S.key[i] & mhi, l = ~S.col[i] & mlo;
-      if (h > phi || (h == phi && l >= plo)) {
-        const int p = atomicAdd(&S.sel, 1);
-        S.tkey[p] = S.key[i];
-        S.tcol[p] = S.col[i];
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < k; i += THREADS) {
-      S.key[i] = S.tkey[i];
-      S.col[i] = S.tcol[i];
-    }
-    if (tid == 0) S.count = k;
-    __syncthreads();
-  }
-  // the new threshold: the smallest composite of the k kept
-  unsigned long long v = ~0ull;
-  for (int i = tid; i < k; i += THREADS)
-    v = min(v, ((unsigned long long)S.key[i] << 32) | (unsigned long long)(~S.col[i]));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
-  if (lane == 0) S.wmin[warp] = v;
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) v = min(v, S.wmin[w]);
-  tk = (uint32_t)(v >> 32);
-  tc = ~(uint32_t)v;
-  __syncthreads();
-}
-
-__device__ __forceinline__ bool better(uint32_t k1, uint32_t c1, uint32_t k2, uint32_t c2) {
-  return k1 > k2 || (k1 == k2 && c1 < c2);
-}
-
 // One step's vectors of this thread (zeros past the row's end).
 template <typename T>
 __device__ __forceinline__ void load_step(const uint4* vrow, int nvec, int s, uint4* buf) {
@@ -259,7 +114,7 @@ __device__ __forceinline__ void load_step(const uint4* vrow, int nvec, int s, ui
 // Rank one step's entries, append those that beat the threshold (tk, tc),
 // and reduce the buffer when the next step could overflow it.
 template <typename T>
-__device__ __forceinline__ void rank_step(Smem& S, const uint4* buf, int s, int nvec, int head,
+__device__ __forceinline__ void rank_step(Sel& S, const uint4* buf, int s, int nvec, int head,
                                           uint32_t flip, int k, uint32_t& tk, uint32_t& tc) {
   using L = Load<T>;
   constexpr int PV = L::PER_VEC, VECS = L::VECS;
@@ -283,7 +138,7 @@ __device__ __forceinline__ void rank_step(Smem& S, const uint4* buf, int s, int 
   const bool over = append<E>(
       S, mask, key,
       [=](int e) { return (uint32_t)(head + (v0 + (e / PV) * THREADS) * PV + e % PV); },
-      CAP - STEP);
+      nullptr, CAP - STEP);
   if (__syncthreads_or(over)) reduce(S, k, tk, tc);
 }
 
@@ -294,7 +149,7 @@ topk_kernel(const T* __restrict__ x, int n, int k, uint32_t flip,
             int* __restrict__ out_i) {
   using L = Load<T>;
   constexpr int PV = L::PER_VEC, VECS = L::VECS, VPS = THREADS * VECS;
-  __shared__ Smem S;
+  __shared__ Sel S;
   const int tid = threadIdx.x;
   const size_t r = blockIdx.x;
   const T* row = x + r * (size_t)n;
@@ -318,7 +173,7 @@ topk_kernel(const T* __restrict__ x, int n, int k, uint32_t flip,
       key[0] = rank_key(bits_of(row[c]), flip);
       mask = 1u;
     }
-    append<1>(S, mask, key, [=](int) { return (uint32_t)c; }, CAP);
+    append<1>(S, mask, key, [=](int) { return (uint32_t)c; }, nullptr, CAP);
   }
 
   // the body: three steps' loads in flight per thread (a ring of three
@@ -341,32 +196,7 @@ topk_kernel(const T* __restrict__ x, int n, int k, uint32_t flip,
   __syncthreads();
   if (S.count > k) reduce(S, k, tk, tc);
 
-  // bitonic sort of the k kept, padded to a power of two with the worst
-  int P = 1;
-  while (P < k) P <<= 1;
-  for (int i = k + tid; i < P; i += THREADS) {
-    S.key[i] = 0u;
-    S.col[i] = 0xffffffffu;
-  }
-  __syncthreads();
-  for (int size = 2; size <= P; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < P; i += THREADS) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const bool i_better = better(S.key[i], S.col[i], S.key[j], S.col[j]);
-          if (((i & size) == 0) != i_better) {
-            const uint32_t tkey = S.key[i], tcol = S.col[i];
-            S.key[i] = S.key[j];
-            S.col[i] = S.col[j];
-            S.key[j] = tkey;
-            S.col[j] = tcol;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  sort_kept(S, k);   // best first
   for (int j = tid; j < k; j += THREADS) {
     const size_t c = S.col[j];
     const size_t o = r * (size_t)k + j;

@@ -18,7 +18,8 @@ from raft_tpu_torch.neighbors import cagra, ivf_pq
 from raft_tpu_torch.neighbors.brute_force import BruteForce
 from raft_tpu_torch.ops.cagra_hop import cagra_hop, cagra_hop_plain
 from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
-from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_plain
+from raft_tpu_torch.ops.pq_scan import (pq_scan, pq_scan_plain, pq_scan_topk,
+                                        pq_scan_topk_plain)
 from raft_tpu_torch.ops.topk import topk, topk_plain
 
 pytestmark = pytest.mark.gpu
@@ -173,10 +174,93 @@ def test_pq_scan_kernel_bit_equal_to_plain(cuda, split, dtype):
         assert torch.equal(got, pq_scan_plain(codes, probes, lut, split=split))
 
 
+def pq_topk_inputs(s, split, pc, lut_dtype=torch.float32, inner=False, t=5, n_lists=9,
+                cap=300, seed=0):
+    """Seeded inputs of ``pq_scan_topk`` with what the kernel must get right
+    planted: query 0 has an integer LUT (scores tie everywhere); query 1
+    probes two lists holding the same code row, with equal LUTs and biases
+    (ties across probes and, through a repeated row, within a list); list 1
+    has holes, list 4 is empty, every list ends in unfilled slots; query 2
+    probes only list 4 but for one probe of list 5, which holds 3 rows (fewer
+    than k)."""
+    rng = np.random.default_rng(seed)
+    kk = 32 if split else 16
+    codes = rng.integers(0, 256 if split else 16, (n_lists, cap, s), dtype=np.uint8)
+    codes[2, 9] = codes[2, 5]
+    codes[3, 0] = codes[2, 5]
+    ids = rng.permutation(n_lists * cap).reshape(n_lists, cap).astype(np.int32)
+    ids[:, cap - 7:] = -1
+    ids[1, ::4] = -1
+    ids[4] = -1
+    ids[5, 3:] = -1
+    probes = rng.integers(0, n_lists, (t, pc)).astype(np.int32)
+    lut = (rng.normal(size=(t, pc, s, kk)) * 10).astype(np.float32)
+    lut[0] = rng.integers(-3, 4, (pc, s, kk))
+    bias = (rng.normal(size=(t, pc)) * 10).astype(np.float32)
+    probes[1, 0] = 2
+    if pc > 1:
+        probes[1, 1] = 3
+        lut[1, 1] = lut[1, 0]
+        bias[1, 1] = bias[1, 0]
+    probes[2] = 4
+    probes[2, -1] = 5
+    consts = None
+    if split and not inner:
+        consts = (rng.normal(size=(n_lists, cap)) * 5).astype(np.float32)
+        consts[2, 9] = consts[3, 0] = consts[2, 5]
+    tl = torch.from_numpy(lut).to(lut_dtype)
+    return (torch.from_numpy(codes), torch.from_numpy(ids), torch.from_numpy(probes), tl,
+            torch.from_numpy(bias), None if consts is None else torch.from_numpy(consts))
+
+
+@pytest.mark.parametrize("k", [1, 7, 40, 256])
+@pytest.mark.parametrize("pc", [1, 3, 8])
+@pytest.mark.parametrize("split,dtype,inner", [
+    (False, torch.float32, False), (False, torch.bfloat16, True),
+    (True, torch.float32, False), (True, torch.bfloat16, False), (True, torch.float32, True),
+])
+def test_pq_scan_topk_kernel_bit_equal_to_plain(cuda, k, pc, split, dtype, inner):
+    """The CPU tests' grid (ties, holes, underfill), at S=16 and 24 (codes
+    staged, and read byte by byte) and at S=64: values' bits and ids."""
+    for s in (16, 24, 64):
+        args = [None if a is None else a.to(cuda)
+                for a in pq_topk_inputs(s, split, pc, dtype, inner, seed=k + pc + s)]
+        before = pq_scan_topk.launches
+        v, i = pq_scan_topk(*args[:5], k, not inner, split=split, list_consts=args[5])
+        torch.cuda.synchronize()
+        assert pq_scan_topk.launches == before + 1
+        pv, pi = pq_scan_topk_plain(*args[:5], k, not inner, split, args[5])
+        assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+
+
+def test_pq_scan_topk_kernel_main_shape(cuda):
+    """128 queries x 8 probes of a 1,024-list index, cap 1,272, S=64, bf16
+    LUT, k=40, lists probed by several queries, holes and short lists."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    n_lists, cap, s, t, pc = 1024, 1272, 64, 128, 8
+    codes = torch.randint(0, 16, (n_lists, cap, s), generator=g, device=cuda,
+                          dtype=torch.uint8)
+    ids = torch.randperm(n_lists * cap, generator=g, device=cuda).to(torch.int32)
+    size = 1000 + torch.arange(n_lists, device=cuda)[:, None] % 273     # short lists
+    ids = torch.where(torch.arange(cap, device=cuda)[None, :] < size, ids.reshape(n_lists, cap), -1)
+    ids[::7, ::5] = -1                                                    # holes
+    probes = torch.randint(0, 300, (t, pc), generator=g, device=cuda, dtype=torch.int32)
+    lut = (torch.randn((t, pc, s, 16), generator=g, device=cuda) * 20).to(torch.bfloat16)
+    bias = torch.randn((t, pc), generator=g, device=cuda) * 100
+    before = pq_scan_topk.launches
+    v, i = pq_scan_topk(codes, ids, probes, lut, bias, 40, True)
+    torch.cuda.synchronize()
+    assert pq_scan_topk.launches == before + 1
+    pv, pi = pq_scan_topk_plain(codes, ids, probes, lut, bias, 40, True)
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+
+
 @pytest.mark.parametrize("bits", [4, 8])
 def test_ivf_pq_search_on_card_equals_cpu(cuda, tmp_path, bits):
     """An index built on the CPU, loaded onto the card: the card's search
-    (through the pq_scan kernel) answers as the CPU's (its plain version)."""
+    (through the fused pq_scan_topk kernel where the chunk's select would go
+    to the topk kernel, through pq_scan otherwise) answers as the CPU's (the
+    plain versions)."""
     rng = np.random.default_rng(3)
     centers = rng.normal(size=(60, 32)) * 3.0
     x = (centers[rng.integers(0, 60, 4000)] + rng.normal(size=(4000, 32))).astype(np.float32)
@@ -187,13 +271,17 @@ def test_ivf_pq_search_on_card_equals_cpu(cuda, tmp_path, bits):
     path = str(tmp_path / "index.bin")
     ivf_pq.save(index, path)
     card = ivf_pq.load(path, res=Resources(device="cuda"))
-    params = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
-    before = pq_scan.launches
-    d, i = ivf_pq.search(params, card, q, 20)
-    torch.cuda.synchronize()
-    assert pq_scan.launches > before
-    rd, ri = ivf_pq.search(params, index, q, 20, res=cpu)
-    _knn_equiv(d.cpu(), i.cpu(), rd, ri, rtol=1e-5, atol=1e-4)
+    for select in ("auto", "pallas"):
+        params = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16", select_impl=select)
+        fused = select == "pallas" or ivf_pq._fuses_scan_and_select(
+            card, "kernel", "auto", 8, 20, "bfloat16")
+        counter = pq_scan_topk if fused else pq_scan
+        before = counter.launches
+        d, i = ivf_pq.search(params, card, q, 20)
+        torch.cuda.synchronize()
+        assert counter.launches > before
+        rd, ri = ivf_pq.search(params, index, q, 20, res=cpu)
+        _knn_equiv(d.cpu(), i.cpu(), rd, ri, rtol=1e-5, atol=1e-4)
 
 
 def _hop_inputs(cuda, rows, d, itopk, width, seed):

@@ -291,3 +291,45 @@ def test_search_refuses_a_handle_on_another_device(data, jax_files):
     index = tpq.load(jax_files["pq4"][1], res=CPU)
     with pytest.raises(RaftError, match="lives on cpu"):
         tpq.search(tpq.SearchParams(n_probes=4), index, q, 10, res=Resources(device="cuda"))
+
+
+@pytest.mark.parametrize("name,lut", [("pq4", "float32"), ("pq8split", "bfloat16"),
+                                      ("pq4ip", "float32")])
+def test_fused_route_answers_as_jax(data, jax_files, name, lut, monkeypatch):
+    """scan_impl="kernel" with select_impl="pallas" takes pq_scan_topk (its
+    plain version on CPU tensors) and gives the JAX search's answers."""
+    _, q, _ = data
+    q = q[:16]              # each interpret-mode shape costs seconds to trace
+    jindex, path = jax_files[name]
+    tindex = tpq.load(path, res=CPU)
+    routes = []
+    real = tpq._fuses_scan_and_select
+    monkeypatch.setattr(tpq, "_fuses_scan_and_select",
+                        lambda *a: routes.append(real(*a)) or routes[-1])
+    jd, ji = jpq.search(jpq.SearchParams(n_probes=N_PROBES, scan_impl="pallas", lut_dtype=lut),
+                        jindex, jnp.asarray(q), 10)
+    params = tpq.SearchParams(n_probes=N_PROBES, scan_impl="kernel", select_impl="pallas",
+                              lut_dtype=lut)
+    td, ti = tpq.search(params, tindex, q, 10, res=CPU)
+    assert routes == [True]
+    _assert_same_answers(td, ti, jd, ji)
+
+
+@pytest.mark.parametrize("scan,select", [("kernel", "kernel"), ("kernel", "torch"),
+                                         ("onehot", "auto")])
+def test_one_chunk_and_many_chunks_answer_alike(data, jax_files, scan, select):
+    """A tile of one chunk keeps the chunk's k without a merge; a tile of four
+    chunks merges them. Both equal the merge of the one chunk's answer with
+    itself (the step the one-chunk tile skips), ids and value bits."""
+    from raft_tpu_torch.matrix.select_k import select_k_impl
+
+    _, q, _ = data
+    for name in ("pq4", "pq8split"):
+        index = tpq.load(jax_files[name][1], res=CPU)
+        qt = torch.from_numpy(q)
+        one = tpq._pq_search(index, qt, N_PROBES, 10, 16, N_PROBES, "float32", scan, select)
+        many = tpq._pq_search(index, qt, N_PROBES, 10, 16, 2, "float32", scan, select)
+        merged = select_k_impl(one[0], one[1], 10, True, impl=select)
+        for a, b, c in zip(one, many, merged):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32))
