@@ -58,7 +58,25 @@ Phases, each printing JSON lines:
      "xla"``; for CAGRA the wide-select threshold pinned above every row)
      must give the routed search's ids and values exactly, and is timed and
      profiled beside it in the same run;
-  3. kernel times (CUDA events) beside their bound, their plain version's
+     IVF-Flat in the JAX package's ``ivf_flat_1m_p8`` row (bench.py:3221-3239,
+     the CAGRA set): ``build(IndexParams(n_lists=1024, seed=0))`` and
+     ``search(SearchParams(n_probes=8))`` at k=10 for 10,000 queries,
+     profiled for one batch; recall@10 against exact ground truth on 1,000
+     queries (floor 0.99); the plain top-k route (threshold pinned above
+     every row) gives equal ids and values; the search launches ``topk``
+     as often as its tile plan says (tiles x chunks, plus the coarse
+     select) and ``fused_knn`` never; a filter that drops half the ids on
+     both routes; bfloat16 lists (recall floor 0.98 against the exact
+     neighbours of the rows they store) and int8 lists (100,000
+     rows, both routes equal); then the rest of the slice against float64
+     or the port's plain route: every pairwise metric at 2,048 x 16,384 x
+     128, ``knn(metric="l1")`` over the 1M set on both select routes,
+     ``masked_l2_nn`` and ``gram_matrix`` (four kernel types) at 10,000 x
+     100,000 x 128, ``eps_neighbors_l2sq``, and ``kmeans.fit`` at 100,000 x
+     128 from ``init="array"`` against the same call on the CPU;
+  3. ``fused_knn``'s bf16, f32x3 and s8 modes timed at the f32 row's shape
+     beside their tensor-core bounds and one library call each; kernel
+     times (CUDA events) beside their bound, their plain version's
      time and one library call's time (for ``cagra_hop``, which no single
      PyTorch call computes, the ``"xla"`` hop body's time instead; for
      ``pq_scan_topk`` also the unfused kernel route's time); and a
@@ -95,6 +113,15 @@ SWEEP_ROWS = (10_000, 128)      # a 10k-query batch; the IVF-PQ query tile
 SWEEP_COLS = (1_024, 4_096, 10_176, 16_384, 32_768, 65_536, 100_003)
 SWEEP_K = (10, 32, 40, 193)     # select_k; the CAGRA pool; IVF-PQ's k0; the CAGRA build
 CAGRA_RECALL_FLOOR = 0.95       # recall@10 at itopk 32; the card's first full run read 0.9725
+IVF_FLAT_LISTS, IVF_FLAT_PROBES, IVF_FLAT_CHECK = 1024, 8, 1_000
+IVF_FLAT_RECALL_FLOOR = 0.99    # recall@10 of ivf_flat_1m_p8; an algorithm's property
+IVF_FLAT_BF16_FLOOR = 0.98      # bfloat16 lists, against the stored rows' exact neighbours
+INT8_ROWS, INT8_LISTS = 100_000, 256
+PAIR_M, PAIR_N = 2_048, 16_384  # the pairwise-metric checks
+SLICE_N = 100_000               # masked_l2_nn, gram_matrix, eps_neighbors, kmeans rows
+KMEANS_K, KMEANS_ITERS = 256, 20
+H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores, H100 SXM data sheet
+H100_INT8_OPS = 1979e12         # dense int8 tensor cores, H100 SXM data sheet
 
 
 def emit(**kw):
@@ -973,6 +1000,554 @@ def phase_cagra(st):
     st["cagra"] = (index, q)
 
 
+def phase_ivf_flat(st):
+    """IVF-Flat build and search in the JAX package's ``ivf_flat_1m_p8`` row
+    (bench.py:3221-3239): the CAGRA set, ``IndexParams(n_lists=1024,
+    seed=0)``, ``SearchParams(n_probes=8)``, k=10, 10,000-query batches."""
+    import math
+
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.distance.pairwise import full_f32
+    from raft_tpu_torch.matrix.select_k import set_wide_cols_threshold, wide_dispatch_ok
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.neighbors.brute_force import BruteForce
+    from raft_tpu_torch.neighbors.sample_filter import BitsetFilter
+    from raft_tpu_torch.ops.fused_knn import fused_knn
+    from raft_tpu_torch.ops.topk import topk
+
+    def reset():
+        fused_knn.launches = topk.launches = 0
+
+    def counts():
+        return {"fused_knn": fused_knn.launches, "topk": topk.launches}
+
+    def plain_route(fn):
+        """``fn()`` with the wide-select threshold above every row: every
+        select on the plain top-k route; no topk launch."""
+        set_wide_cols_threshold(1 << 30)
+        try:
+            before = topk.launches
+            out = fn()
+            torch.cuda.synchronize()
+            assert topk.launches == before, "the plain route launched topk"
+            return out
+        finally:
+            set_wide_cols_threshold(None)
+
+    def index_bytes(ix):
+        return sum(t.numel() * t.element_size() for t in (
+            ix.centers, ix.list_data, ix.list_ids, ix.list_norms, ix.list_sizes))
+
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+    x, q, _, _ = cagra_data()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = ivf_flat.build(ivf_flat.IndexParams(n_lists=IVF_FLAT_LISTS, seed=0), x, res=res)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert index.size == N_MAIN and index.list_data.dtype == torch.float32
+    emit(phase="ivf_flat_build", n=N_MAIN, d=D_MAIN, n_lists_asked=IVF_FLAT_LISTS,
+         n_lists=index.n_lists, capacity=index.capacity, build_seconds=build_s,
+         index_bytes=index_bytes(index), card=st["card"])
+
+    sp = ivf_flat.SearchParams(n_probes=IVF_FLAT_PROBES)
+    ivf_flat.search(sp, index, q, K_MAIN, res=res)           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    batches = 3
+    reset()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        d, i = ivf_flat.search(sp, index, q, K_MAIN, res=res)
+    torch.cuda.synchronize()
+    search_s = (time.perf_counter() - t0) / batches
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert d.shape == (CAGRA_Q, K_MAIN) and i.shape == (CAGRA_Q, K_MAIN)
+    assert bool(torch.isfinite(d).all()) and bool((i >= 0).all()) and bool((i < N_MAIN).all())
+    # (c) the topk launches the tile plan gives: one a (tile, chunk) select,
+    # one for the coarse select and one a tile's merge where those are wide
+    qt, pc = ivf_flat.search_plan(index, CAGRA_Q, IVF_FLAT_PROBES, K_MAIN, res)
+    tiles, chunks = -(-CAGRA_Q // qt), IVF_FLAT_PROBES // pc
+    chunk_wide = wide_dispatch_ok(pc * index.capacity, K_MAIN, torch.float32, dev)
+    coarse_wide = wide_dispatch_ok(index.n_lists, IVF_FLAT_PROBES, torch.float32, dev)
+    merge_wide = wide_dispatch_ok(chunks * K_MAIN, K_MAIN, torch.float32, dev)
+    planned = tiles * chunks * chunk_wide + coarse_wide + tiles * merge_wide
+    assert chunk_wide, "the IVF-Flat chunk select does not reach the topk kernel"
+    assert launches["topk"] == planned * batches, (
+        f"the IVF-Flat search launched topk {launches['topk'] / batches} times a batch, "
+        f"not the plan's {planned}")
+    assert launches["fused_knn"] == 0, launches
+
+    # (a) recall@10 against exact ground truth (the fused_knn path)
+    qc = q[:IVF_FLAT_CHECK]
+    _, truth = BruteForce("sqeuclidean").build(x, res=res).search(qc, K_MAIN)
+    rec = recall(i[:IVF_FLAT_CHECK], truth)
+    # (b) the plain top-k route answers as the routed one
+    pd, pi = plain_route(lambda: ivf_flat.search(sp, index, q, K_MAIN, res=res))
+    routes_equal = torch.equal(pi, i) and torch.equal(pd, d)
+    assert routes_equal, (f"the plain and topk routes differ on "
+                          f"{int((pi != i).any(1).sum())} of {CAGRA_Q} rows")
+    # (d) a filter that drops half the ids
+    keep = torch.rand(N_MAIN, generator=torch.Generator(device=dev).manual_seed(30),
+                      device=dev) < 0.5
+    fd, fi = ivf_flat.search(sp, index, q, K_MAIN, sample_filter=BitsetFilter(keep), res=res)
+    kept = fi[fi >= 0].long()
+    assert bool(keep[kept].all()), "a filtered-out id came back"
+    fpd, fpi = plain_route(lambda: ivf_flat.search(sp, index, q, K_MAIN,
+                                                   sample_filter=BitsetFilter(keep), res=res))
+    filter_equal = torch.equal(fpi, fi) and torch.equal(fpd, fd)
+    assert filter_equal, "the filtered search differs between the select routes"
+    underfilled = int((fi == -1).any(1).sum())
+    assert bool(torch.isinf(fd[fi == -1]).all())
+    profile_batch(st, "ivf_flat.search", "ivf_flat_profile.txt",
+                  lambda: ivf_flat.search(sp, index, q, K_MAIN, res=res))
+    # one chunk of the first tile: the gather of its probed lists and the
+    # batched product, and the same gather at random probes of that shape
+    probes = ivf_flat._coarse_probes(index, q[:qt], IVF_FLAT_PROBES).long()[:, :pc]
+    rand = torch.randint(0, index.n_lists, tuple(probes.shape), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(31))
+    block = index.list_data[probes].reshape(qt, pc * index.capacity, D_MAIN)
+    with full_f32():
+        prod_ms = cuda_ms(lambda: torch.bmm(block, q[:qt, :, None]), reps=20)
+    chunk = dict(gather_ms=cuda_ms(lambda: index.list_data[probes], reps=20),
+                 gather_random_probes_ms=cuda_ms(lambda: index.list_data[rand], reps=20),
+                 product_ms=prod_ms, block_bytes=block.numel() * 4,
+                 distinct_lists=int(torch.unique(probes).numel()))
+    emit(phase="time", what="ivf_flat chunk", T=qt, pc=pc, cap=index.capacity,
+         card=st["card"], **chunk)
+    del block
+    st["launches"]["topk_ivf_flat"] = launches["topk"]
+    emit(phase="main", path="ivf_flat.search", n=N_MAIN, d=D_MAIN, m=CAGRA_Q, k=K_MAIN,
+         n_probes=IVF_FLAT_PROBES, batches=batches, qps=CAGRA_Q / search_s,
+         seconds_per_batch=search_s, query_tile=qt, probe_chunk=pc,
+         chunk_select_cols=pc * index.capacity, launches=launches,
+         topk_launches_per_batch=launches["topk"] / batches, planned_topk_per_batch=planned,
+         fused_knn_launches=launches["fused_knn"], peak_device_bytes=peak,
+         peak_above_live_bytes=peak - live, recall_at_10=rec,
+         recall_floor=IVF_FLAT_RECALL_FLOOR, check_rows=IVF_FLAT_CHECK,
+         plain_route_equal=routes_equal, filter_kept_share=float(keep.float().mean()),
+         filter_routes_equal=filter_equal, filter_underfilled_rows=underfilled,
+         chunk=chunk, card=st["card"])
+    assert rec >= IVF_FLAT_RECALL_FLOOR, f"recall@10 {rec} below {IVF_FLAT_RECALL_FLOOR}"
+    del index, d, i, pd, pi, fd, fi, fpd, fpi
+
+    # (e) bfloat16 lists
+    t0 = time.perf_counter()
+    bindex = ivf_flat.build(ivf_flat.IndexParams(n_lists=IVF_FLAT_LISTS, seed=0,
+                                                 list_dtype="bfloat16"), x, res=res)
+    torch.cuda.synchronize()
+    b_build = time.perf_counter() - t0
+    assert bindex.list_data.dtype == torch.bfloat16 and bindex.data_kind == "bfloat16"
+    ivf_flat.search(sp, bindex, q, K_MAIN, res=res)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        bd, bi = ivf_flat.search(sp, bindex, q, K_MAIN, res=res)
+    torch.cuda.synchronize()
+    b_search = (time.perf_counter() - t0) / batches
+    # rounding the rows to bfloat16 moves their distances by about the gap
+    # between the 10th and 11th neighbours of this set, so even an exact
+    # search over the stored rows misses some of the float32 truth: the
+    # floor holds the search to the exact neighbours of the rows it stores
+    _, truth_b = BruteForce("sqeuclidean").build(x.bfloat16().float(), res=res).search(
+        qc, K_MAIN)
+    b_rec = recall(bi[:IVF_FLAT_CHECK], truth)
+    b_rec_stored = recall(bi[:IVF_FLAT_CHECK], truth_b)
+    emit(phase="main", path="ivf_flat.search, list_dtype bfloat16", n=N_MAIN, d=D_MAIN,
+         m=CAGRA_Q, k=K_MAIN, n_probes=IVF_FLAT_PROBES, build_seconds=b_build,
+         index_bytes=index_bytes(bindex), qps=CAGRA_Q / b_search, recall_at_10=b_rec,
+         exact_recall_over_stored_rows=recall(truth_b, truth),
+         recall_at_10_vs_stored_rows=b_rec_stored, recall_floor_vs_stored_rows=IVF_FLAT_BF16_FLOOR,
+         card=st["card"])
+    assert b_rec_stored >= IVF_FLAT_BF16_FLOOR, (
+        f"bf16 recall@10 against the stored rows' neighbours {b_rec_stored} below "
+        f"{IVF_FLAT_BF16_FLOOR}")
+    del bindex, bd, bi
+
+    # (f) int8 lists: the set scaled and rounded into int8; integer scores
+    # are exact, so the two select routes agree exactly
+    def to_int8(a):
+        return (a * 12.7 - 64.0).round().clamp(-128, 127).to(torch.int8)
+
+    x8, q8 = to_int8(x[:INT8_ROWS]), to_int8(q)
+    iindex = ivf_flat.build(ivf_flat.IndexParams(n_lists=INT8_LISTS, seed=0), x8, res=res)
+    assert iindex.data_kind == "int8" and iindex.list_data.dtype == torch.int8
+    reset()
+    idd, iid = ivf_flat.search(sp, iindex, q8, K_MAIN, res=res)
+    torch.cuda.synchronize()
+    i_launches = counts()
+    ipd, ipi = plain_route(lambda: ivf_flat.search(sp, iindex, q8, K_MAIN, res=res))
+    int8_equal = torch.equal(ipi, iid) and torch.equal(ipd, idd)
+    assert int8_equal, "the int8 search differs between the select routes"
+    assert bool((idd == idd.round()).all()), "int8 distances are not integers"
+    emit(phase="main", path="ivf_flat.search, int8 lists", n=INT8_ROWS, d=D_MAIN, m=CAGRA_Q,
+         k=K_MAIN, n_lists=iindex.n_lists, capacity=iindex.capacity,
+         launches=i_launches, plain_route_equal=int8_equal, card=st["card"])
+    del iindex, x8, q8
+
+
+def expanded_bound(xn, yn):
+    """Error bound of the float32 expanded L2 form ‖x‖² + ‖y‖² − 2·x·y over d
+    terms, d·2⁻²⁴·(‖x‖² + ‖y‖² + 2‖x‖‖y‖), from the squared norms ``xn`` and
+    ``yn`` (float64, broadcast against each other)."""
+    return D_MAIN * 2.0 ** -24 * (xn + yn + 2.0 * (xn * yn).sqrt())
+
+
+def _ref64(metric, xt, y, p):
+    """The metric's formula in float64 over one row tile: xt (t, d), y (n, d)."""
+    import torch
+
+    def glog(v):
+        return torch.where(v > 0, torch.log(torch.where(v > 0, v, 1.0)), 0.0)
+
+    def cos(a, b):
+        return 1.0 - (a @ b.T) / (a.norm(dim=1)[:, None] * b.norm(dim=1)[None, :])
+
+    if metric == "inner_product":
+        return xt @ y.T
+    if metric == "cosine":
+        return cos(xt, y)
+    if metric == "correlation":
+        return cos(xt - xt.mean(1, keepdim=True), y - y.mean(1, keepdim=True))
+    if metric == "hellinger":
+        return torch.sqrt(torch.clamp_min(1.0 - xt.sqrt() @ y.sqrt().T, 0.0))
+    if metric == "russellrao":
+        return (xt.shape[1] - xt @ y.T) / xt.shape[1]
+    if metric == "kl_divergence":
+        return 0.5 * ((xt * glog(xt)).sum(1)[:, None] - xt @ glog(y).T)
+    if metric in ("jaccard", "dice"):
+        inter = xt @ y.T
+        tot = xt.sum(1)[:, None] + y.sum(1)[None, :]
+        den = tot - inter if metric == "jaccard" else tot
+        num = inter if metric == "jaccard" else 2.0 * inter
+        return torch.where(den > 0, 1.0 - num / torch.where(den > 0, den, 1.0), 0.0)
+    a, b = xt[:, None, :], y[None, :, :]
+    if metric == "haversine":
+        s1 = torch.sin(0.5 * (b[..., 0] - a[..., 0]))
+        s2 = torch.sin(0.5 * (b[..., 1] - a[..., 1]))
+        h = s1 * s1 + torch.cos(a[..., 0]) * torch.cos(b[..., 0]) * s2 * s2
+        return 2.0 * torch.asin(torch.sqrt(torch.clamp(h, 0.0, 1.0))), h
+    diff = a - b
+    if metric in ("sqeuclidean", "euclidean", "l2_expanded", "l2_sqrt_expanded"):
+        d2 = (diff * diff).sum(-1)
+        return d2 if metric in ("sqeuclidean", "l2_expanded") else d2.sqrt()
+    if metric == "l1":
+        return diff.abs().sum(-1)
+    if metric == "chebyshev":
+        return diff.abs().amax(-1)
+    if metric == "canberra":
+        den = a.abs() + b.abs()
+        return torch.where(den > 0, diff.abs() / torch.where(den > 0, den, 1.0), 0.0).sum(-1)
+    if metric == "minkowski":
+        return diff.abs().pow(p).sum(-1).pow(1.0 / p)
+    if metric == "braycurtis":
+        den = (a + b).abs().sum(-1)
+        return torch.where(den > 0, diff.abs().sum(-1) / torch.where(den > 0, den, 1.0), 0.0)
+    if metric == "jensenshannon":
+        logm = glog(0.5 * (a + b))
+        acc = (-a * (logm - glog(a)) - b * (logm - glog(b))).sum(-1)
+        return torch.sqrt(torch.clamp_min(0.5 * acc, 0.0))
+    if metric == "hamming":
+        return (a != b).double().mean(-1)
+    raise ValueError(metric)
+
+
+# metric -> (inputs, metric_arg, rtol): every pairwise metric, at the rtol the
+# CPU parity tests use (atol 1e-5 throughout)
+PAIRWISE_METRICS = {
+    "l2_expanded": ("uniform", 2.0, 1e-5), "l2_sqrt_expanded": ("uniform", 2.0, 1e-5),
+    "sqeuclidean": ("uniform", 2.0, 1e-5), "euclidean": ("uniform", 2.0, 1e-5),
+    "cosine": ("uniform", 2.0, 1e-5), "inner_product": ("uniform", 2.0, 1e-5),
+    "correlation": ("uniform", 2.0, 1e-5), "hellinger": ("simplex", 2.0, 1e-5),
+    "russellrao": ("binary", 2.0, 1e-5), "kl_divergence": ("simplex", 2.0, 1e-4),
+    "jaccard": ("binary", 2.0, 1e-5), "dice": ("binary", 2.0, 1e-5),
+    "l1": ("uniform", 2.0, 1e-5), "chebyshev": ("uniform", 2.0, 1e-5),
+    "canberra": ("uniform", 2.0, 1e-5), "minkowski": ("uniform", 3.0, 1e-5),
+    "braycurtis": ("uniform", 2.0, 1e-5), "jensenshannon": ("simplex", 2.0, 1e-4),
+    "hamming": ("binary", 2.0, 1e-5), "haversine": ("latlon", 2.0, 1e-5),
+}
+
+
+def phase_slice(st):
+    """The rest of this slice on the card, each against float64 or the port's
+    own plain route: every pairwise metric at 2,048 x 16,384 x 128 (haversine
+    at d = 2); ``knn(metric="l1")`` over the 1M set on both select routes;
+    ``masked_l2_nn`` and ``gram_matrix`` at 10,000 x 100,000 x 128;
+    ``kmeans.fit`` at 100,000 x 128 from ``init="array"`` against the same
+    call on the CPU; ``eps_neighbors_l2sq`` at 10,000 x 100,000."""
+    import torch
+
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.distance import (DistanceType, KernelParams, KernelType,
+                                         gram_matrix, masked_l2_nn, pairwise_distance)
+    from raft_tpu_torch.matrix.select_k import set_wide_cols_threshold
+    from raft_tpu_torch.neighbors import eps_neighbors_l2sq
+    from raft_tpu_torch.neighbors.brute_force import knn
+    from raft_tpu_torch.ops.topk import topk
+
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(40)
+    m, n, d = PAIR_M, PAIR_N, D_MAIN
+    names = {"l2_expanded": DistanceType.L2Expanded,
+             "l2_sqrt_expanded": DistanceType.L2SqrtExpanded}
+
+    def inputs(kind):
+        if kind == "latlon":
+            lat = (torch.rand((m + n,), generator=g, device=dev) - 0.5) * 3.14159
+            lon = (torch.rand((m + n,), generator=g, device=dev) - 0.5) * 6.28318
+            a = torch.stack([lat, lon], 1)
+        else:
+            a = torch.rand((m + n, d), generator=g, device=dev)
+            a[torch.rand((m + n, d), generator=g, device=dev) < 0.1] = 0.0
+            if kind == "binary":
+                a = (a < 0.3).float()
+            elif kind == "simplex":
+                a[:, 0] += 1e-3
+                a = a / a.sum(1, keepdim=True)
+        return a[:m].contiguous(), a[m:].contiguous()
+
+    worst = {}
+    t_all = time.perf_counter()
+    for name, (kind, arg, rtol) in PAIRWISE_METRICS.items():
+        xm, ym = inputs(kind)
+        got = pairwise_distance(xm, ym, names.get(name, name), metric_arg=arg, res=res)
+        assert got.shape == (m, n) and got.dtype == torch.float32
+        y64 = ym.double()
+        err, rel = 0.0, 0.0
+        for i in range(0, m, 128):
+            ref = _ref64(name, xm[i:i + 128].double(), y64, arg)
+            tol_extra = 0.0
+            if name in ("l2_expanded", "l2_sqrt_expanded"):
+                # the float32 expanded form ‖x‖² + ‖y‖² − 2·x·y: its error bound
+                b = expanded_bound(xm[i:i + 128].double().square().sum(1)[:, None],
+                                   y64.square().sum(1)[None, :])
+                tol_extra = b if name == "l2_expanded" else torch.minimum(
+                    b.sqrt(), b / ref.clamp_min(1e-30))
+            if name == "haversine":
+                # asin√h is ill-conditioned near antipodes: h's own float32
+                # rounding (8 ulps) through the slope 1/√(h(1-h))
+                ref, h = ref
+                tol_extra = 8 * h * 2.0 ** -23 / torch.sqrt(torch.clamp_min(h * (1 - h), 1e-30))
+            gi = got[i:i + 128].double()
+            diff = (gi - ref).abs()
+            ok = diff <= rtol * ref.abs() + 1e-5 + tol_extra
+            assert bool(ok.all()), (f"pairwise {name} differs from float64: "
+                                    f"{int((~ok).sum())} entries, max abs err {float(diff.max())}")
+            err = max(err, float(diff.max()))
+            rel = max(rel, float((diff / ref.abs().clamp_min(1e-6)).max()))
+        worst[name] = (err, rel)
+    emit(phase="check", what="pairwise_distance vs float64", m=m, n=n, d=d,
+         metrics=len(PAIRWISE_METRICS), max_abs_err={k: v[0] for k, v in worst.items()},
+         max_rel_err={k: v[1] for k, v in worst.items()},
+         seconds=time.perf_counter() - t_all, ok=True, card=st["card"])
+
+    # knn(metric="l1") over the 1M set: the topk kernel and the plain route
+    x, q, _, _ = cagra_data()
+    qk = q[:1000]
+    before = topk.launches
+    t0 = time.perf_counter()
+    kd, ki = knn(x, qk, K_MAIN, metric="l1", res=res)
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    k_launches = topk.launches - before
+    assert k_launches > 0, "knn(metric='l1') did not launch topk"
+    set_wide_cols_threshold(1 << 30)
+    try:
+        pd, pi = knn(x, qk, K_MAIN, metric="l1", res=res)
+        torch.cuda.synchronize()
+    finally:
+        set_wide_cols_threshold(None)
+    l1_equal = torch.equal(pi, ki) and torch.equal(pd, kd)
+    assert l1_equal, "knn(metric='l1') differs between the select routes"
+    ref = (x[ki[:8].long()] - qk[:8, None]).abs().sum(-1)
+    assert bool(torch.allclose(kd[:8], ref, rtol=1e-5)), "l1 distances are not the rows'"
+    emit(phase="check", what="knn l1 on both select routes", n=N_MAIN, d=D_MAIN, m=1000,
+         k=K_MAIN, seconds=k_s, topk_launches=k_launches, routes_equal=l1_equal, ok=True,
+         card=st["card"])
+    del x, q, kd, ki, pd, pi
+
+    # masked_l2_nn and gram_matrix: 10,000 x 100,000 x 128 uniform rows
+    xu, qu = st["main"]
+    y = xu[:SLICE_N]
+    y64 = y.double()
+    yn64 = y64.square().sum(1)
+    ends = torch.linspace(SLICE_N / 64, SLICE_N, 64, device=dev).round().long()
+    group = torch.searchsorted(ends, torch.arange(SLICE_N, device=dev), right=True)
+    adj = torch.rand((M_MAIN, 64), generator=g, device=dev) < 0.3
+    adj[::97] = False
+    ref2, refi, qn64 = [], [], []
+    for i in range(0, M_MAIN, 1000):
+        qb = qu[i:i + 1000].double()
+        qn = qb.square().sum(1)
+        d2 = (qn[:, None] + yn64[None, :] - 2.0 * qb @ y64.T).clamp_min(0.0)
+        v, ix = torch.where(adj[i:i + 1000][:, group], d2, float("inf")).min(1)
+        ref2.append(v)
+        refi.append(torch.where(torch.isinf(v), -1, ix))
+        qn64.append(qn)
+    ref2, refi, qn64 = torch.cat(ref2), torch.cat(refi), torch.cat(qn64)
+    none = torch.isinf(ref2)
+    for sqrt in (False, True):
+        md, mi = masked_l2_nn(qu, y, adj, ends.cpu().numpy(), sqrt=sqrt, res=res)
+        torch.cuda.synchronize()
+        assert torch.equal(mi[none].long(), refi[none]) and bool(torch.isinf(md[none]).all())
+        # compared squared, within rtol 1e-5 plus the float32 expanded form's
+        # error bound at the float64 pick
+        got2 = md[~none].double() ** (2 if sqrt else 1)
+        r2 = ref2[~none]
+        tol = 1e-5 * r2 + 1e-5 + expanded_bound(qn64[~none], yn64[refi[~none]])
+        m_err = float((got2 - r2).abs().max())
+        assert bool(((got2 - r2).abs() <= tol).all()), f"masked_l2_nn off by {m_err}"
+        # where the ids differ, the port's pick is as near within that tolerance
+        diff = (mi.long() != refi) & ~none
+        picked = (qu[diff].double() - y64[mi[diff].long()]).square().sum(1)
+        assert bool(((picked - ref2[diff]).abs() <= tol[diff[~none]]).all()), "masked ids"
+        assert bool(adj[diff][torch.arange(int(diff.sum()), device=dev),
+                              group[mi[diff].long()]].all()), "a masked group was picked"
+        emit(phase="check", what="masked_l2_nn vs float64", m=M_MAIN, n=SLICE_N, d=D_MAIN,
+             groups=64, sqrt=sqrt, rows_without_group=int(none.sum()),
+             ids_differing_within_tol=int(diff.sum()), max_abs_err_squared=m_err, ok=True,
+             card=st["card"])
+    kparams = [KernelParams(KernelType.LINEAR),
+               KernelParams(KernelType.POLYNOMIAL, degree=3, gamma=1 / 128, coef0=1.0),
+               KernelParams(KernelType.TANH, gamma=1 / 128, coef0=-0.25),
+               KernelParams(KernelType.RBF, gamma=0.05)]
+    for kp in kparams:
+        g_err = 0.0
+        for i in range(0, M_MAIN, 2500):
+            got = gram_matrix(kp, qu[i:i + 2500], y, res=res).double()
+            qb = qu[i:i + 2500].double()
+            dot = qb @ y64.T
+            if kp.kernel == KernelType.LINEAR:
+                ref = dot
+            elif kp.kernel == KernelType.POLYNOMIAL:
+                ref = (kp.gamma * dot + kp.coef0) ** kp.degree
+            elif kp.kernel == KernelType.TANH:
+                ref = torch.tanh(kp.gamma * dot + kp.coef0)
+            else:
+                d2 = (qb.square().sum(1)[:, None] + yn64[None, :] - 2.0 * dot).clamp_min(0.0)
+                ref = torch.exp(-kp.gamma * d2)
+            tol = 1e-5 * ref.abs() + 1e-5
+            if kp.kernel == KernelType.RBF:
+                # the expanded distance's error bound through exp's slope
+                tol = tol + kp.gamma * ref * expanded_bound(qb.square().sum(1)[:, None],
+                                                            yn64[None, :])
+            diff = (got - ref).abs()
+            assert bool((diff <= tol).all()), (
+                f"gram {kp.kernel.value} differs from float64 by {float(diff.max())}")
+            g_err = max(g_err, float(diff.max()))
+            del got, dot, ref, diff, tol
+        emit(phase="check", what="gram_matrix vs float64", kernel=kp.kernel.value, m=M_MAIN,
+             n=SLICE_N, d=D_MAIN, max_abs_err=g_err, rtol=1e-5, atol=1e-5, ok=True,
+             card=st["card"])
+
+    # eps_neighbors_l2sq: adjacency equal except pairs within the float32
+    # expanded form's error of the radius
+    eps = 16.0
+    adj_e, vd = eps_neighbors_l2sq(qu, y, eps, res=res)
+    assert adj_e.shape == (M_MAIN, SLICE_N) and vd.shape == (M_MAIN + 1,)
+    assert torch.equal(vd[:-1], adj_e.sum(1, dtype=torch.int32)) and int(vd[-1]) == int(adj_e.sum())
+    flips = 0
+    for i in range(0, M_MAIN, 1000):
+        qb = qu[i:i + 1000].double()
+        d2 = (qb.square().sum(1)[:, None] + yn64[None, :] - 2.0 * qb @ y64.T).clamp_min(0.0)
+        band = expanded_bound(qb.square().sum(1)[:, None], yn64[None, :])
+        wrong = adj_e[i:i + 1000] != (d2 <= eps)
+        assert not bool((wrong & ((d2 - eps).abs() > band)).any()), "eps adjacency differs"
+        flips += int(wrong.sum())
+    emit(phase="check", what="eps_neighbors_l2sq vs float64", m=M_MAIN, n=SLICE_N, d=D_MAIN,
+         eps=eps, edges=int(vd[-1]), flips_within_band=flips, ok=True, card=st["card"])
+
+    # kmeans.fit from init="array": the card against the CPU
+    xk = cagra_data()[0][:SLICE_N]
+    init = xk[:KMEANS_K]
+    params = kmeans.KMeansParams(n_clusters=KMEANS_K, init="array", max_iter=KMEANS_ITERS)
+    t0 = time.perf_counter()
+    gpu = kmeans.fit(params, xk, centroids=init, res=res)
+    torch.cuda.synchronize()
+    k_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = kmeans.fit(params, xk.cpu(), centroids=init.cpu(), res=Resources(device="cpu"))
+    k_cpu = time.perf_counter() - t0
+    same = float((gpu.labels.cpu() == cpu.labels).float().mean())
+    inertia_rel = abs(float(gpu.inertia) - float(cpu.inertia)) / float(cpu.inertia)
+    emit(phase="check", what="kmeans.fit card vs cpu", n=SLICE_N, d=D_MAIN, k=KMEANS_K,
+         max_iter=KMEANS_ITERS, n_iter_card=gpu.n_iter, n_iter_cpu=cpu.n_iter,
+         labels_equal_share=same, inertia_card=float(gpu.inertia),
+         inertia_cpu=float(cpu.inertia), inertia_rel_diff=inertia_rel,
+         seconds_card=k_gpu, seconds_cpu=k_cpu, card=st["card"])
+    assert same >= 0.999, f"k-means labels agree on {same} of the rows"
+    assert inertia_rel <= 1e-4, f"k-means inertia differs by {inertia_rel}"
+    del xk, init, gpu, cpu
+
+
+def time_fused_modes(st):
+    """``fused_knn``'s bf16, f32x3 and s8 modes at the f32 row's shape
+    (10,000 x 1M x 128, k=10), each beside its bound and one library call per
+    2,500-query chunk."""
+    import torch
+
+    from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
+
+    x, q = st["main"]
+    m, n, d, k = M_MAIN, N_MAIN, D_MAIN, K_MAIN
+    saved = fused_knn.launches
+    xb, qb = x.bfloat16(), q.bfloat16()
+    xh, qh = xb, qb
+    xl, ql = (x - xh.float()).bfloat16(), (q - qh.float()).bfloat16()
+    xs, qs = ((a * 255.0 - 128.0).round().clamp(-128, 127).to(torch.int8) for a in (x, q))
+    yn = x.square().sum(1)
+    yns = xs.float().square().sum(1)
+
+    def lib_bf16():
+        for i in range(0, m, 2500):
+            s = torch.mm(qb[i:i + 2500], xb.T, out_dtype=torch.float32)
+            torch.topk(yn - 2.0 * s, k, dim=1, largest=False)
+
+    def lib_f32x3():
+        for i in range(0, m, 2500):
+            s = (torch.mm(qh[i:i + 2500], xh.T, out_dtype=torch.float32)
+                 + torch.mm(qh[i:i + 2500], xl.T, out_dtype=torch.float32)
+                 + torch.mm(ql[i:i + 2500], xh.T, out_dtype=torch.float32))
+            torch.topk(yn - 2.0 * s, k, dim=1, largest=False)
+
+    def lib_s8():
+        for i in range(0, m, 2500):
+            s = torch._int_mm(qs[i:i + 2500], xs.T)
+            torch.topk(yns - 2.0 * s, k, dim=1, largest=False)
+
+    cases = {   # mode: (dataset, queries, library, its calls, bytes/elt, peak op/s, products)
+        "bf16": (xb, qb, lib_bf16, "torch.mm (bf16, float32 out) + score + torch.topk",
+                 2, H100_BF16_FLOPS, 1),
+        "f32x3": (x, q, lib_f32x3, "3 x torch.mm (bf16 hi/lo, float32 out) + score + torch.topk",
+                  4, H100_BF16_FLOPS, 3),
+        "s8": (xs, qs, lib_s8, "torch._int_mm (int8, int32 out) + score + torch.topk",
+               1, H100_INT8_OPS, 1),
+    }
+    st["fused_modes_t"] = {}
+    for mode, (ds, qq, lib, lib_calls, elt, peak, products) in cases.items():
+        ms = cuda_ms(lambda: fused_knn(ds, qq, k, mode=mode), reps=3)
+        plain_ms = cuda_ms(lambda: fused_knn_plain(ds, qq, k, mode=mode), reps=1)
+        lib_ms = cuda_ms(lib, reps=1)
+        ops = products * 2.0 * m * n * d
+        nbytes = (n * d + m * d) * elt + n * 4 + m * k * 8
+        t_ops, t_bytes = ops / peak, nbytes / H100_BYTES_S
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        st["fused_modes_t"][mode] = row
+        emit(phase="time", kernel="fused_knn", mode=mode, shape=[m, n, d, k],
+             library=lib_calls, ops=ops, bytes=nbytes,
+             library_over_kernel=lib_ms / ms, card=st["card"], **row)
+    fused_knn.launches = saved
+
+
 def time_cagra_hop(st):
     """``cagra_hop`` at the main path's shape: 10,000 queries, a mid-search
     beam (the best 32 of a 10-hop search, the best 10 visited), cw=32,
@@ -1238,7 +1813,7 @@ def main(argv=None):
     ap.add_argument("--phases", default="0123",
                     help="phases to run, e.g. 01 (default: all)")
     ap.add_argument("--out", default=os.path.join("build", "profiles"),
-                    help="directory for the IVF-PQ and CAGRA profile tables")
+                    help="directory for the IVF-PQ, CAGRA and IVF-Flat profile tables")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1262,7 +1837,10 @@ def main(argv=None):
         phase_main(st)
         phase_ivf(st)
         phase_cagra(st)
+        phase_ivf_flat(st)
+        phase_slice(st)
     if "3" in args.phases and "2" in args.phases:
+        time_fused_modes(st)
         phase_times(st)
         time_pq_scan(st)
         time_cagra_hop(st)
@@ -1273,9 +1851,10 @@ def main(argv=None):
                  source="raft_tpu_torch/ops/csrc/fused_knn.cu",
                  replaces="raft_tpu/ops/fused_knn.py:150",
                  launches=launches["fused_knn"], max_abs_err=st["fused_err"],
-                 **st["fused_t"]),
+                 other_modes=st["fused_modes_t"], **st["fused_t"]),
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
                  replaces="raft_tpu/ops/topk.py:91", launches=launches["topk"],
+                 launches_ivf_flat=launches["topk_ivf_flat"],
                  max_abs_err=st["topk_err"], **st["topk_t"]),
             dict(name="pq_scan", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
                  replaces="raft_tpu/ops/pq_scan.py:61", launches=launches["pq_scan"],

@@ -11,13 +11,16 @@ Entry points run on ``cuda`` unless the caller passes
 
 Ported so far:
   core       errors, resource handle, index-file serialization (raft_tpu/13)
-  cluster    balanced k-means
-  distance   metric vocabulary, pairwise distances (L2, inner product, cosine),
-             fused L2 nearest neighbour
+  cluster    k-means, balanced k-means
+  distance   metric vocabulary, pairwise distances (every metric), fused and
+             masked L2 nearest neighbour, Gram matrices
   matrix     select_k (row-wise top-k; wide rows run the ``topk`` kernel)
-  neighbors  brute-force kNN (the ``fused_knn`` kernel), IVF-PQ (the
-             ``pq_scan`` kernel), exact refine, sample filters
+  neighbors  brute-force kNN (the ``fused_knn`` kernel), IVF-Flat, IVF-PQ
+             (the ``pq_scan`` kernel), CAGRA (the ``cagra_hop`` kernel),
+             exact refine, the epsilon neighbourhood, sample filters
   ops        the kernels and their build
+  spatial    the legacy spatial::knn entry points
+  stats      dispersion
 """
 
 import importlib
@@ -25,7 +28,8 @@ import importlib
 from .core import RaftError, Resources, default_resources, set_default_resources
 from .version import __version__
 
-_SUBMODULES = {"cluster", "core", "distance", "matrix", "neighbors", "ops"}
+_SUBMODULES = {"cluster", "core", "distance", "matrix", "neighbors", "ops", "spatial",
+               "stats"}
 
 
 def __getattr__(name):

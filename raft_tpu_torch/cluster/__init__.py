@@ -1,5 +1,9 @@
-"""Clustering: balanced k-means, the coarse quantizer of the IVF indexes."""
+"""Clustering: k-means and balanced k-means (the IVF indexes' coarse
+quantizer)."""
 
-from . import kmeans_balanced
+from . import kmeans, kmeans_balanced
+from .kmeans import KMeansOutput, KMeansParams
+from .kmeans_balanced import KMeansBalancedParams
 
-__all__ = ["kmeans_balanced"]
+__all__ = ["kmeans", "kmeans_balanced", "KMeansParams", "KMeansOutput",
+           "KMeansBalancedParams"]

@@ -4,8 +4,11 @@ Counterpart of raft_tpu/distance/pairwise.py (reference:
 cpp/include/raft/distance/distance-inl.cuh:238). Expanded metrics are one
 matrix product plus row norms and an elementwise epilogue; the product is a
 plain ``torch.matmul`` outside any kernel, as the JAX package leaves it to
-XLA. Unexpanded L2 is an elementwise accumulation over row tiles, sized by
-the workspace budget.
+XLA. The unexpanded metrics (L1, Linf, Canberra, Lp,
+Bray-Curtis, Jensen-Shannon, Hamming, Haversine and unexpanded L2) are an
+elementwise accumulation over row tiles of ``x``, one (tile, n, d)
+broadcast at a time, the tile sized by the workspace budget
+(:func:`_choose_tile`).
 
 ``compute`` keeps the JAX package's two modes. "float32" is full float32:
 every product here runs with ``torch.backends.cuda.matmul.allow_tf32`` off
@@ -13,9 +16,11 @@ every product here runs with ``torch.backends.cuda.matmul.allow_tf32`` off
 bfloat16 and sums their exact products in float32, the JAX package's
 single-pass mode.
 
-Of the twenty metrics, this slice ports the ones brute force reaches:
-L2 (expanded and unexpanded, squared or not), inner product and cosine.
-The others raise ``RaftError("not yet ported")``.
+All nineteen metrics of the JAX package are here, with its zero-guards:
+``where(x > 0, log(where(x > 0, x, 1)), 0)`` for the logarithms of KL and
+Jensen-Shannon, ``0/0 -> 0`` in Canberra, Bray-Curtis, Jaccard and Dice,
+and ``clip(h, 0, 1)`` in Haversine. ``Precomputed`` has no formula and
+raises.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from ..core.errors import expects, fail
 from ..core.resources import Resources, default_resources
 from .types import DistanceType, resolve_metric
 
-__all__ = ["pairwise_distance", "full_f32"]
+__all__ = ["pairwise_distance", "distance", "full_f32"]
 
 _f32 = torch.float32
 
@@ -79,9 +84,72 @@ def _cosine(x, y, prec=torch.float32):
     return 1.0 - _dot(x, y, prec) / (xn[:, None] * yn[None, :])
 
 
+def _correlation(x, y, prec=torch.float32):
+    # 1 - Pearson r: the cosine of row-centred vectors
+    # (ref: distance_ops/correlation.cuh)
+    xc = x.to(_f32) - x.to(_f32).mean(dim=1, keepdim=True)
+    yc = y.to(_f32) - y.to(_f32).mean(dim=1, keepdim=True)
+    return _cosine(xc, yc, prec)
+
+
 def _inner_product(x, y, prec=torch.float32):
     # raw inner product, not 1 - ip
     return _dot(x, y, prec)
+
+
+def _hellinger(x, y, prec=torch.float32):
+    # sqrt(max(0, 1 - Σ√(xᵢyᵢ))) (ref: distance_ops/hellinger.cuh)
+    acc = _dot(torch.sqrt(x.to(_f32)), torch.sqrt(y.to(_f32)), prec)
+    return torch.sqrt(torch.clamp_min(1.0 - acc, 0.0))
+
+
+def _russelrao(x, y, prec=torch.float32):
+    # (k - x·y) / k, k = n_features (ref: distance_ops/russel_rao.cuh)
+    k = x.shape[1]
+    return (k - _dot(x, y, prec)) / k
+
+
+def _guarded_log(v):
+    """log v where v > 0, else 0 (the JAX package's zero-guard)."""
+    pos = v > 0
+    return torch.where(pos, torch.log(torch.where(pos, v, 1.0)), 0.0)
+
+
+def _kl_divergence(x, y, prec=torch.float32):
+    # 0.5·Σ x(log x - log y); terms with x == 0 vanish, log y reads 0 where
+    # y == 0 (ref: distance_ops/kl_divergence.cuh)
+    xf = x.to(_f32)
+    xlogx = torch.where(xf > 0, xf * _guarded_log(xf), 0.0).sum(dim=1)
+    return 0.5 * (xlogx[:, None] - _dot(x, _guarded_log(y.to(_f32)), prec))
+
+
+def _set_sums(x, y, prec):
+    """|x ∧ y| (the product) and the row sums of x and y."""
+    return _dot(x, y, prec), x.to(_f32).sum(dim=1), y.to(_f32).sum(dim=1)
+
+
+def _jaccard(x, y, prec=torch.float32):
+    # binary-set semantics: 1 - |x∧y| / |x∨y|, 0/0 -> 0
+    inter, sx, sy = _set_sums(x, y, prec)
+    union = sx[:, None] + sy[None, :] - inter
+    pos = union > 0
+    return torch.where(pos, 1.0 - inter / torch.where(pos, union, 1.0), 0.0)
+
+
+def _dice(x, y, prec=torch.float32):
+    # binary-set semantics: 1 - 2|x∧y| / (|x| + |y|), 0/0 -> 0
+    inter, sx, sy = _set_sums(x, y, prec)
+    tot = sx[:, None] + sy[None, :]
+    pos = tot > 0
+    return torch.where(pos, 1.0 - 2.0 * inter / torch.where(pos, tot, 1.0), 0.0)
+
+
+# Unexpanded (elementwise-accumulation) metrics: f(xt, yt) with
+# xt: (t, 1, d), yt: (1, n, d) -> (t, n).
+
+
+def _ew_l1(xt, yt):
+    return torch.abs(xt - yt).sum(dim=-1)
 
 
 def _ew_l2(sqrt: bool):
@@ -90,6 +158,58 @@ def _ew_l2(sqrt: bool):
         return torch.sqrt(d2) if sqrt else d2
 
     return f
+
+
+def _ew_linf(xt, yt):
+    return torch.abs(xt - yt).amax(dim=-1)
+
+
+def _ew_canberra(xt, yt):
+    # Σ|x-y| / (|x|+|y|), 0/0 -> 0 (ref: distance_ops/canberra.cuh)
+    num = torch.abs(xt - yt)
+    den = torch.abs(xt) + torch.abs(yt)
+    pos = den > 0
+    return torch.where(pos, num / torch.where(pos, den, 1.0), 0.0).sum(dim=-1)
+
+
+def _ew_lp(p: float):
+    # (Σ|x-y|^p)^(1/p) (ref: distance_ops/lp_unexp.cuh)
+    def f(xt, yt):
+        return torch.pow(torch.pow(torch.abs(xt - yt), p).sum(dim=-1), 1.0 / p)
+
+    return f
+
+
+def _ew_braycurtis(xt, yt):
+    # Σ|x-y| / Σ|x+y|, 0/0 -> 0
+    den = torch.abs(xt + yt).sum(dim=-1)
+    num = torch.abs(xt - yt).sum(dim=-1)
+    pos = den > 0
+    return torch.where(pos, num / torch.where(pos, den, 1.0), 0.0)
+
+
+def _ew_jensenshannon(xt, yt):
+    # sqrt(0.5·Σ[x log(x/m) + y log(y/m)]), m = (x+y)/2, zero-guarded
+    # (ref: distance_ops/jensen_shannon.cuh)
+    logm = _guarded_log(0.5 * (xt + yt))
+    acc = (-xt * (logm - _guarded_log(xt)) - yt * (logm - _guarded_log(yt))).sum(dim=-1)
+    return torch.sqrt(torch.clamp_min(0.5 * acc, 0.0))
+
+
+def _ew_hamming(xt, yt):
+    # mean(xᵢ ≠ yᵢ) (ref: distance_ops/hamming.cuh)
+    return (xt != yt).to(_f32).mean(dim=-1)
+
+
+def _ew_haversine(xt, yt):
+    # 2·asin√(sin²(Δφ/2) + cos φ₁ cos φ₂ sin²(Δλ/2)) on (lat, lon) radians,
+    # d == 2 (ref: spatial/knn/detail/haversine_distance.cuh)
+    lat1, lon1 = xt[..., 0], xt[..., 1]
+    lat2, lon2 = yt[..., 0], yt[..., 1]
+    s1 = torch.sin(0.5 * (lat2 - lat1))
+    s2 = torch.sin(0.5 * (lon2 - lon1))
+    h = s1 * s1 + torch.cos(lat1) * torch.cos(lat2) * s2 * s2
+    return 2.0 * torch.asin(torch.sqrt(torch.clamp(h, 0.0, 1.0)))
 
 
 def _choose_tile(m: int, n: int, d: int, budget_bytes: int) -> int:
@@ -121,6 +241,18 @@ def _tiled_rows(x, y, fn, tile: int):
                       for i in range(0, m, tile)], dim=0)
 
 
+_EXPANDED = {
+    DistanceType.CosineExpanded: _cosine,
+    DistanceType.CorrelationExpanded: _correlation,
+    DistanceType.InnerProduct: _inner_product,
+    DistanceType.HellingerExpanded: _hellinger,
+    DistanceType.RusselRaoExpanded: _russelrao,
+    DistanceType.KLDivergence: _kl_divergence,
+    DistanceType.JaccardExpanded: _jaccard,
+    DistanceType.DiceExpanded: _dice,
+}
+
+
 def _pairwise(x, y, metric: DistanceType, metric_arg: float, tile: int,
               compute: str = "float32"):
     prec = _PRECISIONS[compute]
@@ -128,15 +260,23 @@ def _pairwise(x, y, metric: DistanceType, metric_arg: float, tile: int,
         return _l2_expanded(x, y, sqrt=False, prec=prec)
     if metric == DistanceType.L2SqrtExpanded:
         return _l2_expanded(x, y, sqrt=True, prec=prec)
-    if metric == DistanceType.CosineExpanded:
-        return _cosine(x, y, prec)
-    if metric == DistanceType.InnerProduct:
-        return _inner_product(x, y, prec)
-    if metric == DistanceType.L2Unexpanded:
-        return _tiled_rows(x, y, _ew_l2(False), tile)
-    if metric == DistanceType.L2SqrtUnexpanded:
-        return _tiled_rows(x, y, _ew_l2(True), tile)
-    fail("metric %s is not yet ported to raft_tpu_torch", metric.name)
+    if metric in _EXPANDED:
+        return _EXPANDED[metric](x, y, prec)
+    ew = {
+        DistanceType.L1: _ew_l1,
+        DistanceType.L2Unexpanded: _ew_l2(False),
+        DistanceType.L2SqrtUnexpanded: _ew_l2(True),
+        DistanceType.Linf: _ew_linf,
+        DistanceType.Canberra: _ew_canberra,
+        DistanceType.LpUnexpanded: _ew_lp(metric_arg),
+        DistanceType.BrayCurtis: _ew_braycurtis,
+        DistanceType.JensenShannon: _ew_jensenshannon,
+        DistanceType.HammingUnexpanded: _ew_hamming,
+        DistanceType.Haversine: _ew_haversine,
+    }.get(metric)
+    if ew is None:
+        fail("metric %s has no pairwise formula", metric.name)
+    return _tiled_rows(x, y, ew, tile)
 
 
 def pairwise_distance(x, y=None, metric="euclidean", metric_arg: float = 2.0,
@@ -151,7 +291,13 @@ def pairwise_distance(x, y=None, metric="euclidean", metric_arg: float = 2.0,
     expects(x.ndim == 2 and y.ndim == 2, "inputs must be 2-D matrices")
     expects(x.shape[1] == y.shape[1], "feature dims must match: %d vs %d",
             x.shape[1], y.shape[1])
+    if mt == DistanceType.Haversine:
+        expects(x.shape[1] == 2, "haversine requires (lat, lon) inputs with d == 2")
     expects(compute in _PRECISIONS,
             "compute must be 'float32' or 'bfloat16', got %r", compute)
     tile = _choose_tile(x.shape[0], y.shape[0], x.shape[1], res.workspace_bytes)
     return _pairwise(x, y, mt, float(metric_arg), tile, compute)
+
+
+# pylibraft names the same call ``distance`` (pairwise_distance.pyx:93)
+distance = pairwise_distance

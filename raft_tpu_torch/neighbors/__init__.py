@@ -1,6 +1,11 @@
-"""Nearest-neighbour search: exact brute force, IVF-PQ, exact refine and
-CAGRA."""
+"""Nearest-neighbour search: exact brute force, IVF-Flat, IVF-PQ, CAGRA,
+exact refine, the epsilon neighbourhood and sample filters."""
 
-from . import brute_force, cagra, ivf_pq, refine, sample_filter
+from . import brute_force, cagra, ivf_flat, ivf_pq, refine, sample_filter
+from .brute_force import BruteForce, knn, knn_merge_parts
+from .epsilon_neighborhood import eps_neighbors_l2sq
+from .sample_filter import BitsetFilter, NoFilter
 
-__all__ = ["brute_force", "cagra", "ivf_pq", "refine", "sample_filter"]
+__all__ = ["brute_force", "cagra", "ivf_flat", "ivf_pq", "refine", "sample_filter",
+           "BruteForce", "knn", "knn_merge_parts", "eps_neighbors_l2sq",
+           "BitsetFilter", "NoFilter"]

@@ -9,9 +9,15 @@ Two routes:
   on a CUDA tensor launches the ``fused_knn`` kernel (scores never reach
   device memory) and on a CPU tensor runs its plain version. int8 / uint8
   pairs take the same kernel in mode "s8" (:func:`_bf_knn_s8`);
-- everything else (k > 64, small shapes, ``mode="approx"``, mixed integer
-  pairs): :func:`_bf_knn`, query tiles of one ``_pairwise`` GEMM plus a
-  row top-k whose ties go to the lowest row.
+- everything else (k > 64, small shapes, the other metrics,
+  ``mode="approx"``, mixed integer pairs): :func:`_bf_knn`, query tiles of
+  one ``_pairwise`` evaluation plus a routed row top-k
+  (``select_k_impl``: the ``topk`` kernel for wide rows on the card, else
+  the plain top-k), ties to the lowest row.
+
+Index files are the JAX package's ``brute_force`` section of
+``raft_tpu/13``, byte for byte; :func:`batched_searcher` is the serving
+hook.
 
 Entry points run on the handle's device (``Resources.device``, "cuda" by
 default). Results are torch tensors on that device.
@@ -28,10 +34,10 @@ from ..core.errors import expects
 from ..core.resources import Resources, default_resources
 from ..distance.pairwise import _PRECISIONS, _choose_tile, _pad_to_tiles, _pairwise
 from ..distance.types import DistanceType, resolve_metric
-from ..matrix.select_k import select_k
-from ..ops.topk import top_k_lowest_index
+from ..matrix.select_k import select_k, select_k_impl
 
-__all__ = ["knn", "knn_merge_parts", "BruteForce", "from_state"]
+__all__ = ["knn", "knn_merge_parts", "BruteForce", "from_state", "write_index",
+           "read_index", "save", "load", "batched_searcher"]
 
 # metrics the fused kernel takes as l2 (value: sqrt)
 _FUSED_L2 = {
@@ -151,9 +157,9 @@ def _bf_knn(dataset, queries, k: int, metric: DistanceType, metric_arg: float,
         if keep_mask is not None:
             d = torch.where(keep_mask[None, :], d,
                             math.inf if select_min else -math.inf)
-        top_v, top_i = top_k_lowest_index(-d if select_min else d, k)
-        dists.append(-top_v if select_min else top_v)
-        idx.append(top_i.to(torch.int32))
+        top_v, top_i = select_k_impl(d, None, k, select_min)
+        dists.append(top_v)
+        idx.append(top_i)
     dists = torch.cat(dists)[:m]
     idx = torch.cat(idx)[:m]
     if keep_mask is not None:
@@ -265,6 +271,9 @@ class BruteForce:
         self.metric_arg = metric_arg
         self.dataset = None
         self.res = None
+        # a pinned operating point (the JAX package's tune decision dict);
+        # brute force has no search knobs, but the record rides save / load
+        self.tuned = None
 
     def build(self, dataset, res: Resources | None = None):
         """Place the dataset on the handle's device."""
@@ -284,3 +293,65 @@ def from_state(dataset: np.ndarray, metric, metric_arg: float = 2.0,
     ``metric`` and ``metric_arg`` (a raft_tpu ``BruteForce`` holds nothing
     else). Searches answer as that index's do."""
     return BruteForce(metric=metric, metric_arg=metric_arg).build(dataset, res)
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    """"float32", "int8", ...: the dtype's name as numpy and JAX spell it."""
+    return str(t.dtype).split(".")[-1]
+
+
+def write_index(f, index: BruteForce) -> None:
+    """Serialize to an open binary stream: the metric, its argument, the
+    dataset and the tuned record, in the JAX package's layout."""
+    from ..core.serialize import (serialize_header, serialize_mdspan,
+                                  serialize_scalar, serialize_tuned)
+
+    expects(index.dataset is not None, "index is not built")
+    serialize_header(f, "brute_force")
+    serialize_scalar(f, int(resolve_metric(index.metric)))
+    serialize_scalar(f, float(index.metric_arg))
+    serialize_mdspan(f, index.dataset)
+    serialize_tuned(f, index.tuned)
+
+
+def read_index(f, device=None) -> BruteForce:
+    """Deserialize from an open binary stream (pairs with
+    :func:`write_index`), onto ``device`` (the CPU by default)."""
+    from ..core.serialize import (check_header, deserialize_mdspan,
+                                  deserialize_scalar, deserialize_tuned)
+
+    ver = check_header(f, "brute_force")
+    metric = DistanceType(deserialize_scalar(f))
+    idx = BruteForce(metric=metric, metric_arg=float(deserialize_scalar(f)))
+    idx.dataset = deserialize_mdspan(f, device)
+    idx.tuned = deserialize_tuned(f, ver)
+    return idx
+
+
+def save(index: BruteForce, path: str) -> None:
+    """Serialize atomically (a crashed save leaves the previous file)."""
+    from ..core.serialize import atomic_write
+
+    with atomic_write(path) as f:
+        write_index(f, index)
+
+
+def load(path: str, res: Resources | None = None) -> BruteForce:
+    """Deserialize onto the handle's device."""
+    res = res or default_resources()
+    with open(path, "rb") as f:
+        idx = read_index(f, res.torch_device)
+    idx.res = res
+    return idx
+
+
+def batched_searcher(index: BruteForce, params=None):
+    """The serving hook (contract in :mod:`._hooks`): ``fn(queries, k) ->
+    (distances, ids)`` with ``kind``, ``dim`` and ``query_dtype``. Brute
+    force has no search params; ``params`` must be None."""
+    from ._hooks import make_hook
+
+    expects(index.dataset is not None, "index is not built")
+    expects(params is None, "brute_force has no search params")
+    return make_hook(index.search, "brute_force", index.dataset.shape[1],
+                     _dtype_name(index.dataset))

@@ -10,7 +10,8 @@ import torch
 
 from ..core.errors import expects
 
-__all__ = ["NoFilter", "BitsetFilter", "resolve_filter", "validate_filter_covers"]
+__all__ = ["NoFilter", "BitsetFilter", "resolve_filter", "validate_filter_covers",
+           "apply_id_filter"]
 
 
 def _as_bool_tensor(x) -> torch.Tensor:
@@ -50,3 +51,13 @@ def validate_filter_covers(index, keep_mask) -> None:
     expects(keep_mask.shape[0] > max_id,
             "sample filter length %d must cover max stored id %d",
             keep_mask.shape[0], max_id)
+
+
+def apply_id_filter(scores, ids, keep_mask, select_min: bool):
+    """``scores`` where the candidate's id is kept, else +inf (``select_min``)
+    or -inf: the mask epilogue of the IVF scans. ``ids`` may hold -1
+    padding, which stays invalid."""
+    bad = float("inf") if select_min else float("-inf")
+    valid = ids >= 0
+    kept = keep_mask[torch.clamp_min(ids, 0).to(torch.int64)] & valid
+    return torch.where(kept, scores, bad)

@@ -112,8 +112,8 @@ def test_contract_errors(data):
         tbf.knn(xu, (xu[:3].astype(np.int16) - 128).astype(np.int8), 5, res=CPU)
     with pytest.raises(RaftError, match="k="):
         tbf.knn(x[:10], q, 11, res=CPU)
-    with pytest.raises(RaftError, match="not yet ported"):
-        tbf.knn(x[:100], q, 5, metric="l1", res=CPU)
+    with pytest.raises(RaftError, match="no search params"):
+        tbf.batched_searcher(tbf.BruteForce().build(x[:100], res=CPU), params=object())
     with pytest.raises(RaftError, match="not built"):
         tbf.BruteForce().search(q, 5)
 
@@ -126,3 +126,47 @@ def test_entry_points_default_to_cuda(data):
         tbf.BruteForce().build(x)
     with pytest.raises(RaftError, match="CUDA"):
         tbf.knn(x, q, 5)
+
+
+@pytest.mark.parametrize("kind", ["float32", "uint8", "bfloat16"])
+def test_files_byte_identical_both_ways(data, tmp_path, kind):
+    """A JAX-saved brute-force file loads into the port and searches to JAX's
+    answers; the port writes it back byte for byte, and JAX reads the port's
+    file to an equal index (metric, argument, dataset, tuned record)."""
+    x, q, xu, qu = data
+    ds = {"float32": x[:1000], "uint8": xu[:1000],
+          "bfloat16": np.asarray(jnp.asarray(x[:1000], jnp.bfloat16))}[kind]
+    qq = qu if kind == "uint8" else q
+    jidx = jbf.BruteForce(metric="canberra" if kind == "float32" else "sqeuclidean",
+                          metric_arg=3.0).build(ds)
+    jidx.tuned = {"n_probes": 4} if kind == "float32" else None
+    jpath, tpath = str(tmp_path / "j.bin"), str(tmp_path / "t.bin")
+    jbf.save(jidx, jpath)
+    tidx = tbf.load(jpath, res=CPU)
+    assert tidx.tuned == jidx.tuned and float(tidx.metric_arg) == 3.0
+    assert tbf._dtype_name(tidx.dataset) == str(jidx.dataset.dtype)
+    tbf.save(tidx, tpath)
+    with open(jpath, "rb") as a, open(tpath, "rb") as b:
+        assert a.read() == b.read()
+    back = jbf.load(tpath)
+    assert back.metric == jbf.resolve_metric(jidx.metric) and back.tuned == jidx.tuned
+    np.testing.assert_array_equal(np.asarray(back.dataset, np.float32),
+                                  np.asarray(jidx.dataset, np.float32))
+    jd, ji = jidx.search(jnp.asarray(qq), 7)
+    td, ti = tidx.search(qq, 7)
+    assert_knn_equiv(td.numpy(), ti.numpy(), np.asarray(jd), np.asarray(ji), rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["float32", "int8", "uint8"])
+def test_batched_searcher_matches_jax(data, kind):
+    x, q, xu, qu = data
+    shift = (lambda a: (a.astype(np.int16) - 128).astype(np.int8))
+    ds, qq = {"float32": (x[:500], q), "int8": (shift(xu[:500]), shift(qu)),
+              "uint8": (xu[:500], qu)}[kind]
+    jfn = jbf.batched_searcher(jbf.BruteForce().build(ds))
+    tfn = tbf.batched_searcher(tbf.BruteForce().build(ds, res=CPU))
+    assert (tfn.kind, tfn.dim, tfn.query_dtype) == (jfn.kind, jfn.dim, jfn.query_dtype)
+    jd, ji = jfn(jnp.asarray(qq), 5)
+    td, ti = tfn(qq, 5)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5)

@@ -14,7 +14,8 @@ import torch
 
 from raft_tpu_torch.core import Resources
 from raft_tpu_torch.matrix import select_k, wide_cols_threshold
-from raft_tpu_torch.neighbors import cagra, ivf_pq
+from raft_tpu_torch.matrix.select_k import set_wide_cols_threshold
+from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
 from raft_tpu_torch.neighbors.brute_force import BruteForce
 from raft_tpu_torch.ops.cagra_hop import cagra_hop, cagra_hop_plain
 from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
@@ -282,6 +283,61 @@ def test_ivf_pq_search_on_card_equals_cpu(cuda, tmp_path, bits):
         assert counter.launches > before
         rd, ri = ivf_pq.search(params, index, q, 20, res=cpu)
         _knn_equiv(d.cpu(), i.cpu(), rd, ri, rtol=1e-5, atol=1e-4)
+
+
+def _ivf_flat_inputs(list_dtype):
+    rng = np.random.default_rng(6)
+    centers = rng.normal(size=(40, 32)) * 3.0
+    x = (centers[rng.integers(0, 40, 20_000)] + rng.normal(size=(20_000, 32))).astype(np.float32)
+    q = (centers[rng.integers(0, 40, 300)] + rng.normal(size=(300, 32))).astype(np.float32)
+    if list_dtype == "int8":
+        x, q = (np.clip(np.round(a * 8), -128, 127).astype(np.int8) for a in (x, q))
+    return x, q
+
+
+@pytest.mark.parametrize("list_dtype", ["float32", "bfloat16", "int8"])
+def test_ivf_flat_search_on_card_equals_cpu(cuda, tmp_path, list_dtype):
+    """An index built on the CPU, loaded onto the card: the card's search
+    (chunk selects of 4 probes x ~1,300 slots through the topk kernel)
+    answers as the CPU's (the plain top-k), with and without a filter."""
+    x, q = _ivf_flat_inputs(list_dtype)
+    cpu = Resources(device="cpu")
+    ld = "auto" if list_dtype == "int8" else list_dtype
+    index = ivf_flat.build(ivf_flat.IndexParams(n_lists=20, list_dtype=ld), x, res=cpu)
+    path = str(tmp_path / "index.bin")
+    ivf_flat.save(index, path)
+    card = ivf_flat.load(path, res=Resources(device="cuda"))
+    keep = np.random.default_rng(1).random(20_000) < 0.5
+    for flt in (None, keep):
+        before = topk.launches
+        d, i = ivf_flat.search(ivf_flat.SearchParams(n_probes=4), card, q, 10,
+                               sample_filter=flt)
+        torch.cuda.synchronize()
+        assert topk.launches > before
+        rd, ri = ivf_flat.search(ivf_flat.SearchParams(n_probes=4), index, q, 10,
+                                 sample_filter=flt, res=cpu)
+        if list_dtype == "int8":
+            assert torch.equal(i.cpu(), ri) and torch.equal(d.cpu(), rd)
+        else:
+            _knn_equiv(d.cpu(), i.cpu(), rd, ri, rtol=1e-5, atol=1e-4)
+
+
+def test_ivf_flat_select_routes_equal_on_card(cuda):
+    """The topk kernel route and the plain top-k route (the wide-select
+    threshold pinned above every row) give equal ids and values."""
+    x, q = _ivf_flat_inputs("float32")
+    card = ivf_flat.build(ivf_flat.IndexParams(n_lists=20), x, res=Resources(device="cuda"))
+    sp = ivf_flat.SearchParams(n_probes=4)
+    d, i = ivf_flat.search(sp, card, q, 10)
+    set_wide_cols_threshold(1 << 30)
+    try:
+        before = topk.launches
+        pd, pi = ivf_flat.search(sp, card, q, 10)
+        torch.cuda.synchronize()
+        assert topk.launches == before
+    finally:
+        set_wide_cols_threshold(None)
+    assert torch.equal(i, pi) and torch.equal(d, pd)
 
 
 def _hop_inputs(cuda, rows, d, itopk, width, seed):
