@@ -8,11 +8,22 @@ end to end.
                                        # (default build/profiles)
 
 Phases, each printing JSON lines:
-  0. the card (name, power limit, count) and the kernels' build with nvcc;
+  0. the card (name, power limit, count), the kernels' build with nvcc (the
+     ptxas report: registers, spills, static shared memory) and the
+     tensor-core ``fused_knn`` kernel's tile plans at d=128, k in {1, 10,
+     64} (queries a block, resident query tile, ring stages, dynamic shared
+     memory, resident blocks, splits at the main shape);
   1. each kernel against its plain PyTorch version on the card, at the main
      paths' widths: ``fused_knn`` over 1,000,000 x 128 rows (2,048 queries;
-     modes f32 / f32x3 / bf16 / s8, l2 with and without sqrt, ip, k in
-     {1, 10, 64}, a keep-mask that keeps fewer than k rows, a ragged n);
+     modes f32 (FFMA kernel) and f32x3 / bf16 / s8 (tensor-core kernel), l2
+     with and without sqrt, ip, k in {1, 10, 64}, a keep-mask that keeps
+     fewer than k rows, a ragged n, d = 126); the tensor-core modes also
+     over d in {64, 70, 100, 128, 256, 1024} at 100,003 rows (m of 1 to
+     2,047, ties from a repeated half of the dataset, underfill; s8 bit for
+     bit, bf16 / f32x3 at 1e-5 and at d = 1024 within ``tc_rounding_bound``)
+     and uint8 inner product and L2 through ``knn``, bit for bit against the
+     CPU; ``bf16_split`` (f32x3's operand planes) bit for bit on values at
+     the bf16 rounding point, subnormals, ±0, ±inf, NaN and 1M x 128 rows;
      ``topk`` bit for bit, ids and value bits, on a 10,000 x 100,003
      float32 matrix (k in {10, 64, 128, 256}, min and max, int64 payload ids
      at k=10) and on the index paths' narrow rows (10,000 and 128 rows x
@@ -34,7 +45,11 @@ Phases, each printing JSON lines:
   2. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``BruteForce("sqeuclidean").build(x).search(q, k=10)``
      at 1M x 128 float32 (uniform data from seed 0, 10,000 queries from
-     seed 1), checked against the plain version; ``select_k`` on a
+     seed 1), checked against the plain version; ``knn`` on the same data
+     with ``compute="bfloat16"``, ``compute="float32x3"`` and as int8 codes
+     under the default compute, each batch launching the tensor-core kernel
+     once (bf16 / f32x3 checked by recall@10 against the float32 answer,
+     int8 bit for bit on 1,024 queries); ``select_k`` on a
      10,000 x 100,003 matrix; IVF-PQ at SIFT-1M's shape in the JAX
      package's regression configuration (bench.py:660-668): 1M x 128 float32
      from 1,000 Gaussian blobs, ``build(n_lists=1024, pq_bits=4, pq_dim=64)``,
@@ -75,7 +90,9 @@ Phases, each printing JSON lines:
      100,000 x 128, ``eps_neighbors_l2sq``, and ``kmeans.fit`` at 100,000 x
      128 from ``init="array"`` against the same call on the CPU;
   3. ``fused_knn``'s bf16, f32x3 and s8 modes timed at the f32 row's shape
-     beside their tensor-core bounds and one library call each; kernel
+     beside their tensor-core bounds, their plain version and one library
+     call each (and at k = 1 and 64), with ``knn``'s QPS in each mode and
+     the cost of f32x3's bf16 planes (``bf16_split``); kernel
      times (CUDA events) beside their bound, their plain version's
      time and one library call's time (for ``cagra_hop``, which no single
      PyTorch call computes, the ``"xla"`` hop body's time instead; for
@@ -190,6 +207,14 @@ def phase_build(st):
         report[name] = lines
     emit(phase="build", seconds=round(time.perf_counter() - t0, 2),
          per_source=secs, ptxas=report)
+    from raft_tpu_torch.ops.fused_knn import _INSERT_TILES, _nsplit, fused_knn_config
+
+    for mode in ("bf16", "f32x3", "s8"):
+        for k in (1, 10, 64):
+            c = fused_knn_config(mode, D_MAIN, k)
+            emit(phase="plan", kernel="fused_knn_tc", mode=mode, d=D_MAIN, k=k,
+                 nsplit_main=_nsplit(M_MAIN, N_MAIN, c["qt"], c["slots"], c["nb"],
+                                     _INSERT_TILES[mode] * k), **c)
 
 
 def phase_kernels(st):
@@ -222,14 +247,29 @@ def phase_kernels(st):
         dict(mode="s8", metric="l2", k=10),
         dict(mode="s8", metric="ip", k=64),
         dict(mode="s8", metric="l2", k=10, sqrt=True, keep_mask=few),
+        # the tensor-core modes at the main width: k 1 and 64, sqrt, ip, a
+        # filter that keeps 5 rows, a ragged n, d = 126 (padded to 128)
+        dict(mode="bf16", metric="l2", k=1),
+        dict(mode="bf16", metric="l2", k=10, sqrt=True, keep_mask=few),
+        dict(mode="bf16", metric="l2", k=10, ragged=True),
+        dict(mode="bf16", metric="l2", k=10, narrow=True),
+        dict(mode="f32x3", metric="ip", k=64),
+        dict(mode="f32x3", metric="l2", k=1, sqrt=True),
+        dict(mode="f32x3", metric="l2", k=10, keep_mask=few),
+        dict(mode="f32x3", metric="l2", k=10, ragged=True),
+        dict(mode="f32x3", metric="l2", k=10, narrow=True),
+        dict(mode="s8", metric="l2", k=1),
     ]
-    err = 0.0
+    err = {"fused_knn": 0.0, "fused_knn_tc": 0.0}
     for c in cases:
         c = dict(c)
+        kernel = "fused_knn" if c["mode"] == "f32" else "fused_knn_tc"
         ragged, narrow = c.pop("ragged", False), c.pop("narrow", False)
         k = c.pop("k")
         if c["mode"] == "s8":
             ds, qq = xs8, qs8
+            if ragged:
+                ds = ds[:N_MAIN - 5]
         elif narrow:
             ds, qq = x[:N_MAIN, :126], q[:, :126]
         else:
@@ -242,14 +282,16 @@ def phase_kernels(st):
             e = 0.0
         else:
             e = knn_equiv(dv, di, rd, ri, rtol=1e-5, atol=1e-5)
-        err = max(err, e)
+        err[kernel] = max(err[kernel], e)
         if "keep_mask" in c:
             assert bool((di[:, 5:] == -1).all()), "underfill ids are not -1"
-        emit(phase="check", kernel="fused_knn", n=ds.shape[0], d=ds.shape[1],
+        emit(phase="check", kernel=kernel, n=ds.shape[0], d=ds.shape[1],
              m=qq.shape[0], k=k, mode=c["mode"], metric=c["metric"], sqrt=c.get("sqrt", False),
              keep_mask="keep_mask" in c, max_abs_err=e, ok=True)
-    st["fused_err"] = err
+    st["fused_err"], st["tc_err"] = err["fused_knn"], err["fused_knn_tc"]
     del x, q, xs8, qs8
+    check_tc_edges(st, g)
+    check_split(g)
 
     m, n = TOPK_SHAPE
     v = torch.rand(TOPK_SHAPE, generator=g, device=dev)
@@ -280,6 +322,145 @@ def phase_kernels(st):
     phase_pq_kernel(st)
     phase_pq_topk_kernel(st)
     phase_hop_kernel(st)
+
+
+def check_split(g):
+    """``bf16_split`` (f32x3's operand planes) against its plain version,
+    value bits compared: values at and around the bf16 rounding point,
+    subnormals, ±0, ±inf, NaN, a length that is not a multiple of four, and
+    the main path's 1M x 128 rows."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.ops.fused_knn import bf16_split, bf16_split_plain
+
+    rng = np.random.default_rng(11)
+    base = rng.integers(0x00800000, 0x7F000000, 4096, dtype=np.uint32) & 0xFFFF0000
+    lows = np.array([0, 1, 0x7FFF, 0x8000, 0x8001, 0xFFFF], np.uint32)
+    bits = (base[:, None] | lows[None, :]).ravel()
+    bits |= rng.integers(0, 2, bits.size, dtype=np.uint32) << 31
+    special = np.array([0, 0x80000000, 1, 0x80000001, 0x007FFFFF, 0x00008000, 0x00018000,
+                        0x807F8000, 0x7F7FFFFF, 0x7F800000, 0xFF800000, 0x7FC00000],
+                       np.uint32)
+    edge = torch.from_numpy(np.concatenate([bits, special]).view(np.float32)).cuda()
+    dev = torch.device("cuda")
+    for name, t in (("edge values", edge), ("odd length", edge[:-3]),
+                    ("1M x 128 uniform", torch.rand((N_MAIN, D_MAIN), generator=g, device=dev)),
+                    ("normal x 1e3", torch.randn((4097, 100), generator=g, device=dev) * 1e3)):
+        hi, lo = bf16_split(t)
+        torch.cuda.synchronize()
+        ph, pl = bf16_split_plain(t)
+        same = (torch.equal(hi.view(torch.int16), ph.view(torch.int16))
+                and torch.equal(lo.view(torch.int16), pl.view(torch.int16)))
+        assert same, f"bf16_split differs on {name}"
+        emit(phase="check", kernel="bf16_split", values=name, n=t.numel(),
+             bit_equal=True, ok=True)
+
+
+# (d, m, n, k, metric, extra) of the tensor-core modes' edge sweep: every d
+# of the fused gate's sweep, m not a multiple of the query tile, n ragged
+# against the tile and the split, k of 1 / 10 / 64, l2 / ip / sqrt, a filter
+# that keeps fewer than k rows, and a dataset whose second half repeats its
+# first (ties must go to the lower row)
+TC_EDGES = [
+    (64, 1, 100_003, 1, "ip", None),
+    (70, 300, 100_003, 10, "l2", None),
+    (70, 65, 100_003, 64, "l2", "sqrt"),
+    (100, 1000, 100_003, 10, "ip", None),
+    (100, 300, 100_003, 10, "l2", "underfill"),
+    (128, 2047, 100_006, 10, "l2", "ties"),
+    (128, 65, 4099, 64, "ip", None),
+    (256, 300, 100_003, 64, "ip", None),
+    (256, 1000, 100_003, 1, "l2", "sqrt"),
+    (1024, 300, 100_003, 10, "l2", None),
+]
+
+
+def check_tc_edges(st, g):
+    """``fused_knn``'s tensor-core modes over TC_EDGES against the plain
+    version: s8 bit for bit; bf16 and f32x3 by knn_equiv at rtol = atol =
+    1e-5, and at d = 1024 within ``tc_rounding_bound`` (wgmma truncates its
+    float32 sums; the largest error and its row are printed). Then uint8
+    inner products and L2 through ``knn``, bit for bit against the CPU."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors.brute_force import knn
+    from raft_tpu_torch.ops.fused_knn import (_ENTRY, fused_knn, fused_knn_plain,
+                                              tc_rounding_bound)
+
+    dev = torch.device("cuda")
+    saved = fused_knn.launches, dict(fused_knn.launches_by_mode)
+    err = 0.0
+    for mode in ("bf16", "f32x3", "s8"):
+        for d, m, n, k, metric, extra in TC_EDGES:
+            if mode == "s8":
+                x = torch.randint(-128, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
+                q = torch.randint(-128, 128, (m, d), generator=g, device=dev, dtype=torch.int8)
+            else:
+                x = torch.rand((n, d), generator=g, device=dev)
+                q = torch.rand((m, d), generator=g, device=dev)
+            kw = dict(metric=metric, mode=mode)
+            if extra == "ties":
+                x[n // 2:] = x[:n // 2].clone()
+            if extra == "sqrt":
+                kw["sqrt"] = True
+            if extra == "underfill":
+                keep = torch.zeros(n, dtype=torch.bool, device=dev)
+                keep[torch.randperm(n, generator=g, device=dev)[:5]] = True
+                kw["keep_mask"] = keep
+            before = fused_knn.launches_by_mode[mode]
+            dv, di = fused_knn(x, q, k, **kw)
+            torch.cuda.synchronize()
+            assert fused_knn.launches_by_mode[mode] == before + 1
+            assert fused_knn.last_entry == _ENTRY[mode] != _ENTRY["f32"]
+            rd, ri = fused_knn_plain(x, q, k, **kw)
+            case = dict(mode=mode, d=d, m=m, n=n, k=k, metric=metric, extra=extra)
+            tol = "1e-5"
+            if mode == "s8":
+                assert torch.equal(dv, rd) and torch.equal(di, ri), f"s8 differs: {case}"
+                e = 0.0
+            elif d > 256:
+                bound = tc_rounding_bound(x, q, ri, metric, mode)
+                ad = (dv - rd).abs()
+                e = float(ad.max())
+                row = int(ad.max(dim=1).values.argmax())
+                assert bool((ad <= 1e-5 + 1e-5 * rd.abs() + bound).all()), f"beyond bound: {case}"
+                knn_equiv(dv, di, rd, ri, rtol=1e-5, atol=1e-5 + float(bound.max()))
+                tol = (f"1e-5 + tc_rounding_bound (max {float(bound.max()):.3g}); "
+                       f"worst row {row}, err/bound {float((ad / bound.clamp_min(1e-30)).max()):.3g}, "
+                       f"err/|d| {float((ad / rd.abs().clamp_min(1e-30)).max()):.3g}")
+            else:
+                e = knn_equiv(dv, di, rd, ri, rtol=1e-5, atol=1e-5)
+            if extra == "underfill":
+                assert bool((di[:, 5:] == -1).all()), "underfill ids are not -1"
+            if extra == "ties":
+                half = n // 2
+                # each repeated row ranks right behind its first copy
+                for r in range(m):
+                    ids = di[r].tolist()
+                    for j, i in enumerate(ids):
+                        if i >= half:
+                            assert i - half in ids[:j], (r, ids)
+            err = max(err, e)
+            emit(phase="check", kernel="fused_knn_tc", tolerance=tol, max_abs_err=e,
+                 ok=True, **case)
+            del x, q
+    rng = np.random.default_rng(3)
+    xu = rng.integers(0, 256, (100_003, 96), dtype=np.uint8)
+    qu = rng.integers(0, 256, (1000, 96), dtype=np.uint8)
+    for metric in ("inner_product", "sqeuclidean"):
+        before = fused_knn.launches_by_mode["s8"]
+        kd, ki = knn(xu, qu, 10, metric=metric, res=Resources(device="cuda"))
+        torch.cuda.synchronize()
+        assert fused_knn.launches_by_mode["s8"] == before + 1
+        cd, ci = knn(xu, qu, 10, metric=metric, res=Resources(device="cpu"))
+        assert torch.equal(kd.cpu(), cd) and torch.equal(ki.cpu(), ci), metric
+        emit(phase="check", kernel="fused_knn_tc", path=f"knn uint8 {metric}", n=100_003,
+             d=96, m=1000, k=10, bit_equal_to_cpu=True, ok=True)
+    st["tc_err"] = max(st["tc_err"], err)
+    fused_knn.launches, fused_knn.launches_by_mode = saved[0], saved[1]
 
 
 def plant_topk_rows(v, g):
@@ -606,6 +787,7 @@ def phase_main(st):
          n=100_000, d=D_MAIN, m=M_MAIN, k=K_MAIN, qps=batches * M_MAIN / wall,
          card=st["card"])
     st["main"] = (x, q)
+    st["main_ids"] = ids
 
     vals = torch.rand(TOPK_SHAPE, generator=torch.Generator(device=dev).manual_seed(2),
                       device=dev)
@@ -624,6 +806,60 @@ def phase_main(st):
     emit(phase="main", path="select_k", shape=list(TOPK_SHAPE), k=K_MAIN,
          ms=wall * 1e3, launches={"topk": topk.launches}, card=st["card"])
     st["select"] = vals
+
+
+def phase_tc_path(st):
+    """``knn`` at 1M x 128, one 10k-query batch, k=10, in each tensor-core
+    mode through the public entry point: ``compute="bfloat16"``,
+    ``compute="float32x3"`` and int8 data under the default compute. The
+    counts are set to 0 just before each batch and read just after; each
+    must launch the mode's kernel once and never the FFMA kernel. bf16 and
+    f32x3 are checked for recall@10 against the float32 answer of the main
+    path, int8 bit for bit against the plain version on 1,024 queries."""
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors.brute_force import knn
+    from raft_tpu_torch.ops.fused_knn import bf16_split, fused_knn, fused_knn_plain
+
+    res = Resources(device="cuda")
+    x, q = st["main"]
+    truth = st["main_ids"]
+    xs, qs = (int8_of(a) for a in (x, q))
+    runs = {"bf16": (x, q, "bfloat16"), "f32x3": (x, q, "float32x3"), "s8": (xs, qs, "float32")}
+    st["tc_launches"] = {}
+    for mode, (ds, qq, compute) in runs.items():
+        fused_knn.launches = bf16_split.launches = 0
+        fused_knn.launches_by_mode = dict.fromkeys(fused_knn.launches_by_mode, 0)
+        dist, ids = knn(ds, qq, K_MAIN, compute=compute, res=res)
+        torch.cuda.synchronize()
+        counts = dict(fused_knn.launches_by_mode, bf16_split=bf16_split.launches)
+        assert counts[mode] == 1 and fused_knn.launches == 1, counts
+        # f32x3 splits the queries and the dataset into bf16 planes
+        assert counts["bf16_split"] == (2 if mode == "f32x3" else 0), counts
+        if mode == "f32x3":
+            st["split_launches"] = counts["bf16_split"]
+        assert dist.shape == (M_MAIN, K_MAIN) and bool(torch.isfinite(dist).all())
+        st["tc_launches"][mode] = counts[mode]
+        out = dict(mode=mode, compute=compute, launches=counts)
+        if mode == "s8":
+            rd, ri = fused_knn_plain(xs, qs[:1024], K_MAIN, mode="s8")
+            assert torch.equal(dist[:1024], rd) and torch.equal(ids[:1024], ri), "int8 knn differs"
+            out["bit_equal_rows"] = 1024
+        else:
+            out["recall_at_10_vs_f32"] = recall(ids, truth)
+            floor = 0.999 if mode == "f32x3" else 0.9
+            assert out["recall_at_10_vs_f32"] >= floor, out
+        emit(phase="main", path="knn (tensor-core mode)", n=N_MAIN, d=D_MAIN, m=M_MAIN,
+             k=K_MAIN, card=st["card"], **out)
+    fused_knn.launches = bf16_split.launches = 0
+
+
+def int8_of(a):
+    """Uniform [0, 1) floats as int8 codes (the int8 cells' data)."""
+    import torch
+
+    return (a * 255.0 - 128.0).round().clamp(-128, 127).to(torch.int8)
 
 
 def blobs(n, centers, seed, scale=1.0):
@@ -1488,20 +1724,25 @@ def phase_slice(st):
 
 
 def time_fused_modes(st):
-    """``fused_knn``'s bf16, f32x3 and s8 modes at the f32 row's shape
-    (10,000 x 1M x 128, k=10), each beside its bound and one library call per
-    2,500-query chunk."""
+    """``fused_knn``'s tensor-core modes (bf16, f32x3, s8) at the f32 row's
+    shape (10,000 x 1M x 128, k=10), each beside its bound, its plain
+    version and one library call per 2,500-query chunk; the QPS of
+    ``knn`` in each mode through the public entry point (host clock around
+    three synchronised batches); and what f32x3's bf16 hi/lo planes cost."""
     import torch
 
-    from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors.brute_force import knn
+    from raft_tpu_torch.ops import fused_knn as fk
 
+    fused_knn, fused_knn_plain = fk.fused_knn, fk.fused_knn_plain
     x, q = st["main"]
     m, n, d, k = M_MAIN, N_MAIN, D_MAIN, K_MAIN
-    saved = fused_knn.launches
+    saved = fused_knn.launches, dict(fused_knn.launches_by_mode), fk.bf16_split.launches
     xb, qb = x.bfloat16(), q.bfloat16()
     xh, qh = xb, qb
     xl, ql = (x - xh.float()).bfloat16(), (q - qh.float()).bfloat16()
-    xs, qs = ((a * 255.0 - 128.0).round().clamp(-128, 127).to(torch.int8) for a in (x, q))
+    xs, qs = int8_of(x), int8_of(q)
     yn = x.square().sum(1)
     yns = xs.float().square().sum(1)
 
@@ -1522,16 +1763,17 @@ def time_fused_modes(st):
             s = torch._int_mm(qs[i:i + 2500], xs.T)
             torch.topk(yns - 2.0 * s, k, dim=1, largest=False)
 
-    cases = {   # mode: (dataset, queries, library, its calls, bytes/elt, peak op/s, products)
+    cases = {   # mode: (dataset, queries, library, its calls, bytes/elt, peak op/s, products, compute)
         "bf16": (xb, qb, lib_bf16, "torch.mm (bf16, float32 out) + score + torch.topk",
-                 2, H100_BF16_FLOPS, 1),
+                 2, H100_BF16_FLOPS, 1, "bfloat16"),
         "f32x3": (x, q, lib_f32x3, "3 x torch.mm (bf16 hi/lo, float32 out) + score + torch.topk",
-                  4, H100_BF16_FLOPS, 3),
+                  4, H100_BF16_FLOPS, 3, "float32x3"),
         "s8": (xs, qs, lib_s8, "torch._int_mm (int8, int32 out) + score + torch.topk",
-               1, H100_INT8_OPS, 1),
+               1, H100_INT8_OPS, 1, "float32"),
     }
+    res = Resources(device="cuda")
     st["fused_modes_t"] = {}
-    for mode, (ds, qq, lib, lib_calls, elt, peak, products) in cases.items():
+    for mode, (ds, qq, lib, lib_calls, elt, peak, products, compute) in cases.items():
         ms = cuda_ms(lambda: fused_knn(ds, qq, k, mode=mode), reps=3)
         plain_ms = cuda_ms(lambda: fused_knn_plain(ds, qq, k, mode=mode), reps=1)
         lib_ms = cuda_ms(lib, reps=1)
@@ -1541,11 +1783,34 @@ def time_fused_modes(st):
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=max(t_ops, t_bytes) * 1e3,
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+        # k = 1 and 64 beside k = 10: what the per-query lists' insertions cost
+        row["ms_by_k"] = {kk: (ms if kk == k else
+                               cuda_ms(lambda: fused_knn(ds, qq, kk, mode=mode), reps=2))
+                          for kk in (1, k, 64)}
+        knn(ds, qq, k, compute=compute, res=res)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            knn(ds, qq, k, compute=compute, res=res)
+        torch.cuda.synchronize()
+        row["knn_qps"] = 3 * m / (time.perf_counter() - t0)
+        if mode == "f32x3":
+            # the wrapper's split of both operands into bf16 hi/lo planes
+            # (two bf16_split launches): bytes read and written, and time
+            row["planes_ms"] = cuda_ms(lambda: fk._operands(q, x, "f32x3"), reps=3)
+            row["planes_bytes"] = (n + m) * d * (4 + 2 * 2)
+            split_bytes = n * d * (4 + 2 * 2)
+            st["split_t"] = dict(
+                ms=cuda_ms(lambda: fk.bf16_split(x), reps=5),
+                plain_ms=cuda_ms(lambda: fk.bf16_split_plain(x), reps=2),
+                library_ms=None, bound_ms=split_bytes / H100_BYTES_S * 1e3, bound_by="bytes")
+            emit(phase="time", kernel="bf16_split", shape=[n, d], bytes=split_bytes,
+                 card=st["card"], **st["split_t"])
         st["fused_modes_t"][mode] = row
-        emit(phase="time", kernel="fused_knn", mode=mode, shape=[m, n, d, k],
-             library=lib_calls, ops=ops, bytes=nbytes,
+        emit(phase="time", kernel="fused_knn_tc", mode=mode, shape=[m, n, d, k],
+             library=lib_calls, ops=ops, bytes=nbytes, knn_compute=compute,
              library_over_kernel=lib_ms / ms, card=st["card"], **row)
-    fused_knn.launches = saved
+    fused_knn.launches, fused_knn.launches_by_mode, fk.bf16_split.launches = saved
 
 
 def time_cagra_hop(st):
@@ -1835,6 +2100,7 @@ def main(argv=None):
         phase_kernels(st)
     if "2" in args.phases:
         phase_main(st)
+        phase_tc_path(st)
         phase_ivf(st)
         phase_cagra(st)
         phase_ivf_flat(st)
@@ -1849,9 +2115,21 @@ def main(argv=None):
         emit(kernels=[
             dict(name="fused_knn", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn.cu",
-                 replaces="raft_tpu/ops/fused_knn.py:150",
+                 replaces="raft_tpu/ops/fused_knn.py:150", mode="f32",
                  launches=launches["fused_knn"], max_abs_err=st["fused_err"],
-                 other_modes=st["fused_modes_t"], **st["fused_t"]),
+                 **st["fused_t"]),
+            dict(name="fused_knn_tc", route="cuda",
+                 source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
+                 replaces="raft_tpu/ops/fused_knn.py:150", mode="bf16",
+                 launches=sum(st["tc_launches"].values()),
+                 launches_by_mode=st["tc_launches"], max_abs_err=st["tc_err"],
+                 **{key: st["fused_modes_t"]["bf16"][key]
+                    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                 modes=st["fused_modes_t"]),
+            dict(name="bf16_split", route="cuda",
+                 source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
+                 replaces="raft_tpu/ops/fused_knn.py:139", launches=st["split_launches"],
+                 launches_on="knn(compute='float32x3')", max_abs_err=0.0, **st["split_t"]),
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
                  replaces="raft_tpu/ops/topk.py:91", launches=launches["topk"],
                  launches_ivf_flat=launches["topk_ivf_flat"],

@@ -32,7 +32,7 @@ __all__ = ["build_all", "load", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fused_knn", "topk", "pq_scan", "cagra_hop")
+SOURCES = ("fused_knn", "fused_knn_tc", "topk", "pq_scan", "cagra_hop")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -43,29 +43,135 @@ def _knn_equiv(dv, di, rd, ri, rtol=1e-5, atol=1e-5):
                                   rtol=rtol, atol=atol)), r
 
 
+# (d, m, n, k, metric, extra): every d of the sweep, m of 1 / 65 / 300 /
+# 1,000, n ragged against every tile (128 rows, 64 in f32x3) and split, k of
+# 1 / 10 / 64, l2, ip and sqrt, a keep-mask that keeps 70% or only 5 rows,
+# and a dataset whose second half repeats its first (ties to the lower row)
+_FUSED_CASES = [
+    (64, 1, 4099, 1, "ip", None),
+    (70, 300, 20_011, 10, "l2", "keep"),
+    (70, 300, 20_011, 1, "l2", "keep"),
+    (70, 300, 20_011, 64, "ip", "keep"),
+    (100, 65, 9000, 64, "l2", "sqrt"),
+    (128, 1000, 30_011, 10, "ip", None),
+    (128, 300, 20_011, 10, "l2", "underfill"),
+    (128, 65, 12_346, 10, "l2", "ties"),
+    (256, 300, 12_345, 64, "ip", None),
+    (1024, 65, 5003, 10, "l2", None),
+]
+
+
+def _fused_data(mode, d, m, n, g, dev):
+    if mode == "s8":
+        x = torch.randint(-128, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
+        q = torch.randint(-128, 128, (m, d), generator=g, device=dev, dtype=torch.int8)
+    else:
+        x = torch.rand((n, d), generator=g, device=dev)
+        q = torch.rand((m, d), generator=g, device=dev)
+    return x, q
+
+
 @pytest.mark.parametrize("mode", ["f32", "f32x3", "bf16", "s8"])
 def test_fused_knn_kernel_matches_plain(cuda, mode):
-    """d=70 also takes the wrapper's pad to a multiple of 4."""
+    """Each case launches the mode's kernel once (bf16, f32x3 and s8 the
+    tensor-core one, never the FFMA kernel) and agrees with the plain
+    version: s8 bit for bit; float modes by _knn_equiv at 1e-5, and at
+    d = 1024 the tensor-core modes within tc_rounding_bound (wgmma truncates
+    its float32 sums; the error and the row are printed)."""
+    from raft_tpu_torch.ops.fused_knn import _ENTRY, tc_rounding_bound
+
     g = torch.Generator(device=cuda).manual_seed(0)
-    if mode == "s8":
-        x = torch.randint(-128, 128, (20_011, 70), generator=g, device=cuda,
-                          dtype=torch.int8)
-        q = torch.randint(-128, 128, (300, 70), generator=g, device=cuda,
-                          dtype=torch.int8)
-    else:
-        x = torch.rand((20_011, 70), generator=g, device=cuda)
-        q = torch.rand((300, 70), generator=g, device=cuda)
-    keep = torch.rand(20_011, generator=g, device=cuda) < 0.7
-    for k, metric in ((1, "l2"), (10, "ip"), (64, "l2")):
-        before = fused_knn.launches
-        kd, ki = fused_knn(x, q, k, metric=metric, mode=mode, keep_mask=keep)
+    for d, m, n, k, metric, extra in _FUSED_CASES:
+        x, q = _fused_data(mode, d, m, n, g, cuda)
+        kw = dict(metric=metric, mode=mode)
+        if extra == "ties":
+            x[n // 2:] = x[:n // 2].clone()
+        if extra == "keep":
+            kw["keep_mask"] = torch.rand(n, generator=g, device=cuda) < 0.7
+        if extra == "underfill":
+            keep = torch.zeros(n, dtype=torch.bool, device=cuda)
+            keep[torch.randperm(n, generator=g, device=cuda)[:5]] = True
+            kw["keep_mask"] = keep
+        if extra == "sqrt":
+            kw["sqrt"] = True
+        before = (fused_knn.launches, fused_knn.launches_by_mode[mode])
+        kd, ki = fused_knn(x, q, k, **kw)
         torch.cuda.synchronize()
-        assert fused_knn.launches == before + 1
-        pd, pi = fused_knn_plain(x, q, k, metric=metric, mode=mode, keep_mask=keep)
+        assert (fused_knn.launches, fused_knn.launches_by_mode[mode]) == (
+            before[0] + 1, before[1] + 1)
+        assert fused_knn.last_entry == _ENTRY[mode]
+        if mode != "f32":
+            assert fused_knn.last_entry == "fused_knn_tc.fused_knn_tc_launch"
+        pd, pi = fused_knn_plain(x, q, k, **kw)
+        case = (d, m, n, k, metric, extra)
         if mode == "s8":
-            assert torch.equal(kd, pd) and torch.equal(ki, pi)
+            assert torch.equal(kd, pd) and torch.equal(ki, pi), case
+        elif d > 256 and mode != "f32":
+            bound = tc_rounding_bound(x, q, pi, metric, mode)
+            err = (kd - pd).abs()
+            row = int(err.max(dim=1).values.argmax())
+            print(f"fused_knn {mode} d={d}: max abs err {float(err.max()):.3g} at row {row}, "
+                  f"largest err/bound {float((err / bound.clamp_min(1e-30)).max()):.3g}")
+            _knn_equiv(kd, ki, pd, pi, rtol=1e-5, atol=float(bound.max()) + 1e-5)
+            assert bool((err <= 1e-5 + 1e-5 * pd.abs() + bound).all()), case
         else:
             _knn_equiv(kd, ki, pd, pi)
+        if extra == "underfill":
+            assert bool((ki[:, 5:] == -1).all()) and bool(torch.isinf(kd[:, 5:]).all())
+        if extra == "ties":
+            # a repeated row ranks right behind its first copy, never before it
+            for r in range(m):
+                ids = ki[r].tolist()
+                for j, i in enumerate(ids):
+                    if i >= n // 2 and i - n // 2 in ids:
+                        assert ids.index(i - n // 2) < j, (r, ids)
+
+
+def test_bf16_split_kernel_bit_equal_to_plain(cuda):
+    """f32x3's operand planes: the kernel against bf16_split_plain on the
+    card, value bits compared, over values at and around the bf16 rounding
+    point, subnormals, ±0, ±inf, NaN and a length that is not a multiple of
+    four."""
+    from raft_tpu_torch.ops.fused_knn import bf16_split, bf16_split_plain
+
+    rng = np.random.default_rng(11)
+    base = rng.integers(0x00800000, 0x7F000000, 512, dtype=np.uint32) & 0xFFFF0000
+    lows = np.array([0, 1, 0x7FFF, 0x8000, 0x8001, 0xFFFF], np.uint32)
+    bits = (base[:, None] | lows[None, :]).ravel()
+    bits |= rng.integers(0, 2, bits.size, dtype=np.uint32) << 31
+    special = np.array([0, 0x80000000, 1, 0x80000001, 0x007FFFFF, 0x00008000, 0x00018000,
+                        0x807F8000, 0x7F7FFFFF, 0x7F800000, 0xFF800000, 0x7FC00000,
+                        0x3F808000, 0x3F818000], np.uint32)
+    vals = np.concatenate([bits, special, rng.standard_normal(1001).astype(np.float32)
+                           .view(np.uint32)]).view(np.float32)
+    x = torch.from_numpy(vals).to(cuda)
+    for t in (x, x[:-1], x.reshape(-1, 1)[3:].flatten()):
+        before = bf16_split.launches
+        hi, lo = bf16_split(t)
+        torch.cuda.synchronize()
+        assert bf16_split.launches == before + 1
+        ph, pl = bf16_split_plain(t)
+        assert torch.equal(hi.view(torch.int16), ph.view(torch.int16))
+        assert torch.equal(lo.view(torch.int16), pl.view(torch.int16))
+
+
+def test_fused_knn_uint8_inner_product_through_knn(cuda):
+    """Shifted uint8 inner products (the s8 kernel with a row bias) through
+    the public entry point, bit for bit against the same call on the CPU."""
+    from raft_tpu_torch.neighbors.brute_force import knn
+    from raft_tpu_torch.ops.fused_knn import _ENTRY
+
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 256, (20_011, 96), dtype=np.uint8)
+    q = rng.integers(0, 256, (300, 96), dtype=np.uint8)
+    for metric in ("inner_product", "sqeuclidean"):
+        before = fused_knn.launches_by_mode["s8"]
+        kd, ki = knn(x, q, 10, metric=metric, res=Resources(device="cuda"))
+        torch.cuda.synchronize()
+        assert fused_knn.launches_by_mode["s8"] == before + 1
+        assert fused_knn.last_entry == _ENTRY["s8"]
+        cd, ci = knn(x, q, 10, metric=metric, res=Resources(device="cpu"))
+        assert torch.equal(kd.cpu(), cd) and torch.equal(ki.cpu(), ci), metric
 
 
 def _topk_rows(rng, rows, n):

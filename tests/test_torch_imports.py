@@ -25,5 +25,12 @@ def test_port_imports_neither_jax_nor_raft_tpu():
 
 
 def test_port_keeps_kernel_sources_beside_wrappers():
+    """Every kernel source sits in ops/csrc and _build.SOURCES names each one
+    (fused_knn.cu holds the float32 FFMA kernel, fused_knn_tc.cu the
+    tensor-core modes of the same TPU kernel)."""
+    from raft_tpu_torch.ops import _build
+
     csrc = ROOT / "raft_tpu_torch" / "ops" / "csrc"
-    assert {p.stem for p in csrc.glob("*.cu")} == {"fused_knn", "topk", "pq_scan", "cagra_hop"}
+    stems = {p.stem for p in csrc.glob("*.cu")}
+    assert stems == {"fused_knn", "fused_knn_tc", "topk", "pq_scan", "cagra_hop"}
+    assert stems == set(_build.SOURCES)
