@@ -50,8 +50,9 @@
 //     (`beats`, ties to the lower row) against the row's current k-th entry
 //     and the warp insertion (warp_topk.cuh) into its list in shared memory;
 //     the thread's taus are refreshed after each such group. On a split's
-//     first tile, where tau is still the sentinel, each row's tau starts at
-//     a threshold that k of the tile's scores reach (a bisection), so its
+//     first tile, where tau is still the sentinel, each row's tau is held at
+//     or above a threshold that k of the tile's scores reach (a bisection),
+//     also after every refresh while the row's list is not yet full, so its
 //     first tile inserts about k entries, not 128. While one warpgroup gates
 //     its tile, the other's wgmma run.
 // Splits and merge as in fused_knn.cu: blockIdx.y walks a contiguous split
@@ -253,10 +254,13 @@ __device__ __forceinline__ void offer(float* tv, int* ti, int k, int rowbase, fl
 }
 
 // Offer a group's four candidates (rows rowbase + lane/4 + 8i, columns
-// col + j) and refresh the thread's two taus from the lists.
+// col + j) and refresh the thread's two taus from the lists, each at least
+// its row's floor (fl, with row BIG): on a split's first tile the tile's
+// threshold, which k of its scores reach, so no score below it can enter
+// the row's top-k; -inf on later tiles.
 __device__ __forceinline__ void offer_group(float* tv, int* ti, int k, int rowbase, int col,
                                             const float (&s)[4], float (&tau_v)[2],
-                                            int (&tau_i)[2], int lane) {
+                                            int (&tau_i)[2], const float (&fl)[2], int lane) {
 #pragma unroll 1
   for (int e = 0; e < 4; ++e) {
     const int i = e >> 1;
@@ -269,6 +273,12 @@ __device__ __forceinline__ void offer_group(float* tv, int* ti, int k, int rowba
   tau_i[0] = ti[my];
   tau_v[1] = tv[my + 8 * k];
   tau_i[1] = ti[my + 8 * k];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (!beats(tau_v[i], tau_i[i], fl[i], BIG)) {
+      tau_v[i] = fl[i];
+      tau_i[i] = BIG;
+    }
 }
 
 // The gate of one m64 tile's scores: a pass bit per 8-column group where
@@ -277,8 +287,9 @@ __device__ __forceinline__ void offer_group(float* tv, int* ti, int k, int rowba
 // over the groups where some lane passed.
 template <int MODE>
 __device__ __forceinline__ void gate(const typename Tc<MODE>::Tile& a, float (&tau_v)[2],
-                                     int (&tau_i)[2], float* tv, int* ti, int k, int rowbase,
-                                     int n0, const float* ynt, float cf, int lane) {
+                                     int (&tau_i)[2], const float (&fl)[2], float* tv, int* ti,
+                                     int k, int rowbase, int n0, const float* ynt, float cf,
+                                     int lane) {
   using C = Tc<MODE>;
   unsigned pend = 0;
 #pragma unroll
@@ -296,7 +307,7 @@ __device__ __forceinline__ void gate(const typename Tc<MODE>::Tile& a, float (&t
     const int c8 = 8 * g + 2 * (lane & 3);
     float s[4];
     scores_at<MODE>(a, g, *reinterpret_cast<const float2*>(ynt + c8), cf, s);
-    offer_group(tv, ti, k, rowbase, n0 + c8, s, tau_v, tau_i, lane);
+    offer_group(tv, ti, k, rowbase, n0 + c8, s, tau_v, tau_i, fl, lane);
   }
 }
 
@@ -484,18 +495,19 @@ fused_knn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
           for (int r = 0; r < C::NREG; ++r)
             acc[u][0][r] = __float_as_int(__int2float_rn(acc[u][0][r]));
         }
+        float fl[2] = {-INFINITY, -INFINITY};
         if (t == 0) {
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            const float th = tile_threshold<MODE>(acc[u], i, ynt, cf, k, lane);
-            if (th > tau_v[u][i]) {
-              tau_v[u][i] = th;
+            fl[i] = tile_threshold<MODE>(acc[u], i, ynt, cf, k, lane);
+            if (fl[i] > tau_v[u][i]) {
+              tau_v[u][i] = fl[i];
               tau_i[u][i] = BIG;
             }
           }
         }
-        gate<MODE>(acc[u], tau_v[u], tau_i[u], tv, ti, k, rbase(u), n_begin + t * C::NB, ynt,
-                   cf, lane);
+        gate<MODE>(acc[u], tau_v[u], tau_i[u], fl, tv, ti, k, rbase(u), n_begin + t * C::NB,
+                   ynt, cf, lane);
       }
       if (lane == 0) mbar_arrive(&ynempty[t % ys]);  // after every read of this warp's yn
     }

@@ -26,7 +26,7 @@ bf16 hi and lo planes by :func:`bf16_split`, a kernel of the same source,
 :func:`fused_knn` launches the mode's kernel for CUDA tensors and runs the
 plain version for CPU tensors; there is no fallback from one to the other.
 ``fused_knn.launches`` counts the kernels' launches, ``launches_by_mode`` per
-mode, and ``last_entry`` names the C entry point of the last launch.
+mode.
 :func:`tile_plan` is the tensor-core kernel's shared-memory plan, computed
 from shapes alone.
 """
@@ -53,18 +53,17 @@ _MASK_PENALTY = 3.0e38        # added to yn for rows the keep-mask drops
 _MODES = {"f32": 0, "f32x3": 1, "bf16": 2, "s8": 3}
 _IO_TYPE = {"f32": torch.float32, "f32x3": torch.float32,
             "bf16": torch.bfloat16, "s8": torch.int8}
-_ENTRY = {"f32": "fused_knn.fused_knn_launch", "f32x3": "fused_knn_tc.fused_knn_tc_launch",
-          "bf16": "fused_knn_tc.fused_knn_tc_launch", "s8": "fused_knn_tc.fused_knn_tc_launch"}
 _NB = 128                     # the FFMA kernel's dataset tile (rows)
 
 # The tensor-core kernel (csrc/fused_knn_tc.cu): queries per block, dataset
 # rows per tile, operand planes and bytes per element, per mode.
 _TC = {"bf16": (256, 128, 1, 2), "s8": (256, 128, 1, 1), "f32x3": (128, 64, 2, 2)}
 # Tile-steps one list insertion per query row costs the tensor-core kernel
-# (_nsplit's warm-up term): a warp inserts into its 32 query rows (16 in
-# f32x3) one at a time, and its warpgroup's next products wait for it. Set
-# from the kernel's times at k = 1, 10 and 64 on the H100 (PERF.md).
-_INSERT_TILES = {"bf16": 9.6, "s8": 9.6, "f32x3": 6.6}
+# (_nsplit's warm-up term): a warp inserts into its query rows one at a
+# time, and its warpgroup's next products wait for it. The least-squares fit
+# of bf16's times at k = 1, 10 and 64 on the H100 (chip_smoke.py prints
+# each mode's fit beside it; PERF.md).
+_INSERT_TILES = 9.6
 SMEM_MAX = 232_448            # dynamic shared memory a block may have on Hopper
 _CH = 128                     # bytes of a row per TMA box / 128-byte swizzle span
 _MAX_STAGES = 8
@@ -155,25 +154,27 @@ def _select_plain(qs, ds, yn, k, l2, mode, tile=128):
     return torch.cat(vals), torch.cat(ids)
 
 
+def _split_steps(mt: int, tiles: int, s: int, slots: int, nb: int, warm: float) -> float:
+    """Tile-steps of one launch at ``s`` splits: waves of ``slots`` blocks
+    (``mt`` query tiles x ``s``), each walking ceil(tiles / s) dataset
+    tiles of ``nb`` rows and paying a warm-up of its per-query lists, about
+    ``warm`` x (1 + ln(rows / warm)) tile-steps: the insertions a running
+    top-k makes over a split of that many rows, k x (1 + ln(rows / k)),
+    with ``warm`` = k x the tile-steps one insertion per row costs (0 for
+    the FFMA kernel, whose tiles dwarf its insertions)."""
+    per = -(-tiles // s)
+    w = warm * (1.0 + math.log(max(per * nb / warm, 1.0))) if warm else 0.0
+    return (-(-mt * s // slots)) * (per + w)
+
+
 def _nsplit(m: int, n: int, qt: int, slots: int, nb: int = _NB, warm: float = 0.0) -> int:
-    """Dataset splits per query tile. Blocks run in waves of ``slots`` (the
-    device's resident blocks), each block walking ceil(tiles / splits)
-    dataset tiles of ``nb`` rows and paying a warm-up of its per-query
-    lists: about ``warm`` x (1 + ln(rows / warm)) tile-steps, the
-    insertions a running top-k makes over a split of that many rows (k x
-    (1 + ln(rows / k)), ``warm`` = k x the tile-steps one insertion per row
-    costs; 0 for the FFMA kernel, whose tiles dwarf its insertions). Take
-    the fewest splits whose cost in all, waves x (tiles + warm-up) per
-    block, is within 2% of the least. Splits are at least 8 tiles long."""
+    """Dataset splits per query tile: the fewest whose tile-steps
+    (:func:`_split_steps`) are within 2% of the least. Splits are at least
+    8 tiles long."""
     tiles = -(-n // nb)
     mt = -(-m // qt)
-
-    def cost(s):
-        per = -(-tiles // s)
-        w = warm * (1.0 + math.log(max(per * nb / warm, 1.0))) if warm else 0.0
-        return (-(-mt * s // slots)) * (per + w)
-
-    costs = [cost(s) for s in range(1, max(1, min(tiles // 8, 1024)) + 1)]
+    costs = [_split_steps(mt, tiles, s, slots, nb, warm)
+             for s in range(1, max(1, min(tiles // 8, 1024)) + 1)]
     best = min(costs)
     return next(i + 1 for i, c in enumerate(costs) if c <= 1.02 * best)
 
@@ -311,7 +312,7 @@ def _launch(qs, ds, yn, k, l2, mode):
     with torch.cuda.device(dev):
         qt, slots = _config(lib, mode, d, k, plan)
     nb = plan["nb"] if tc else _NB
-    ns = _nsplit(m, n, qt, slots, nb, _INSERT_TILES[mode] * k if tc else 0.0)
+    ns = _nsplit(m, n, qt, slots, nb, _INSERT_TILES * k if tc else 0.0)
     out_v = torch.empty((m, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((m, k), dtype=torch.int32, device=dev)
     part_v = torch.empty((m, ns, k) if ns > 1 else (0,), dtype=torch.float32, device=dev)
@@ -340,7 +341,6 @@ def _launch(qs, ds, yn, k, l2, mode):
                      int(l2), ns, *outs, stream)
     fused_knn.launches += 1
     fused_knn.launches_by_mode[mode] += 1
-    fused_knn.last_entry = _ENTRY[mode]
     expects(err == 0, "fused_knn kernel launch failed: cudaError %d", err)
     return out_v, out_i
 
@@ -431,4 +431,3 @@ def fused_knn_plain(dataset, queries, k, *, metric="l2", mode="f32",
 bf16_split.launches = 0
 fused_knn.launches = 0
 fused_knn.launches_by_mode = dict.fromkeys(_MODES, 0)
-fused_knn.last_entry = None

@@ -78,7 +78,7 @@ def test_fused_knn_kernel_matches_plain(cuda, mode):
     version: s8 bit for bit; float modes by _knn_equiv at 1e-5, and at
     d = 1024 the tensor-core modes within tc_rounding_bound (wgmma truncates
     its float32 sums; the error and the row are printed)."""
-    from raft_tpu_torch.ops.fused_knn import _ENTRY, tc_rounding_bound
+    from raft_tpu_torch.ops.fused_knn import tc_rounding_bound
 
     g = torch.Generator(device=cuda).manual_seed(0)
     for d, m, n, k, metric, extra in _FUSED_CASES:
@@ -94,14 +94,12 @@ def test_fused_knn_kernel_matches_plain(cuda, mode):
             kw["keep_mask"] = keep
         if extra == "sqrt":
             kw["sqrt"] = True
-        before = (fused_knn.launches, fused_knn.launches_by_mode[mode])
+        before = (fused_knn.launches, dict(fused_knn.launches_by_mode))
         kd, ki = fused_knn(x, q, k, **kw)
         torch.cuda.synchronize()
-        assert (fused_knn.launches, fused_knn.launches_by_mode[mode]) == (
-            before[0] + 1, before[1] + 1)
-        assert fused_knn.last_entry == _ENTRY[mode]
-        if mode != "f32":
-            assert fused_knn.last_entry == "fused_knn_tc.fused_knn_tc_launch"
+        # one launch, of this mode's kernel and no other mode's
+        assert (fused_knn.launches, fused_knn.launches_by_mode) == (
+            before[0] + 1, dict(before[1], **{mode: before[1][mode] + 1}))
         pd, pi = fused_knn_plain(x, q, k, **kw)
         case = (d, m, n, k, metric, extra)
         if mode == "s8":
@@ -159,17 +157,15 @@ def test_fused_knn_uint8_inner_product_through_knn(cuda):
     """Shifted uint8 inner products (the s8 kernel with a row bias) through
     the public entry point, bit for bit against the same call on the CPU."""
     from raft_tpu_torch.neighbors.brute_force import knn
-    from raft_tpu_torch.ops.fused_knn import _ENTRY
 
     rng = np.random.default_rng(3)
     x = rng.integers(0, 256, (20_011, 96), dtype=np.uint8)
     q = rng.integers(0, 256, (300, 96), dtype=np.uint8)
     for metric in ("inner_product", "sqeuclidean"):
-        before = fused_knn.launches_by_mode["s8"]
+        before = dict(fused_knn.launches_by_mode)
         kd, ki = knn(x, q, 10, metric=metric, res=Resources(device="cuda"))
         torch.cuda.synchronize()
-        assert fused_knn.launches_by_mode["s8"] == before + 1
-        assert fused_knn.last_entry == _ENTRY["s8"]
+        assert fused_knn.launches_by_mode == dict(before, s8=before["s8"] + 1)
         cd, ci = knn(x, q, 10, metric=metric, res=Resources(device="cpu"))
         assert torch.equal(kd.cpu(), cd) and torch.equal(ki.cpu(), ci), metric
 
