@@ -61,7 +61,19 @@ Phases, each printing JSON lines:
      unfused kernel route (``pq_scan``, bias, mask, ``topk``) must give its
      ids and values exactly and is timed and profiled beside it, the plain
      select route (``select_impl="xla"``, which launches ``pq_scan``) too,
-     and ``_pq_search`` is timed at query tiles of 128 and 1,024; and CAGRA
+     and ``_pq_search`` is timed at query tiles of 128 and 1,024; on the same
+     index, filtered searches (bitsets keeping 50% and 2% of the ids,
+     seeded) launch ``pq_scan_topk`` once a tile and ``topk`` never, equal
+     ``pq_scan_topk_plain`` bit for bit on two tiles, return kept ids only
+     and answer as the plain-select route, an all-ones bitset gives the
+     unfiltered answer exactly, and each is profiled beside an unfiltered
+     search; ``scan_order="grouped"`` matches the tiled order except on
+     rows that tie within 1e-5; the blob set as int8 and as uint8 rows is
+     built, searched and refined (recall@10 against the stored bytes'
+     exact neighbours, floor 0.85; the select routes equal); per-cluster,
+     scale-normed and OPQ + anisotropic + 4-bit fast-scan builds (the last
+     searched through the funnel at ``funnel_widen=4``) print build
+     seconds, QPS and recall@10 with the select routes equal; and CAGRA
      in the JAX package's
      ``cagra_1m_itopk32`` row (bench.py:3242-3260, data bench.py:527-552):
      1M x 128 float32 around 2,000 centers uniform in [0, 10) with N(0, 0.5^2)
@@ -72,7 +84,10 @@ Phases, each printing JSON lines:
      one batch. On both indexes the plain top-k route (``select_impl=
      "xla"``; for CAGRA the wide-select threshold pinned above every row)
      must give the routed search's ids and values exactly, and is timed and
-     profiled beside it in the same run;
+     profiled beside it in the same run; CAGRA's byte build on that set
+     scaled into int8 (``search`` running ``cagra_hop`` over int8 rows,
+     recall@10 against the stored bytes' exact neighbours, floor 0.95, the
+     kernel route against ``hop_impl="xla"`` by overlap and recall);
      IVF-Flat in the JAX package's ``ivf_flat_1m_p8`` row (bench.py:3221-3239,
      the CAGRA set): ``build(IndexParams(n_lists=1024, seed=0))`` and
      ``search(SearchParams(n_probes=8))`` at k=10 for 10,000 queries,
@@ -88,7 +103,11 @@ Phases, each printing JSON lines:
      128, ``knn(metric="l1")`` over the 1M set on both select routes,
      ``masked_l2_nn`` and ``gram_matrix`` (four kernel types) at 10,000 x
      100,000 x 128, ``eps_neighbors_l2sq``, and ``kmeans.fit`` at 100,000 x
-     128 from ``init="array"`` against the same call on the CPU;
+     128 from ``init="array"`` against the same call on the CPU; the random
+     ball cover over 1,000,000 x 3 uniform rows (sqeuclidean) and 1,000,000
+     (lat, lon) points (haversine), 10,000 queries, k=10, against exact
+     ``knn`` in the same metric; the 16 ``matrix.ops`` functions on the card
+     against the CPU;
   3. ``fused_knn``'s bf16, f32x3 and s8 modes timed at the f32 row's shape
      beside their tensor-core bounds, their plain version and one library
      call each (and at k = 1 and 64), with ``knn``'s QPS in each mode and
@@ -96,7 +115,8 @@ Phases, each printing JSON lines:
      times (CUDA events) beside their bound, their plain version's
      time and one library call's time (for ``cagra_hop``, which no single
      PyTorch call computes, the ``"xla"`` hop body's time instead; for
-     ``pq_scan_topk`` also the unfused kernel route's time); and a
+     ``pq_scan_topk`` also the unfused kernel route's time and its time
+     under the 50% filter, whose bound gains the bitset's bytes); and a
      sweep of ``topk`` against the plain route and ``torch.topk`` over
      10,000 and 128 rows, 1,024 to 100,003 columns and k in {10, 32, 40,
      193}, with the crossover it gives beside ``WIDE_SELECT_COLS_DEFAULT``.
@@ -139,6 +159,8 @@ SLICE_N = 100_000               # masked_l2_nn, gram_matrix, eps_neighbors, kmea
 KMEANS_K, KMEANS_ITERS = 256, 20
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores, H100 SXM data sheet
 H100_INT8_OPS = 1979e12         # dense int8 tensor cores, H100 SXM data sheet
+FILTER_KEEP = (0.5, 0.02)       # shares of the ids the filtered IVF-PQ searches keep
+BYTE_SCALE = 12.0               # the IVF-PQ blob set as bytes: round(12 x) (+128 for uint8)
 
 
 def emit(**kw):
@@ -825,7 +847,7 @@ def phase_tc_path(st):
     res = Resources(device="cuda")
     x, q = st["main"]
     truth = st["main_ids"]
-    xs, qs = (int8_of(a) for a in (x, q))
+    xs, qs = (as_bytes(a, 255.0, -128.0) for a in (x, q))
     runs = {"bf16": (x, q, "bfloat16"), "f32x3": (x, q, "float32x3"), "s8": (xs, qs, "float32")}
     st["tc_launches"] = {}
     for mode, (ds, qq, compute) in runs.items():
@@ -856,11 +878,17 @@ def phase_tc_path(st):
     fused_knn.launches = bf16_split.launches = 0
 
 
-def int8_of(a):
-    """Uniform [0, 1) floats as int8 codes (the int8 cells' data)."""
+def as_bytes(a, scale, shift=0.0, kind="int8"):
+    """Float rows as bytes: round(scale·a + shift) clamped into int8, or as
+    uint8 with 128 added after the rounding. The byte cells' data: the
+    uniform main set at (255, -128), the IVF-PQ blob set at (12, 0), the
+    CAGRA set at (12.7, -64)."""
     import torch
 
-    return (a * 255.0 - 128.0).round().clamp(-128, 127).to(torch.int8)
+    v = (a * scale + shift).round()
+    if kind == "uint8":
+        return (v + 128.0).clamp(0, 255).to(torch.uint8)
+    return v.clamp(-128, 127).to(torch.int8)
 
 
 def blobs(n, centers, seed, scale=1.0):
@@ -1047,7 +1075,500 @@ def phase_ivf(st):
     profile_batch(st, "ivf_pq.search + refine, select_impl xla", "ivf_profile_select_xla.txt",
                   lambda: refine(x, q, ivf_pq.search(sp_x, index, q, IVF_K0, res=res)[1],
                                  K_MAIN, res=res))
+    # this slice's paths on the same index and data, each with its own counts
+    phase_ivf_filter(st, index, q, sp, (d, i))
+    phase_ivf_grouped(st, index, q, sp, (d, i))
+    phase_ivf_bytes(st, x, q, IVF_CHECK)
+    phase_ivf_codecs(st, x, q, truth)
     st["ivf"] = (index, q)
+
+
+def pq_counts():
+    from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_topk
+    from raft_tpu_torch.ops.topk import topk
+
+    return {"topk": topk.launches, "pq_scan": pq_scan.launches,
+            "pq_scan_topk": pq_scan_topk.launches}
+
+
+def pq_reset():
+    from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_topk
+    from raft_tpu_torch.ops.topk import topk
+
+    topk.launches = pq_scan.launches = pq_scan_topk.launches = 0
+
+
+def timed_batches(fn, batches):
+    """Host seconds per call of ``fn`` over ``batches`` calls, after a
+    synchronise; and the last call's result."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / batches, out
+
+
+def phase_ivf_filter(st, index, q, sp, unfiltered):
+    """Filtered IVF-PQ on the main index: bitsets keeping 50% and 2% of the
+    ids (seeded). Each filtered batch must launch ``pq_scan_topk`` once a
+    tile and ``topk`` never; the kernel equals ``pq_scan_topk_plain`` with
+    the same bitset bit for bit on two of its tiles; every returned id is
+    kept and -1 stands exactly where a distance is +inf; the plain-select
+    route (``pq_scan``, the filter, the plain top-k) gives the same answers;
+    an all-ones bitset gives the unfiltered answer exactly."""
+    import dataclasses
+
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.distance.pairwise import full_f32
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops.pq_scan import pack_keep_words, pq_scan_topk, pq_scan_topk_plain
+
+    res = Resources(device="cuda")
+    dev = q.device
+    d0, i0 = unfiltered
+    tiles, batches = -(-IVF_Q // 128), 3
+    ones = torch.ones(N_MAIN, dtype=torch.bool, device=dev)
+    od, oi = ivf_pq.search(sp, index, q, IVF_K0, sample_filter=ones, res=res)
+    assert torch.equal(od, d0) and torch.equal(oi, i0), "an all-ones filter changes the answer"
+    base_s, _ = timed_batches(lambda: ivf_pq.search(sp, index, q, IVF_K0, res=res), batches)
+    prof = {"unfiltered": profile_batch(st, "ivf_pq.search (no refine)",
+                                        "ivf_profile_search.txt",
+                                        lambda: ivf_pq.search(sp, index, q, IVF_K0, res=res))}
+    out = {}
+    for frac in FILTER_KEEP:
+        g = torch.Generator(device=dev).manual_seed(30)
+        keep = torch.rand(N_MAIN, generator=g, device=dev) < frac
+        ivf_pq.search(sp, index, q, IVF_K0, sample_filter=keep, res=res)      # warm-up
+        pq_reset()
+        search_s, (d, i) = timed_batches(
+            lambda: ivf_pq.search(sp, index, q, IVF_K0, sample_filter=keep, res=res), batches)
+        launches = pq_counts()
+        assert launches["pq_scan_topk"] == tiles * batches, (
+            f"a filtered batch launched pq_scan_topk {launches['pq_scan_topk']} times")
+        assert launches["topk"] == 0 and launches["pq_scan"] == 0, launches
+        assert bool(keep[i[i >= 0].long()].all()), "a filtered id came back"
+        assert torch.equal(i < 0, torch.isinf(d)), "-1 ids and +inf distances disagree"
+        words = pack_keep_words(keep)
+        tile_bits = []
+        for t0 in (0, 128 * 40):
+            qt = q[t0:t0 + 128]
+            probes = ivf_pq._coarse_probes(index, qt, 8).to(torch.int64)
+            with full_f32():
+                qrot = qt @ index.rotation.T
+            lut, bias = ivf_pq._probe_luts(index, qrot, probes, *ivf_pq._codebooks_f32(index))
+            args = (index.list_codes, index.list_ids, probes.to(torch.int32).contiguous(),
+                    lut.to(torch.bfloat16).contiguous(), bias.contiguous(), IVF_K0, True)
+            before = pq_scan_topk.launches
+            kv, ki = pq_scan_topk(*args, keep_words=words)
+            pv, pi = pq_scan_topk_plain(*args, keep_words=words)
+            pq_scan_topk.launches = before
+            same = torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ki, pi)
+            assert same, f"pq_scan_topk and its plain version differ at tile {t0 // 128}"
+            tile_bits.append(same)
+        xd, xi = ivf_pq.search(dataclasses.replace(sp, select_impl="xla"), index, q, IVF_K0,
+                               sample_filter=keep, res=res)
+        xla_same = torch.equal(xd, d) and torch.equal(xi, i)
+        assert xla_same, (f"the filtered search differs between select routes on "
+                          f"{int((xi != i).any(1).sum())} rows")
+        prof[str(frac)] = profile_batch(
+            st, f"ivf_pq.search, filter keeping {frac:.0%}",
+            f"ivf_profile_filtered_{int(frac * 100)}.txt",
+            lambda: ivf_pq.search(sp, index, q, IVF_K0, sample_filter=keep, res=res))
+        underfilled = int((i < 0).any(1).sum())
+        out[str(frac)] = dict(qps=IVF_Q / search_s, seconds_per_batch=search_s,
+                              launches=launches, kept_ids_only=True,
+                              kernel_tiles_bit_equal_plain=tile_bits, select_xla_equal=xla_same,
+                              rows_underfilled=underfilled,
+                              device_busy_ms=prof[str(frac)]["device_busy_ms"])
+        st["launches"][f"pq_scan_topk_filtered_{frac}"] = launches["pq_scan_topk"]
+        if frac == 0.5:
+            st["ivf_keep"] = keep
+    emit(phase="main", path="ivf_pq.search with a sample filter", n=N_MAIN, d=D_MAIN, m=IVF_Q,
+         n_probes=8, lut_dtype="bfloat16", k=IVF_K0, batches=batches, keep_shares=FILTER_KEEP,
+         unfiltered=dict(qps=IVF_Q / base_s, seconds_per_batch=base_s,
+                         device_busy_ms=prof["unfiltered"]["device_busy_ms"]),
+         filtered=out, all_ones_equals_unfiltered=True, card=st["card"])
+
+
+def phase_ivf_grouped(st, index, q, sp, unfiltered):
+    """``scan_order="grouped"`` on the main index against the tiled order:
+    ids equal except on rows whose distances tie within 1e-5 (printed as
+    ``route_row`` lines)."""
+    import dataclasses
+
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    res = Resources(device="cuda")
+    d0, i0 = unfiltered
+    spg = dataclasses.replace(sp, scan_order="grouped")
+    pq_reset()
+    gd, gi = ivf_pq.search(spg, index, q, IVF_K0, res=res)
+    torch.cuda.synchronize()
+    launches = pq_counts()
+    grouped_s, _ = timed_batches(lambda: ivf_pq.search(spg, index, q, IVF_K0, res=res), 1)
+    differ = (torch.sort(gi, 1).values != torch.sort(i0, 1).values).any(1)
+    rows = torch.nonzero(differ)[:, 0].tolist()
+    ties_ok = True
+    for r in rows:
+        ok = bool(torch.allclose(torch.sort(gd[r]).values, torch.sort(d0[r]).values,
+                                 rtol=1e-5, atol=1e-5))
+        ties_ok &= ok
+        if len(rows) <= 50:
+            emit(phase="route_row", path="ivf_pq grouped vs tiled", row=r,
+                 grouped_dists=gd[r].tolist(), tiled_dists=d0[r].tolist(), tie_within_1e5=ok)
+    fin = torch.isfinite(d0)
+    err = float((gd[fin] - d0[fin]).abs().max())
+    emit(phase="main", path="ivf_pq.search, scan_order grouped", n=N_MAIN, m=IVF_Q, k=IVF_K0,
+         group_size=spg.group_size, qps=IVF_Q / grouped_s, launches=launches,
+         rows_differing=len(rows), max_abs_err=err, card=st["card"])
+    assert ties_ok, "the grouped order's ids differ from the tiled order's beyond ties"
+
+
+def phase_ivf_bytes(st, x, q, truth_rows):
+    """Byte IVF-PQ: the blob set as int8 and uint8 rows (``as_bytes``),
+    built in the main configuration, searched (k=40) and refined to 10;
+    recall@10 against the stored bytes' exact neighbours (``knn``, the s8
+    kernel) with the float configuration's floor; the kernel and ``"xla"``
+    select routes equal."""
+    import dataclasses
+
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.neighbors.brute_force import knn
+    from raft_tpu_torch.neighbors.refine import refine
+
+    res = Resources(device="cuda")
+    sp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
+    tiles, batches = -(-IVF_Q // 128), 2
+    for kind in ("int8", "uint8"):
+        xb, qb = as_bytes(x, BYTE_SCALE, kind=kind), as_bytes(q, BYTE_SCALE, kind=kind)
+        build_s, index = timed_batches(lambda: ivf_pq.build(
+            ivf_pq.IndexParams(n_lists=1024, pq_bits=4, pq_dim=64, seed=0), xb, res=res), 1)
+        assert index.data_kind == kind and index.size == N_MAIN
+        ivf_pq.search(sp, index, qb, IVF_K0, res=res)
+        pq_reset()
+        search_s, (d, i) = timed_batches(lambda: ivf_pq.search(sp, index, qb, IVF_K0, res=res),
+                                         batches)
+        launches = pq_counts()
+        assert launches["pq_scan_topk"] == tiles * batches and launches["topk"] == 0, launches
+        xd, xi = ivf_pq.search(dataclasses.replace(sp, select_impl="xla"), index, qb, IVF_K0,
+                               res=res)
+        xla_same = torch.equal(xd, d) and torch.equal(xi, i)
+        assert xla_same, f"{kind}: the select routes differ"
+        _, ri = refine(xb, qb, i, K_MAIN, res=res)
+        _, truth = knn(xb, qb[:truth_rows], K_MAIN, res=res)
+        rec = recall(ri[:truth_rows], truth)
+        emit(phase="main", path=f"ivf_pq {kind} build + search + refine", n=N_MAIN, d=D_MAIN,
+             m=IVF_Q, k0=IVF_K0, k=K_MAIN, scale=BYTE_SCALE, build_seconds=build_s,
+             qps_search=IVF_Q / search_s, launches=launches, select_xla_equal=xla_same,
+             recall_at_10_vs_stored_bytes=rec, recall_floor=IVF_RECALL_FLOOR,
+             check_rows=truth_rows, card=st["card"])
+        assert rec >= IVF_RECALL_FLOOR, f"{kind}: recall@10 {rec} below {IVF_RECALL_FLOOR}"
+        del index, xb, qb
+
+
+# name -> IndexParams fields beyond the main configuration's
+PQ_CODECS = {
+    "per_cluster": dict(codebook_kind="per_cluster"),
+    "residual_scale_norm": dict(residual_scale_norm=True),
+    "opq_anisotropic_4bit": dict(rotation="opq", codebook_loss="anisotropic", fast_scan="4bit"),
+}
+
+
+def codec_tile_check(index, q):
+    """One 128-query tile of a codec index through its scan kernel's wrapper
+    and the plain version, on the same card inputs, bit for bit: the
+    funnel's signature scan (``pq_scan`` over ``list_sig`` with the nibble
+    LUT of ``_sig_nibble_lut``, split, S = the signature words) against
+    ``pq_scan_plain``; otherwise ``pq_scan_topk`` with the index's own LUTs
+    (per-cluster codebooks, per-list scales) against
+    ``pq_scan_topk_plain``. The launch is taken back out of the count."""
+    import torch
+
+    from raft_tpu_torch.distance.pairwise import full_f32
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_plain, pq_scan_topk, pq_scan_topk_plain
+
+    qt = q[:128]
+    probes = ivf_pq._coarse_probes(index, qt, 8).to(torch.int64)
+    with full_f32():
+        qrot = qt @ index.rotation.T
+    if index.has_fast_scan:
+        t, p = probes.shape
+        sig_w = index.list_sig.shape[2]
+        r = qrot[:, None, :] - index.centers_rot[probes]
+        slut = ivf_pq._sig_nibble_lut(r, index.fast_scan, sig_w)
+        args = (index.list_sig, probes.reshape(-1).to(torch.int32).contiguous(),
+                slut.reshape(t * p, sig_w, 32).to(torch.bfloat16).contiguous())
+        before = pq_scan.launches
+        got = pq_scan(*args, split=True)
+        pq_scan.launches = before
+        want = pq_scan_plain(*args, split=True)
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        return "pq_scan", sig_w, same
+    lut, bias = ivf_pq._probe_luts(index, qrot, probes, *ivf_pq._codebooks_f32(index))
+    args = (index.list_codes, index.list_ids, probes.to(torch.int32).contiguous(),
+            lut.to(torch.bfloat16).contiguous(), bias.contiguous(), IVF_K0, True)
+    before = pq_scan_topk.launches
+    kv, ki = pq_scan_topk(*args, split=index.pq_split)
+    pq_scan_topk.launches = before
+    pv, pi = pq_scan_topk_plain(*args, index.pq_split)
+    same = torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ki, pi)
+    return "pq_scan_topk", index.pq_dim, same
+
+
+def phase_ivf_codecs(st, x, q, truth):
+    """Per-cluster, scale-normed and codec (OPQ, anisotropic, 4-bit
+    fast-scan, searched through the funnel at ``funnel_widen=4``) builds of
+    the main configuration: build seconds, QPS and recall@10 after refine,
+    held to the main configuration's floor; one tile's kernel against its
+    plain version bit for bit (``codec_tile_check``); each batch's launches
+    exactly (per-cluster and scale-normed: ``pq_scan_topk`` once a tile, no
+    ``topk`` or ``pq_scan``; the funnel: ``pq_scan`` and ``topk`` once a
+    tile each, no ``pq_scan_topk``); the kernel and ``"xla"`` select routes
+    equal."""
+    import dataclasses
+
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.neighbors.refine import refine
+
+    res = Resources(device="cuda")
+    tiles, batches = -(-IVF_Q // 128), 2
+    for name, kw in PQ_CODECS.items():
+        build_s, index = timed_batches(lambda: ivf_pq.build(
+            ivf_pq.IndexParams(n_lists=1024, pq_bits=4, pq_dim=64, seed=0, **kw), x, res=res), 1)
+        widen = 4 if index.has_fast_scan else 1
+        sp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16", funnel_widen=widen)
+        kernel, s_words, tile_same = codec_tile_check(index, q)
+        assert tile_same, f"{name}: {kernel} differs from its plain version on a tile"
+        ivf_pq.search(sp, index, q, IVF_K0, res=res)
+        pq_reset()
+        search_s, (d, i) = timed_batches(lambda: ivf_pq.search(sp, index, q, IVF_K0, res=res),
+                                         batches)
+        launches = pq_counts()
+        want = ({"topk": tiles * batches, "pq_scan": tiles * batches, "pq_scan_topk": 0}
+                if index.has_fast_scan else
+                {"topk": 0, "pq_scan": 0, "pq_scan_topk": tiles * batches})
+        assert launches == want, f"{name}: launches {launches}, want {want}"
+        xd, xi = ivf_pq.search(dataclasses.replace(sp, select_impl="xla"), index, q, IVF_K0,
+                               res=res)
+        xla_same = torch.equal(xd, d) and torch.equal(xi, i)
+        _, ri = refine(x, q, i, K_MAIN, res=res)
+        rec = recall(ri[:truth.shape[0]], truth)
+        st["launches"][f"{kernel}_{name}"] = launches[kernel]
+        emit(phase="main", path=f"ivf_pq {name} build + search + refine", n=N_MAIN, d=D_MAIN,
+             m=IVF_Q, k0=IVF_K0, k=K_MAIN, codebook_kind=index.codebook_kind,
+             rotation=index.rotation_kind, codebook_loss=index.codebook_loss,
+             fast_scan=index.fast_scan, funnel_widen=widen, build_seconds=build_s,
+             qps_search=IVF_Q / search_s, launches=launches, tile_kernel=kernel,
+             tile_S=s_words, tile_bit_equal_plain=tile_same, select_xla_equal=xla_same,
+             recall_at_10=rec, recall_floor=IVF_RECALL_FLOOR, card=st["card"])
+        assert xla_same, f"{name}: the select routes differ"
+        assert rec >= IVF_RECALL_FLOOR, f"{name}: recall@10 {rec} below {IVF_RECALL_FLOOR}"
+        del index
+
+
+def plain_hop_search(sp, index, q):
+    """``cagra.search`` with every hop on ``cagra_hop_plain`` in place of the
+    kernel: the same route, merge and tie rules, in plain PyTorch."""
+    import raft_tpu_torch.ops.cagra_hop as hop_mod
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import cagra
+
+    kernel = hop_mod.cagra_hop
+    hop_mod.cagra_hop = hop_mod.cagra_hop_plain
+    try:
+        return cagra.search(sp, index, q, K_MAIN, res=Resources(device="cuda"))
+    finally:
+        hop_mod.cagra_hop = kernel
+
+
+def phase_cagra_bytes(st):
+    """CAGRA's byte build: the clustered 1M set scaled into int8 as the
+    IVF-Flat phase scales it, ``build(IndexParams())``, and
+    ``search(itopk_size=32)`` running ``cagra_hop`` over int8 rows; recall@10
+    against the stored bytes' exact neighbours (``knn``, the s8 kernel),
+    floor 0.95. The routes, on 1,000 queries: the kernel route
+    (``fused_arena``) equals the same route with its hops on
+    ``cagra_hop_plain``, bit for bit; the extract-merge kernel route
+    (``hop_impl="fused"``, lowest-id ties as ``"xla"``) holds the float
+    phase's per-row rule against ``"xla"``; the arena route against ``"xla"``:
+    ids overlap >= 0.99, equal distances where the id sets agree, recall no
+    lower than the "xla" route's less 0.002, and its differing rows
+    printed. int8 rows score exact integers, so ties are common; the arena
+    merge keeps the incumbent on a tie with its worst entry (the JAX
+    kernel's rule, raft_tpu/ops/cagra_hop.py:150-192), where extract and
+    "xla" take the lower id, and a beam can part there."""
+    import dataclasses
+
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import cagra
+    from raft_tpu_torch.neighbors.brute_force import knn
+    from raft_tpu_torch.ops.cagra_hop import cagra_hop
+
+    res = Resources(device="cuda")
+    x, q, _, _ = cagra_data()
+    x8, q8 = as_bytes(x, 12.7, -64.0), as_bytes(q, 12.7, -64.0)
+    del x, q
+    build_s, index = timed_batches(lambda: cagra.build(cagra.IndexParams(), x8, res=res), 1)
+    g = index.graph
+    assert index.dataset.dtype == torch.int8 and index.data_kind == "int8"
+    assert int(g.min()) >= 0 and int(g.max()) < N_MAIN, "graph ids out of range"
+    sp = cagra.SearchParams(itopk_size=CAGRA_ITOPK)
+    assert cagra.resolve_hop_impl(sp, index.graph_degree, index.dim) == "fused_arena"
+    cagra.search(sp, index, q8, K_MAIN, res=res)
+    cagra_hop.launches = 0
+    search_s, (d, i) = timed_batches(lambda: cagra.search(sp, index, q8, K_MAIN, res=res), 2)
+    hops = cagra_hop.launches
+    assert hops > 0, "the byte CAGRA search did not launch cagra_hop"
+    qc = q8[:CAGRA_CHECK]
+    _, truth = knn(x8, qc, K_MAIN, res=res)
+    rec = recall(i[:CAGRA_CHECK], truth)
+    kd, ki = cagra.search(sp, index, qc, K_MAIN, res=res)
+    pd, pi = plain_hop_search(sp, index, qc)
+    plain_same = torch.equal(kd.view(torch.int32), pd.view(torch.int32)) and torch.equal(ki, pi)
+    ed, ei = cagra.search(dataclasses.replace(sp, hop_impl="fused"), index, qc, K_MAIN, res=res)
+    xd, xi = cagra.search(dataclasses.replace(sp, hop_impl="xla"), index, qc, K_MAIN, res=res)
+
+    def versus_xla(rd, ri):
+        """Rows whose id sets differ from the "xla" route's, whether the
+        agreeing rows' distances are equal, and whether each differing row's
+        k-th distance is no worse than the "xla" route's (the float phase's
+        rule)."""
+        same = (torch.sort(ri, 1).values == torch.sort(xi, 1).values).all(1)
+        equal = torch.equal(torch.sort(rd[same], 1).values, torch.sort(xd[same], 1).values)
+        kth = torch.sort(rd[~same], 1).values[:, -1]
+        kth_x = torch.sort(xd[~same], 1).values[:, -1]
+        return same, equal, bool((kth <= kth_x * (1 + 1e-4) + 3e-3).all())
+
+    e_same, e_equal, e_kth = versus_xla(ed, ei)
+    same, route_ok, kth_ok = versus_xla(kd, ki)
+    overlap = recall(ki, xi)
+    rec_k, rec_x = recall(ki, truth), recall(xi, truth)
+    for r in torch.nonzero(~same)[:, 0].tolist():
+        emit(phase="route_row", path="cagra int8", row=r,
+             kernel_dists=torch.sort(kd[r]).values.tolist(),
+             xla_dists=torch.sort(xd[r]).values.tolist(),
+             extract_dists=torch.sort(ed[r]).values.tolist(),
+             kernel_recall=recall(ki[r:r + 1], truth[r:r + 1]),
+             xla_recall=recall(xi[r:r + 1], truth[r:r + 1]))
+    st["launches"]["cagra_hop_int8"] = hops
+    emit(phase="main", path="cagra int8 build + search", n=N_MAIN, d=D_MAIN, m=CAGRA_Q,
+         k=K_MAIN, itopk=CAGRA_ITOPK, build_seconds=build_s, qps=CAGRA_Q / search_s,
+         cagra_hop_launches=hops, recall_at_10_vs_stored_bytes=rec,
+         recall_floor=CAGRA_RECALL_FLOOR, check_rows=CAGRA_CHECK,
+         arena_kernel_bit_equal_plain_hops=plain_same,
+         extract_vs_xla=dict(rows_differing=int((~e_same).sum()), equal_where_same=e_equal,
+                             kth_no_worse=e_kth),
+         arena_vs_xla=dict(overlap=overlap, rows_differing=int((~same).sum()),
+                           equal_where_same=route_ok, kth_no_worse=kth_ok),
+         kernel_route_recall_at_10=rec_k, xla_route_recall_at_10=rec_x,
+         seed_pool_hint=index.seed_pool_hint, card=st["card"])
+    assert rec >= CAGRA_RECALL_FLOOR, f"int8 CAGRA recall@10 {rec} below {CAGRA_RECALL_FLOOR}"
+    assert plain_same, "the int8 kernel route differs from its plain hops"
+    assert e_equal and e_kth, "the int8 extract route breaks the per-row rule against xla"
+    assert overlap >= 0.99, f"the int8 kernel route overlaps the xla route at {overlap}"
+    assert route_ok, "int8 distances differ between the hop routes on rows of equal ids"
+    assert rec_k >= rec_x - 0.002, f"int8 kernel route recall {rec_k} below the xla route's {rec_x}"
+
+
+def phase_ball_cover(st):
+    """Random ball cover at RAPIDS' documented home (low-dimensional and
+    geospatial data): 1,000,000 x 3 uniform float32 under sqeuclidean and
+    1,000,000 (lat, lon) points in radians under haversine, 10,000 queries
+    each, k=10, held against exact ``knn`` in the same metric (sorted
+    distances within rtol 1e-4, ids equal except where distances tie)."""
+    import math
+
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import ball_cover
+    from raft_tpu_torch.neighbors.brute_force import knn
+    from raft_tpu_torch.ops.topk import topk
+
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(40)
+
+    def points(n, metric):
+        if metric == "haversine":
+            lat = torch.asin(2.0 * torch.rand(n, generator=g, device=dev) - 1.0)
+            lon = (2.0 * torch.rand(n, generator=g, device=dev) - 1.0) * math.pi
+            return torch.stack([lat, lon], 1)
+        return torch.rand((n, 3), generator=g, device=dev)
+
+    for metric in ("sqeuclidean", "haversine"):
+        x, q = points(N_MAIN, metric), points(M_MAIN, metric)
+        build_s, index = timed_batches(lambda: ball_cover.build(x, metric=metric, res=res), 1)
+        ball_cover.knn_query(index, q[:100], K_MAIN, res=res)
+        topk.launches = 0
+        search_s, (d, i) = timed_batches(lambda: ball_cover.knn_query(index, q, K_MAIN, res=res),
+                                         1)
+        launches = topk.launches
+        rd, ri = knn(x, q, K_MAIN, metric=metric, res=res)
+        err = knn_equiv(d, i, rd, ri, rtol=1e-4, atol=1e-6)
+        emit(phase="main", path=f"ball_cover.knn_query {metric}", n=N_MAIN, d=x.shape[1],
+             m=M_MAIN, k=K_MAIN, n_landmarks=index.n_landmarks, capacity=index.capacity,
+             build_seconds=build_s, qps=M_MAIN / search_s, topk_launches=launches,
+             max_abs_err_vs_exact=err, card=st["card"])
+        st["launches"][f"topk_ball_cover_{metric}"] = launches
+        del index, x, q
+
+
+def phase_matrix_ops(st):
+    """The 16 ``matrix.ops`` functions on the card against the CPU."""
+    import torch
+
+    from raft_tpu_torch.matrix import ops
+
+    g = torch.Generator().manual_seed(41)
+    m = torch.randn((1000, 777), generator=g)
+    m[3, 5] = m[3, 9] = m[3].max() + 1.0
+    m[7] = m[7].round()
+    rows = torch.randint(0, 1000, (300,), generator=g)
+    mask = torch.rand(300, generator=g) > 0.5
+    vec = torch.randn(777, generator=g)
+    calls = {
+        "argmax": lambda a: ops.argmax(a), "argmin": lambda a: ops.argmin(a),
+        "gather": lambda a: ops.gather(a, rows.to(a.device)),
+        "gather_if": lambda a: ops.gather_if(a, rows.to(a.device), mask.to(a.device), -1.0),
+        "slice": lambda a: ops.slice(a, 10, 500, 3, 700), "copy": lambda a: ops.copy(a),
+        "fill": lambda a: ops.fill((5, 7), 2.5, device=a.device),
+        "eye": lambda a: ops.eye(9, device=a.device),
+        "linewise_op": lambda a: ops.linewise_op(a, vec.to(a.device), True,
+                                                 lambda u, v: u * v + 1.0),
+        "col_wise_sort": lambda a: ops.col_wise_sort(a, ascending=False),
+        "reverse": lambda a: ops.reverse(a, along_rows=False),
+        "sign_flip": lambda a: ops.sign_flip(a),
+        "upper_triangular": lambda a: ops.upper_triangular(a),
+        "lower_triangular": lambda a: ops.lower_triangular(a),
+        "get_diagonal": lambda a: ops.get_diagonal(a),
+        "set_diagonal": lambda a: ops.set_diagonal(a, vec.to(a.device)),
+    }
+    assert set(calls) == set(ops.__all__)
+    for name, fn in calls.items():
+        card, cpu = fn(m.cuda()), fn(m)
+        for a, b in zip(card if isinstance(card, tuple) else (card,),
+                        cpu if isinstance(cpu, tuple) else (cpu,)):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b), name
+    emit(phase="check", what="matrix.ops card vs cpu", functions=len(calls), equal=True,
+         shape=list(m.shape), card=st["card"])
 
 
 def profile_batch(st, path, filename, batch):
@@ -1080,11 +1601,13 @@ def profile_batch(st, path, filename, batch):
                 f"host {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n")
         for ms, n, key in rows:
             f.write(f"{ms:12.3f} ms {n:8d}  {key}\n")
-    emit(phase="profile", path=path, wall_ms=wall_ms,
-         device_busy_ms=busy_ms, device_ops=sum(r[1] for r in rows),
-         idle_share=1.0 - busy_ms / wall_ms,
-         top=[dict(ms=ms, count=n, kernel=key[:100]) for ms, n, key in rows[:15]],
-         card=st["card"])
+    rec = dict(phase="profile", path=path, wall_ms=wall_ms,
+               device_busy_ms=busy_ms, device_ops=sum(r[1] for r in rows),
+               idle_share=1.0 - busy_ms / wall_ms,
+               top=[dict(ms=ms, count=n, kernel=key[:100]) for ms, n, key in rows[:15]],
+               card=st["card"])
+    emit(**rec)
+    return rec
 
 
 def phase_cagra(st):
@@ -1408,10 +1931,7 @@ def phase_ivf_flat(st):
 
     # (f) int8 lists: the set scaled and rounded into int8; integer scores
     # are exact, so the two select routes agree exactly
-    def to_int8(a):
-        return (a * 12.7 - 64.0).round().clamp(-128, 127).to(torch.int8)
-
-    x8, q8 = to_int8(x[:INT8_ROWS]), to_int8(q)
+    x8, q8 = as_bytes(x[:INT8_ROWS], 12.7, -64.0), as_bytes(q, 12.7, -64.0)
     iindex = ivf_flat.build(ivf_flat.IndexParams(n_lists=INT8_LISTS, seed=0), x8, res=res)
     assert iindex.data_kind == "int8" and iindex.list_data.dtype == torch.int8
     reset()
@@ -1743,7 +2263,7 @@ def time_fused_modes(st):
     xb, qb = x.bfloat16(), q.bfloat16()
     xh, qh = xb, qb
     xl, ql = (x - xh.float()).bfloat16(), (q - qh.float()).bfloat16()
-    xs, qs = int8_of(x), int8_of(q)
+    xs, qs = as_bytes(x, 255.0, -128.0), as_bytes(q, 255.0, -128.0)
     yn = x.square().sum(1)
     yns = xs.float().square().sum(1)
 
@@ -1913,8 +2433,8 @@ def time_pq_scan(st):
     from raft_tpu_torch.distance.pairwise import full_f32
     from raft_tpu_torch.matrix.select_k import select_k_impl
     from raft_tpu_torch.neighbors import ivf_pq
-    from raft_tpu_torch.ops.pq_scan import (pq_scan, pq_scan_plain, pq_scan_topk,
-                                            pq_scan_topk_plain)
+    from raft_tpu_torch.ops.pq_scan import (pack_keep_words, pq_scan, pq_scan_plain,
+                                            pq_scan_topk, pq_scan_topk_plain)
     from raft_tpu_torch.ops.topk import topk
 
     index, q = st.pop("ivf")
@@ -1984,10 +2504,22 @@ def time_pq_scan(st):
     # probe ids and biases, the (T, k) values and ids written
     f_bytes = lists * cap * (s + 4) + pairs * s * 16 * 2 + pairs * 8 + t * k * 8
     t_bytes = f_bytes / H100_BYTES_S
+    # the same tile under the phase's 50% filter: the kernel against its
+    # plain version, and its time; the bound gains the bitset's bytes
+    words = pack_keep_words(st.pop("ivf_keep"))
+    kv, ki = pq_scan_topk(codes, ids, probes32, lut4, bias, k, True, keep_words=words)
+    pv, pi = pq_scan_topk_plain(codes, ids, probes32, lut4, bias, k, True, keep_words=words)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ki, pi), (
+        "filtered pq_scan_topk differs at the timed tile")
+    ff_ms = cuda_ms(lambda: pq_scan_topk(codes, ids, probes32, lut4, bias, k, True,
+                                         keep_words=words), reps=50, warm=3)
+    ff_bytes = f_bytes + words.numel() * 4
     st["pq_topk_t"] = dict(ms=f_ms, plain_ms=f_plain_ms, library_ms=f_lib_ms,
                            bound_ms=max(t_bytes, t_ops) * 1e3,
                            bound_by="bytes" if t_bytes >= t_ops else "operations",
-                           unfused_route_ms=unfused_ms)
+                           unfused_route_ms=unfused_ms,
+                           filtered=dict(keep_share=FILTER_KEEP[0], ms=ff_ms, bytes=ff_bytes,
+                                         bound_ms=max(ff_bytes / H100_BYTES_S, t_ops) * 1e3))
     # by tile size: a block's latency (8 queries) against the card's
     # throughput (1,024 queries, many blocks an SM in turn)
     by_t = {}
@@ -2131,8 +2663,11 @@ def main(argv=None):
         phase_tc_path(st)
         phase_ivf(st)
         phase_cagra(st)
+        phase_cagra_bytes(st)
         phase_ivf_flat(st)
         phase_slice(st)
+        phase_ball_cover(st)
+        phase_matrix_ops(st)
     if "3" in args.phases and "2" in args.phases:
         time_fused_modes(st)
         phase_times(st)
@@ -2161,17 +2696,25 @@ def main(argv=None):
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
                  replaces="raft_tpu/ops/topk.py:91", launches=launches["topk"],
                  launches_ivf_flat=launches["topk_ivf_flat"],
+                 launches_ball_cover={m: launches[f"topk_ball_cover_{m}"]
+                                      for m in ("sqeuclidean", "haversine")},
                  max_abs_err=st["topk_err"], **st["topk_t"]),
             dict(name="pq_scan", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
                  replaces="raft_tpu/ops/pq_scan.py:61", launches=launches["pq_scan"],
                  launches_on="ivf_pq.search, select_impl='xla'",
+                 launches_funnel=launches["pq_scan_opq_anisotropic_4bit"],
                  max_abs_err=st["pq_err"], **st["pq_t"]),
             dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
                  replaces="raft_tpu/ops/pq_scan.py:61", launches=launches["pq_scan_topk"],
+                 launches_filtered={str(f): launches[f"pq_scan_topk_filtered_{f}"]
+                                    for f in FILTER_KEEP},
+                 launches_codecs={n: launches[f"pq_scan_topk_{n}"]
+                                  for n in ("per_cluster", "residual_scale_norm")},
                  max_abs_err=st["pq_topk_err"], **st["pq_topk_t"]),
             dict(name="cagra_hop", route="cuda",
                  source="raft_tpu_torch/ops/csrc/cagra_hop.cu",
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
+                 launches_int8_rows=launches["cagra_hop_int8"],
                  max_abs_err=st["hop_err"], **st["hop_t"]),
         ])
     print(json.dumps({"ok": True, "device": {

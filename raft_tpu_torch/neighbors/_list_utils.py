@@ -17,7 +17,14 @@ from ..distance.types import DistanceType
 
 __all__ = ["round_up", "list_cap_target", "list_positions", "plan_search_tiles",
            "assign_to_lists", "split_oversized", "spatial_split_key",
-           "bound_capacity", "pq_scan_bytes_per_probe_row"]
+           "bound_capacity", "pq_scan_bytes_per_probe_row",
+           "funnel_scan_bytes_per_probe_row", "is_reader"]
+
+
+def is_reader(x) -> bool:
+    """A chunked reader (the JAX package's ``core.chunked.is_reader``),
+    which the streamed builds take; the port refuses it until they land."""
+    return hasattr(x, "chunks") and hasattr(x, "take") and hasattr(x, "chunk_rows")
 
 
 def round_up(x: int, mult: int) -> int:
@@ -141,6 +148,13 @@ def pq_scan_bytes_per_probe_row(capacity: int, pq_dim: int, n_codes: int) -> int
     x2 for temporaries): it sizes the search tiles, so the port keeps it
     and with it the JAX package's tile plan."""
     return 2 * (capacity * pq_dim * 9 + pq_dim * n_codes * 8)
+
+
+def funnel_scan_bytes_per_probe_row(capacity: int, sig_words: int) -> int:
+    """Memory model of one (query, probe) pair of the fast-scan funnel's
+    signature tier, the JAX package's (the packed signatures and estimator
+    scores per slot, plus the 32-entry nibble LUT, x2 for temporaries)."""
+    return 2 * (capacity * (sig_words * 9 + 4) + sig_words * 32 * 8)
 
 
 def plan_search_tiles(m: int, n_probes: int, k: int, capacity: int,

@@ -29,9 +29,11 @@ entry pool is drawn by a ``torch.Generator`` seeded from
 ``SearchParams.seed``: the same seed gives bitwise the same results on one
 device, but not the JAX package's pool.
 
-Not yet ported (each raises ``RaftError("not yet ported")``): byte-dataset
-builds (the port's IVF-PQ has no byte ingest), the streamed build from a
-chunked reader, ``batched_searcher`` and the serve / tune hooks, the obs
+An int8 / uint8 dataset builds on its float32 image and is stored and
+searched as signed bytes (``cagra_hop`` reads int8 rows).
+
+Not yet ported (each raises ``RaftError("not yet ported")``): the streamed
+build from a chunked reader, ``batched_searcher`` and the serve / tune hooks, the obs
 instrument and memory gates, and the distributed CAGRA.
 """
 
@@ -53,6 +55,7 @@ from ..distance.pairwise import full_f32
 from ..distance.types import DistanceType, resolve_metric
 from ..matrix.select_k import _select_k, select_k_impl
 from . import ivf_pq as ivf_pq_mod
+from ._list_utils import is_reader
 from .ivf_pq import _L2_METRICS, _SQRT_METRICS
 from .refine import refine
 
@@ -363,17 +366,14 @@ def estimate_seed_pool(dataset, knn_graph, seed: int = 0,
     return pool
 
 
-def _is_reader(x) -> bool:
-    """The JAX package's chunked-reader duck type (core/chunked.is_reader)."""
-    return hasattr(x, "chunks") and hasattr(x, "take") and hasattr(x, "chunk_rows")
-
-
 def build(params: IndexParams, dataset, res: Resources | None = None) -> CagraIndex:
-    """Full CAGRA build (reference: cagra::build, cagra.cuh) of a float
-    dataset on the handle's device: knn graph, seed-pool estimate, then
-    optimize to ``graph_degree``."""
+    """Full CAGRA build (reference: cagra::build, cagra.cuh) on the
+    handle's device: knn graph, seed-pool estimate, then optimize to
+    ``graph_degree``. An int8 / uint8 dataset is stored as signed bytes
+    (uint8 shifted by -128) and searched over them; the graph is built on
+    its float32 image, as the JAX package builds it."""
     res = res or default_resources()
-    if _is_reader(dataset):
+    if is_reader(dataset):
         _not_ported("a chunked-reader dataset (the streamed build)")
     x = res.put(dataset)
     expects(x.ndim == 2, "dataset must be (n, d)")
@@ -381,14 +381,20 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> CagraIn
             "graph_degree must be <= intermediate_graph_degree")
     mt = resolve_metric(params.metric)
     expects(mt in _L2_METRICS, "cagra supports L2 metrics (reference parity), got %s", mt.name)
+    kind = "float32"
     if x.dtype in (torch.int8, torch.uint8):
-        _not_ported(f"a {str(x.dtype).split('.')[-1]} dataset (byte build)")
-    x = x.to(torch.float32).contiguous()
-    knn_graph = build_knn_graph(params, x, res=res)
-    hint = estimate_seed_pool(x, knn_graph, seed=params.seed, res=res)
+        from .brute_force import _as_signed, _dtype_name
+
+        kind = _dtype_name(x)
+        x = _as_signed(x).contiguous()      # stored (and scored) in the signed domain
+        xf = x.to(torch.float32)
+    else:
+        x = xf = x.to(torch.float32).contiguous()
+    knn_graph = build_knn_graph(params, xf, res=res)
+    hint = estimate_seed_pool(xf, knn_graph, seed=params.seed, res=res)
+    del xf
     graph = optimize(knn_graph, params.graph_degree, res=res)
-    return CagraIndex(dataset=x, graph=graph, metric=mt, data_kind="float32",
-                      seed_pool_hint=hint)
+    return CagraIndex(dataset=x, graph=graph, metric=mt, data_kind=kind, seed_pool_hint=hint)
 
 
 # ---------------------------------------------------------------------------

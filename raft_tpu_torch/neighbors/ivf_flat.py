@@ -58,7 +58,7 @@ from ..core.serialize import (atomic_write, check_header, deserialize_mdspan,
 from ..distance.pairwise import _choose_tile, full_f32
 from ..distance.types import DistanceType, resolve_metric
 from ..matrix.select_k import select_k_impl
-from ._list_utils import (assign_to_lists, bound_capacity, list_positions,
+from ._list_utils import (assign_to_lists, bound_capacity, is_reader, list_positions,
                           plan_search_tiles)
 from .brute_force import _INT_DTYPES, _as_signed, _coerce_queries, _dtype_name, _place
 
@@ -75,11 +75,6 @@ _STREAM_EXTEND_BYTES = 256 << 20
 
 def _not_ported(what: str):
     fail("ivf_flat: %s is not yet ported to raft_tpu_torch", what)
-
-
-def _is_reader(x) -> bool:
-    """A chunked reader (the JAX package's ``core.chunked.is_reader``)."""
-    return hasattr(x, "chunks") and hasattr(x, "take") and hasattr(x, "chunk_rows")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,7 +189,7 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfFlat
     """Build the index on the handle's device (reference: ivf_flat::build):
     balanced k-means centers on a trainset, then the fill."""
     res = res or default_resources()
-    if _is_reader(dataset):
+    if is_reader(dataset):
         _not_ported("a ChunkedReader dataset (the streamed build)")
     x = _place(dataset, res)
     expects(x.ndim == 2, "dataset must be (n, d)")
@@ -235,7 +230,7 @@ def extend(index: IvfFlatIndex, new_vectors, new_ids=None, res: Resources | None
     Returns a new index on the index's device; ids default to
     ``index.size + arange``. An 8-bit index takes vectors of its original
     dtype."""
-    if _is_reader(new_vectors):
+    if is_reader(new_vectors):
         _not_ported("a ChunkedReader batch (the streamed extend)")
     # the JAX package streams such a batch, whose one difference from the
     # in-memory path is the order split of severely oversized lists

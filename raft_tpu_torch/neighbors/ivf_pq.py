@@ -33,15 +33,26 @@ Entry points run on the handle's device ("cuda" unless the caller passes
 loaded on. Files are the JAX package's ``raft_tpu/13`` format, byte for
 byte, and :func:`from_state` takes a JAX index's arrays as numpy.
 
-Not yet ported (each raises ``RaftError("not yet ported")``): per-cluster
-and "auto" codebooks, ``residual_scale_norm``, OPQ, anisotropic codebooks,
-the fast-scan funnel, ``scan_order="grouped"``, int8/uint8 datasets, the
-streamed build, sample filters, ``batched_searcher`` and the obs hooks.
+The rest of the JAX package's surface comes with it: int8 / uint8 datasets
+(ingested as float32 in the signed-byte domain, queries coerced the same
+way), per-cluster and "auto" codebooks, ``residual_scale_norm``, OPQ
+rotations, anisotropic codebooks, the fast-scan tier and its funnel
+(``funnel_widen > 1``; its signature scan is the ``pq_scan`` kernel over the
+packed signatures), ``scan_order="grouped"``, sample filters (on the kernel
+route a packed bitset inside ``pq_scan_topk``) and ``batched_searcher``.
+Trained artifacts (codebooks, OPQ rotations, scales) come from torch random
+streams, so the port's builds match the JAX package's in recall, and a JAX
+index loaded from its file searches the same.
+
+Not yet ported (each raises ``RaftError("not yet ported")``): the streamed
+build (a chunked-reader dataset), the obs hooks, and ``batched_searcher`` of
+a tuned index without params.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Any
 
@@ -59,18 +70,22 @@ from ..core.serialize import (check_header, deserialize_mdspan, deserialize_scal
 from ..distance.pairwise import _choose_tile, full_f32
 from ..distance.types import DistanceType, resolve_metric
 from ..matrix.select_k import _select_k, select_k_impl, wide_dispatch_ok
-from ._list_utils import (assign_to_lists, bound_capacity, list_positions,
-                          plan_search_tiles, pq_scan_bytes_per_probe_row)
+from .brute_force import _as_signed, _coerce_queries, _dtype_name
+from .sample_filter import apply_id_filter, resolve_filter, validate_filter_covers
+from ._list_utils import (assign_to_lists, bound_capacity, funnel_scan_bytes_per_probe_row,
+                          is_reader, list_positions, plan_search_tiles, pq_scan_bytes_per_probe_row,
+                          round_up)
 
 __all__ = ["IndexParams", "SearchParams", "IvfPqIndex", "build", "extend", "search",
            "save", "load", "write_index", "read_index", "from_state",
-           "resolve_scan_impl"]
+           "resolve_scan_impl", "batched_searcher"]
 
 _L2_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
                DistanceType.L2Unexpanded, DistanceType.L2SqrtUnexpanded)
 _SQRT_METRICS = (DistanceType.L2SqrtExpanded, DistanceType.L2SqrtUnexpanded)
 _SELECT_IMPLS = {"auto": "auto", "xla": "torch", "pallas": "kernel"}
 _BLOCK_BYTES = 1 << 28   # temporaries of one step of the plain formulations
+logger = logging.getLogger("raft_tpu_torch")
 
 
 def _not_ported(what: str):
@@ -207,16 +222,6 @@ class IvfPqIndex:
         return self.list_sig.shape[-1] > 0
 
 
-def _check_supported(index: IvfPqIndex) -> None:
-    """Index features this port cannot yet search or extend."""
-    if index.codebook_kind != "per_subspace":
-        _not_ported(f"codebook_kind={index.codebook_kind!r}")
-    if index.scale_normed:
-        _not_ported("residual_scale_norm")
-    if index.data_kind != "float32":
-        _not_ported(f"an index of {index.data_kind} vectors")
-
-
 def _check_split_consts(index: IvfPqIndex) -> None:
     """A split L2 index must carry its per-vector cross terms."""
     if (index.pq_split and index.metric != DistanceType.InnerProduct
@@ -317,6 +322,21 @@ def _train_split_codebooks(subvecs, g, n_iters: int):
     return torch.cat([c1, c2], dim=1)
 
 
+def _resolve_pq_ingest(x, mt: DistanceType):
+    """(data_kind, float32 working view) of a dataset (the JAX package's
+    ``_resolve_pq_ingest``): int8 as it is, uint8 shifted by -128 into the
+    signed domain (L2 is shift-invariant; queries shift the same way), and
+    all PQ math in float32, where every 8-bit integer is exact."""
+    if x.dtype not in (torch.int8, torch.uint8):
+        return "float32", x.to(torch.float32)
+    # uint8 under inner product is not shift-invariant, and the per-vector
+    # correction is not stored
+    expects(mt != DistanceType.InnerProduct or x.dtype == torch.int8,
+            "uint8 + inner_product is unsupported for ivf_pq byte ingestion "
+            "(the -128 shift changes inner products); cast to float32")
+    return _dtype_name(x), _as_signed(x).to(torch.float32)
+
+
 def _composed_codebooks(codebooks):
     """Split codebooks (B, 32, L) as the effective (B, 256, L) codebook:
     entry hi*16 + lo = cb1[hi] + cb2[lo]."""
@@ -325,40 +345,253 @@ def _composed_codebooks(codebooks):
     return comp.reshape(cb.shape[0], 256, cb.shape[-1])
 
 
-def _pq_cross_consts(codes, codebooks):
+def _quant_error(v, c) -> float:
+    """Σ over the rows of ``v`` (B, n, L) of the squared distance to their
+    nearest row of ``c`` (B, K, L)."""
+    rec = torch.gather(c, 1, _nearest(v, c)[..., None].expand(-1, -1, v.shape[-1]))
+    return float((v - rec).square().sum(dtype=torch.float64))
+
+
+def _per_cluster_gain(resid, labels, codebooks, split: bool, g, n_iters: int,
+                      n_trial: int = 8, member_cap: int = 2048) -> float:
+    """Per-cluster codebooks trained on the ``n_trial`` largest clusters:
+    their quantization error over the per-subspace codebooks' on the same
+    rows (< 1: per-cluster quantizes better). Split codebooks are compared
+    composed, as search scores them (the JAX package's
+    ``_per_cluster_gain``)."""
+    n, pq_dim, pq_len = resid.shape
+    cb_ps = _composed_codebooks(codebooks) if split else codebooks.to(torch.float32)
+    lab_h = labels.cpu().numpy()
+    counts = np.bincount(lab_h, minlength=1)
+    trial = np.argsort(counts, kind="stable")[::-1][:n_trial]
+    trial = trial[counts[trial] > 0]
+    cap = min(member_cap, int(counts[trial].max()))
+    pools = [np.nonzero(lab_h == c)[0] for c in trial]
+    pools = np.stack([rows[np.arange(cap) % len(rows)] for rows in pools])
+    rv = resid[torch.from_numpy(pools).to(resid.device)]     # (C, cap, pq_dim, L)
+    # each subvector against its own subspace's codebook
+    err_ps = _quant_error(rv.permute(2, 0, 1, 3).reshape(pq_dim, -1, pq_len), cb_ps)
+    flat = rv.reshape(len(trial), cap * pq_dim, pq_len)
+    if split:
+        cb_pc = _composed_codebooks(_train_split_codebooks(flat, g, n_iters))
+    else:
+        cb_pc = _train_codebooks_batched(flat, g, cb_ps.shape[1], n_iters)
+    return _quant_error(flat, cb_pc) / max(err_ps, 1e-30)
+
+
+def _segment_sums(vals, labels, n_lists: int):
+    """Per-list sums of ``vals`` (n,) and member counts, float32."""
+    lab = labels.to(torch.int64)
+    sums = torch.zeros(n_lists, dtype=torch.float32, device=vals.device).index_add_(
+        0, lab, vals.to(torch.float32))
+    return sums, torch.bincount(lab, minlength=n_lists).to(torch.float32)
+
+
+def _per_list_residual_scales(resid, labels, n_lists: int):
+    """(n_lists,) RMS residual scale per list, sqrt(mean |r|² / d_rot) over
+    its training members; lists the trainset missed take the global RMS."""
+    n = resid.shape[0]
+    rn2 = resid.reshape(n, -1).square().sum(dim=1)
+    s, c = _segment_sums(rn2, labels, n_lists)
+    gmean = rn2.sum() / max(n, 1)
+    msq = torch.where(c > 0, s / torch.clamp_min(c, 1.0), gmean)
+    return torch.sqrt(torch.clamp_min(msq / (resid.shape[1] * resid.shape[2]), 1e-24))
+
+
+def _default_aniso_eta(d_rot: int, t: float = 0.2) -> float:
+    """ScaNN's threshold rule (Guo et al., ICML'20 §3.2): parallel residual
+    error weighs eta = (d - 1) T² / (1 - T²) at relative threshold T."""
+    return max((d_rot - 1) * t * t / (1.0 - t * t), 1.0)
+
+
+def _nearest_aniso(sv, norm, u, c, em1: float):
+    """Codeword of least anisotropic loss |x - c|² + (eta - 1)·<u, x - c>²
+    for every row of ``sv`` (B, n, L) (|x|² dropped), ties to the lowest."""
+    b, n, _ = sv.shape
+    k = c.shape[1]
+    cn = (c * c).sum(dim=-1)[:, None, :]
+    rows = max(1, _BLOCK_BYTES // (4 * b * k))
+    out = []
+    for i in range(0, n, rows):
+        with full_f32():
+            d2 = cn - 2.0 * torch.bmm(sv[:, i:i + rows], c.transpose(1, 2))
+            upar = norm[:, i:i + rows, None] - torch.bmm(u[:, i:i + rows], c.transpose(1, 2))
+        out.append(torch.argmin(d2 + em1 * upar * upar, dim=-1))
+    return torch.cat(out, dim=1)
+
+
+def _train_codebooks_aniso(subvecs, g, n_codes: int, n_iters: int, eta: float):
+    """Anisotropic weighted EM (``codebook_loss="anisotropic"``) in the
+    layout of :func:`_train_codebooks_batched`: assignment by
+    :func:`_nearest_aniso`, the update solving each codeword's normal
+    equations (count·I + (eta-1)·Σuuᵀ) c = eta·Σx."""
+    sv = subvecs.to(torch.float32)
+    b, n, dim = sv.shape
+    em1 = eta - 1.0
+    norm = torch.sqrt(torch.clamp_min((sv * sv).sum(dim=-1), 1e-30))
+    u = sv / norm[..., None]
+    uu = (u[..., :, None] * u[..., None, :]).reshape(b * n, dim * dim)
+    if n >= n_codes:
+        init = torch.rand((b, n), generator=g, device=sv.device).topk(n_codes, dim=1).indices
+    else:
+        init = torch.randint(0, n, (b, n_codes), generator=g, device=sv.device)
+    c = torch.gather(sv, 1, init[..., None].expand(b, n_codes, dim))
+    eye = torch.eye(dim, dtype=torch.float32, device=sv.device)
+    offs = n_codes * torch.arange(b, device=sv.device)[:, None]
+    for _ in range(n_iters):
+        flat = (_nearest_aniso(sv, norm, u, c, em1) + offs).reshape(-1)
+        counts = torch.bincount(flat, minlength=b * n_codes).to(torch.float32)
+        sums = torch.zeros((b * n_codes, dim), device=sv.device).index_add_(
+            0, flat, sv.reshape(-1, dim))
+        suu = torch.zeros((b * n_codes, dim * dim), device=sv.device).index_add_(0, flat, uu)
+        a = (counts[:, None, None] * eye + em1 * suu.reshape(-1, dim, dim)) + 1e-6 * eye
+        sol = torch.linalg.solve(a, (eta * sums)[..., None])[..., 0]
+        c = torch.where(counts.reshape(b, n_codes, 1) > 0, sol.reshape(b, n_codes, dim), c)
+    return c
+
+
+def _train_opq_rotation(resid_flat, g, pq_dim: int, n_codes: int, n_iters: int,
+                        rounds: int, batch: int):
+    """OPQ rotation (Ge et al., CVPR'13, Alg. 1) on rotating mini-batches:
+    fit per-subspace codebooks on the rotated batch, then solve orthogonal
+    Procrustes over its reconstructions (R = U Vᵀ from the SVD of YᵀX).
+    Returns the (d_rot, d_rot) rotation to fold into the index's."""
+    n, d_rot = resid_flat.shape
+    pq_len = d_rot // pq_dim
+    dev = resid_flat.device
+    perm = resid_flat.to(torch.float32)[torch.randperm(n, generator=g, device=dev)]
+    rot = torch.eye(d_rot, dtype=torch.float32, device=dev)
+    for i in range(rounds):
+        start = (i * batch) % max(n - batch + 1, 1)
+        xb = perm[start:start + batch]
+        with full_f32():
+            xr = xb @ rot.T
+        sub = xr.reshape(-1, pq_dim, pq_len).transpose(0, 1).contiguous()
+        cb = _train_codebooks_batched(sub, g, n_codes, n_iters)
+        recon = torch.gather(cb, 1, _nearest(sub, cb)[..., None].expand(-1, -1, pq_len))
+        y = recon.transpose(0, 1).reshape(-1, d_rot)
+        with full_f32():
+            u, _, vt = torch.linalg.svd(y.T @ xb, full_matrices=True)
+            rot = u @ vt
+    return rot
+
+
+def _sig_words(d_rot: int, fast_scan: str) -> int:
+    """Packed signature bytes a row for a fast-scan mode."""
+    if fast_scan == "1bit":
+        return -(-d_rot // 8)
+    if fast_scan == "4bit":
+        return -(-d_rot // 2)
+    return 0
+
+
+def _per_list_sig_scales(resid_flat, labels, n_lists: int, fast_scan: str):
+    """(n_lists,) decode scale per list for the signature estimator, from
+    the raw rotated residuals: mean |r_j| (1bit) or sqrt(mean r_j²) (4bit);
+    lists the trainset missed take the global mean."""
+    n, d_rot = resid_flat.shape
+    red = (resid_flat.abs().sum(dim=1) if fast_scan == "1bit"
+           else resid_flat.square().sum(dim=1))
+    s, c = _segment_sums(red, labels, n_lists)
+    gmean = red.sum() / max(n, 1)
+    per_dim = torch.clamp_min(torch.where(c > 0, s / torch.clamp_min(c, 1.0), gmean) / d_rot,
+                              1e-24)
+    return per_dim if fast_scan == "1bit" else torch.sqrt(per_dim)
+
+
+def _encode_sig(resid_flat, scales, fast_scan: str):
+    """Bit-packed signatures (n, sig_words) uint8 of raw rotated residuals
+    with per-row decode ``scales`` (n,). 1bit: sign bits, dim 8w+b in bit b
+    of byte w. 4bit: levels round((r/s)/step + 7.5) clipped to [0, 15], the
+    even dim in the low nibble. Padding dims pack as zero bits. The bit
+    order is the file format's."""
+    n, d_rot = resid_flat.shape
+    r = resid_flat.to(torch.float32)
+    if fast_scan == "1bit":
+        w = -(-d_rot // 8)
+        bits = torch.nn.functional.pad((r > 0).to(torch.int32), (0, w * 8 - d_rot))
+        weights = 1 << torch.arange(8, dtype=torch.int32, device=r.device)
+        return (bits.reshape(n, w, 8) * weights).sum(dim=-1).to(torch.uint8)
+    w = -(-d_rot // 2)
+    step = 4.0 / 15.0
+    lev = torch.clamp(torch.round(r / (scales[:, None] * step) + 7.5), 0, 15)
+    lev = torch.nn.functional.pad(lev, (0, w * 2 - d_rot)).to(torch.uint8)
+    return lev[:, 0::2] | (lev[:, 1::2] << 4)
+
+
+def _sig_nibble_lut(r, fast_scan: str, sig_words: int):
+    """Per-(query, probe) nibble LUT of the signature scan: raw rotated
+    residuals r (..., d_rot) -> (..., sig_words, 32), [..., :16] scoring
+    the high nibble of each packed byte and [..., 16:] the low one (the
+    split pq8 layout the scan takes): the scan sums <r, σ> (1bit, σ = ±1)
+    or <r, level> (4bit); padding dims contribute 0."""
+    d_rot = r.shape[-1]
+    if fast_scan == "1bit":
+        rp = torch.nn.functional.pad(r, (0, sig_words * 8 - d_rot))
+        r8 = rp.reshape(*r.shape[:-1], sig_words, 8)
+        v = torch.arange(16, device=r.device)
+        b = torch.arange(4, device=r.device)
+        pm = (2 * ((v[:, None] >> b[None, :]) & 1) - 1).to(torch.float32)
+        with full_f32():
+            lut_lo = torch.einsum("...wb,vb->...wv", r8[..., 0:4], pm)
+            lut_hi = torch.einsum("...wb,vb->...wv", r8[..., 4:8], pm)
+        return torch.cat([lut_hi, lut_lo], dim=-1)
+    rp = torch.nn.functional.pad(r, (0, sig_words * 2 - d_rot))
+    r2 = rp.reshape(*r.shape[:-1], sig_words, 2)
+    levels = (torch.arange(16, dtype=torch.float32, device=r.device) - 7.5) * (4.0 / 15.0)
+    return torch.cat([r2[..., 1:2] * levels, r2[..., 0:1] * levels], dim=-1)
+
+
+def _pq_cross_consts(codes, codebooks, labels, per_cluster: bool):
     """Per-vector scan constant of split L2 scoring,
-    Σ_s 2·cb1[s, hi_s]·cb2[s, lo_s]: the cross term of |cb1 + cb2|² that the
-    separate hi / lo LUT halves cannot carry, paid once at encode time."""
+    Σ_s 2·cb1[s, hi_s]·cb2[s, lo_s] (per-cluster: from the vector's list's
+    codebook): the cross term of |cb1 + cb2|² that the separate hi / lo LUT
+    halves cannot carry, paid once at encode time."""
     cb = codebooks.to(torch.float32)
     with full_f32():
         x = 2.0 * torch.einsum("bhl,bgl->bhg", cb[:, :16], cb[:, 16:])
     xf = x.reshape(-1)           # flat b*256 + hi*16 + lo = b*256 + code
-    offs = torch.arange(codes.shape[1], device=codes.device) * 256
-    out = []
+    out = [torch.zeros((0,), dtype=torch.float32, device=codes.device)]
     for i in range(0, codes.shape[0], 65536):
-        out.append(xf[codes[i:i + 65536].to(torch.int64) + offs].sum(dim=1))
+        c = codes[i:i + 65536].to(torch.int64)
+        offs = (labels[i:i + 65536].to(torch.int64)[:, None] if per_cluster
+                else torch.arange(codes.shape[1], device=codes.device)) * 256
+        out.append(xf[c + offs].sum(dim=1))
     return torch.cat(out)
 
 
-def _encode(residuals, codebooks, tile: int):
+def _encode(residuals, codebooks, labels, per_cluster: bool, tile: int,
+            aniso_eta: float = 0.0):
     """Nearest codebook entry per subspace: residuals (n, pq_dim, pq_len),
-    codebooks (pq_dim, K, pq_len) -> (n, pq_dim) uint8, by argmin of
-    ``|c|² - 2·r·c`` over row tiles."""
+    codebooks (pq_dim, K, pq_len), or (n_lists, K, pq_len) taken by
+    ``labels`` when ``per_cluster``, -> (n, pq_dim) uint8, by argmin of
+    ``|c|² - 2·r·c`` over row tiles; ``aniso_eta > 0`` adds the anisotropic
+    surcharge (eta - 1)·(|r| - <u, c>)², u = r/|r|."""
     cb = codebooks.to(torch.float32)
-    cn = (cb * cb).sum(dim=-1)[None]
-    out = []
+    cn = (cb * cb).sum(dim=-1)
+    out = [torch.zeros((0, residuals.shape[1]), dtype=torch.uint8, device=cb.device)]
     for i in range(0, residuals.shape[0], tile):
+        rb = residuals[i:i + tile]
+        eq = "tsl,skl->tsk"
+        cbl, cnl = cb, cn[None]
+        if per_cluster:
+            lb = labels[i:i + tile].to(torch.int64)
+            eq, cbl, cnl = "tsl,tkl->tsk", cb[lb], cn[lb][:, None, :]
         with full_f32():
-            dots = torch.einsum("tsl,skl->tsk", residuals[i:i + tile], cb)
-        out.append(torch.argmin(cn - 2.0 * dots, dim=-1).to(torch.uint8))
-    if not out:
-        return torch.zeros((0, cb.shape[0]), dtype=torch.uint8, device=cb.device)
+            d2 = cnl - 2.0 * torch.einsum(eq, rb, cbl)
+        if aniso_eta > 0.0:
+            nrm = torch.sqrt(torch.clamp_min((rb * rb).sum(dim=-1), 1e-30))
+            with full_f32():
+                ucb = torch.einsum(eq, rb / nrm[..., None], cbl)
+            d2 = d2 + (aniso_eta - 1.0) * (nrm[..., None] - ucb) ** 2
+        out.append(torch.argmin(d2, dim=-1).to(torch.uint8))
     return torch.cat(out)
 
 
-def _fill_code_lists(codes, ids, labels, n_lists: int, capacity: int, consts=None):
-    """Scatter codes, ids (and split L2 constants) into padded lists, each
-    list's rows in input order."""
+def _fill_code_lists(codes, ids, labels, n_lists: int, capacity: int, consts=None,
+                     sig=None):
+    """Scatter codes, ids (and split L2 constants, and fast-scan signatures)
+    into padded lists, each list's rows in input order."""
     pos, counts = list_positions(labels, n_lists)
     lab, pos = labels.to(torch.int64), pos.to(torch.int64)
     dev = codes.device
@@ -371,13 +604,21 @@ def _fill_code_lists(codes, ids, labels, n_lists: int, capacity: int, consts=Non
     else:
         cbuf = torch.zeros((n_lists, capacity), dtype=torch.float32, device=dev)
         cbuf[lab, pos] = consts
-    return buf, idbuf, counts, cbuf
+    if sig is None:
+        sbuf = torch.zeros((n_lists, 0, 0), dtype=torch.uint8, device=dev)
+    else:
+        sbuf = torch.zeros((n_lists, capacity, sig.shape[1]), dtype=torch.uint8, device=dev)
+        sbuf[lab, pos] = sig
+    return buf, idbuf, counts, cbuf, sbuf
 
 
 def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfPqIndex:
     """Build the index (reference: ivf_pq::build, ivf_pq-inl.cuh:270) on the
-    handle's device."""
+    handle's device. int8 / uint8 datasets are ingested as float32 in the
+    signed domain (:func:`_resolve_pq_ingest`)."""
     res = res or default_resources()
+    if is_reader(dataset):
+        _not_ported("a chunked-reader dataset (the streamed build)")
     x = res.put(dataset)
     expects(x.ndim == 2, "dataset must be (n, d)")
     n, d = (int(s) for s in x.shape)
@@ -394,19 +635,7 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfPqIn
             "codebook_loss must be 'l2' or 'anisotropic', got %r", params.codebook_loss)
     expects(params.fast_scan in ("none", "1bit", "4bit"),
             "fast_scan must be 'none', '1bit' or '4bit', got %r", params.fast_scan)
-    if params.codebook_kind != "per_subspace":
-        _not_ported(f"codebook_kind={params.codebook_kind!r}")
-    if params.residual_scale_norm:
-        _not_ported("residual_scale_norm")
-    if params.rotation != "none":
-        _not_ported("rotation='opq'")
-    if params.codebook_loss != "l2":
-        _not_ported("codebook_loss='anisotropic'")
-    if params.fast_scan != "none":
-        _not_ported(f"fast_scan={params.fast_scan!r}")
-    if not x.dtype.is_floating_point:
-        _not_ported(f"a {x.dtype} dataset")
-    x = x.to(torch.float32)
+    data_kind, x = _resolve_pq_ingest(x, mt)
     dev = x.device
     pq_dim = params.pq_dim or _default_pq_dim(d, params.pq_bits)
     pq_len = -(-d // pq_dim)
@@ -435,21 +664,85 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfPqIn
     xt = x[torch.randperm(n, generator=g, device=dev)[:n_train]] if n_train < n else x
     tile = _choose_tile(n_train, params.n_lists, 1, res.workspace_bytes)
     labels = assign_to_lists(xt, centers, mt, tile)
+    lab = labels.to(torch.int64)
     with full_f32():
-        resid = (xt - centers[labels.to(torch.int64)]) @ rotation.T
+        resid = (xt - centers[lab]) @ rotation.T
     del xt
-    sub = resid.reshape(n_train, pq_dim, pq_len).transpose(0, 1).contiguous()
-    del resid
+    resid = resid.reshape(n_train, pq_dim, pq_len)
+    list_scales = torch.zeros((0,), dtype=torch.float32, device=dev)
+    if params.residual_scale_norm:
+        # codebooks train on unit-scale residuals; encode and search apply
+        # each list's scale
+        list_scales = _per_list_residual_scales(resid, labels, params.n_lists)
+        resid = resid / list_scales[lab][:, None, None]
 
-    # 4. per-subspace codebooks (ref train_per_subset :343)
     split_pref = (params.pq8_split if params.pq8_split is not None
                   else mt != DistanceType.InnerProduct)
     split = params.pq_bits == 8 and bool(split_pref)
-    if split:
-        codebooks = _train_split_codebooks(sub, g, params.kmeans_n_iters)
-    else:
-        codebooks = _train_codebooks_batched(sub, g, n_codes, params.kmeans_n_iters)
-    del sub
+    # 3b. a learned rotation, folded into the index's (orthogonal, so the
+    # list scales stay valid)
+    if params.rotation == "opq":
+        r_opq = _train_opq_rotation(resid.reshape(n_train, d_rot), g, pq_dim,
+                                    16 if split else n_codes,
+                                    min(params.kmeans_n_iters, 10), int(params.opq_rounds),
+                                    min(int(params.opq_batch_rows), n_train))
+        with full_f32():
+            rotation = r_opq @ rotation
+            centers_rot = centers @ rotation.T
+            resid = (resid.reshape(n_train, d_rot) @ r_opq.T).reshape(n_train, pq_dim, pq_len)
+
+    # 4. codebooks (ref train_per_subset :343 / train_per_cluster :424)
+    aniso_eta = 0.0
+    if params.codebook_loss == "anisotropic":
+        expects(not split, "codebook_loss='anisotropic' needs a joint codebook — "
+                "nibble-split pq8 trains a two-stage residual quantizer (set "
+                "pq8_split=False or pq_bits < 8)")
+        aniso_eta = float(params.anisotropic_eta or _default_aniso_eta(d_rot))
+
+    def train(pools):
+        if split:
+            return _train_split_codebooks(pools, g, params.kmeans_n_iters)
+        if aniso_eta > 0.0:
+            return _train_codebooks_aniso(pools, g, n_codes, params.kmeans_n_iters, aniso_eta)
+        return _train_codebooks_batched(pools, g, n_codes, params.kmeans_n_iters)
+
+    kind = params.codebook_kind
+    if kind != "per_cluster":
+        codebooks = train(resid.transpose(0, 1).contiguous())
+        # "auto" trial-trains per-cluster codebooks on the largest clusters
+        # and takes them where they quantize markedly better
+        if kind == "auto":
+            if params.n_lists >= 16 and n_train >= 4 * params.n_lists:
+                ratio = _per_cluster_gain(resid, labels, codebooks, split, g,
+                                          min(params.kmeans_n_iters, 10))
+                if ratio < 0.9:
+                    logger.info("ivf_pq auto codebooks: per-cluster trial error is %.2fx "
+                                "per-subspace — training per-cluster codebooks", ratio)
+                    kind = "per_cluster"
+                else:
+                    logger.info("ivf_pq auto codebooks: per-cluster trial gains little "
+                                "(%.2fx) — keeping per-subspace codebooks", ratio)
+            if kind == "auto":
+                kind = "per_subspace"
+    if kind == "per_cluster":
+        # each cluster's members' subvectors, padded by wraparound to one size
+        counts = torch.bincount(lab, minlength=params.n_lists)
+        pool_cap = round_up(max(int(counts.max()), n_codes), 8)
+        starts = torch.cumsum(counts, 0) - counts
+        offs = (torch.arange(pool_cap, device=dev)[None, :]
+                % torch.clamp_min(counts, 1)[:, None])
+        rows = torch.argsort(lab, stable=True)[(starts[:, None] + offs).clamp_max(n_train - 1)]
+        codebooks = train(resid.reshape(n_train, d_rot)[rows].reshape(
+            params.n_lists, pool_cap * pq_dim, pq_len))
+
+    # 5. the fast-scan tier's decode scales, from the raw rotated residuals
+    sig_scales = torch.zeros((0,), dtype=torch.float32, device=dev)
+    if params.fast_scan != "none":
+        raw = resid.reshape(n_train, d_rot)
+        if params.residual_scale_norm:
+            raw = raw * list_scales[lab][:, None]
+        sig_scales = _per_list_sig_scales(raw, labels, params.n_lists, params.fast_scan)
+    del resid
 
     index = IvfPqIndex(
         centers=centers, centers_rot=centers_rot, rotation=rotation,
@@ -457,8 +750,13 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfPqIn
         list_codes=torch.zeros((params.n_lists, 0, pq_dim), dtype=torch.uint8, device=dev),
         list_ids=torch.zeros((params.n_lists, 0), dtype=torch.int32, device=dev),
         list_sizes=torch.zeros((params.n_lists,), dtype=torch.int32, device=dev),
-        metric=mt, codebook_kind="per_subspace", pq_bits=params.pq_bits,
-        split_factor=params.split_factor, pq_split=split)
+        list_scales=list_scales,
+        list_sig=torch.zeros((params.n_lists, 0, _sig_words(d_rot, params.fast_scan)),
+                             dtype=torch.uint8, device=dev),
+        sig_scales=sig_scales, metric=mt, codebook_kind=kind, pq_bits=params.pq_bits,
+        split_factor=params.split_factor, pq_split=split, data_kind=data_kind,
+        rotation_kind=params.rotation, codebook_loss=params.codebook_loss,
+        fast_scan=params.fast_scan)
     if not params.add_data_on_build:
         return index
     return _extend_f32(index, x, torch.arange(n, dtype=torch.int32, device=dev), res=res)
@@ -467,22 +765,23 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfPqIn
 def extend(index: IvfPqIndex, new_vectors, new_ids=None, res: Resources | None = None,
            split_factor: float | None = None) -> IvfPqIndex:
     """Encode and append vectors (reference: ivf_pq::extend). Returns a new
-    index on the index's device; ids default to ``index.size + arange``."""
-    _check_supported(index)
-    if index.codebook_loss != "l2":
-        _not_ported("extending an index with anisotropic codebooks")
-    if index.has_fast_scan:
-        _not_ported("extending an index with a fast-scan tier")
+    index on the index's device; ids default to ``index.size + arange``. A
+    byte index takes vectors of its original dtype only."""
+    if is_reader(new_vectors):
+        _not_ported("a chunked-reader batch (the streamed extend)")
     x = torch.as_tensor(new_vectors)
-    if not x.dtype.is_floating_point:
-        _not_ported(f"{x.dtype} vectors")
+    if index.data_kind in ("int8", "uint8"):
+        expects(_dtype_name(x) == index.data_kind, "this index stores %s vectors; got %s",
+                index.data_kind, _dtype_name(x))
+        x = _as_signed(x)
     return _extend_f32(index, x.to(device=index.device, dtype=torch.float32), new_ids,
                        res=res, split_factor=split_factor)
 
 
 def _extend_f32(index: IvfPqIndex, x, new_ids=None, res: Resources | None = None,
                 split_factor: float | None = None) -> IvfPqIndex:
-    """extend() for float32 vectors already on the index's device."""
+    """extend() for float32 vectors in the index's working domain, already
+    on its device."""
     res = res or default_resources()
     _check_split_consts(index)
     expects(x.ndim == 2 and x.shape[1] == index.dim, "vector dim mismatch")
@@ -496,19 +795,31 @@ def _extend_f32(index: IvfPqIndex, x, new_ids=None, res: Resources | None = None
 
     tile = _choose_tile(n_new, index.n_lists, 1, res.workspace_bytes)
     labels = assign_to_lists(x, index.centers, index.metric, tile)
+    lab = labels.to(torch.int64)
     with full_f32():
-        resid = (x - index.centers[labels.to(torch.int64)]) @ index.rotation.T
+        resid = (x - index.centers[lab]) @ index.rotation.T
+    # signatures pack the raw rotated residual
+    sig = (_encode_sig(resid, index.sig_scales[lab], index.fast_scan)
+           if index.has_fast_scan else None)
     resid = resid.reshape(n_new, index.pq_dim, index.pq_len)
+    if index.scale_normed:
+        resid = resid / index.list_scales[lab][:, None, None]
+    per_cluster = index.codebook_kind == "per_cluster"
     # split indexes encode against the composed 256-entry codebook, whose
     # flat index is hi*16 + lo
     enc_cb = _composed_codebooks(index.codebooks) if index.pq_split else index.codebooks
     n_codes = enc_cb.shape[-2]
     enc_tile = max(min(n_new, res.workspace_bytes // max(index.pq_dim * n_codes * 4, 1)), 8)
-    codes = _encode(resid, enc_cb, min(enc_tile, 8192))
+    codes = _encode(resid, enc_cb, labels, per_cluster, min(enc_tile, 8192),
+                    _default_aniso_eta(index.rot_dim)
+                    if index.codebook_loss == "anisotropic" else 0.0)
     del resid
     consts = None
     if index.pq_split and index.metric != DistanceType.InnerProduct:
-        consts = _pq_cross_consts(codes, index.codebooks)
+        consts = _pq_cross_consts(codes, index.codebooks, labels, per_cluster)
+        if index.scale_normed:
+            # the stored cross term enters the score raw: s² folds in here
+            consts = consts * index.list_scales[lab] ** 2
 
     if index.capacity > 0 and index.size > 0:
         old = index.list_ids.reshape(-1) >= 0
@@ -519,23 +830,28 @@ def _extend_f32(index: IvfPqIndex, x, new_ids=None, res: Resources | None = None
         labels = torch.cat([old_labels, labels])
         if consts is not None:
             consts = torch.cat([index.list_consts.reshape(-1)[old], consts])
+        if sig is not None:
+            sig = torch.cat([index.list_sig.reshape(-1, sig.shape[1])[old], sig])
 
     # the capacity policy: oversized lists split into sub-lists that share
-    # their parent's center (and rotated center), so the codes stay valid
+    # their parent's center, rotated center, per-cluster codebook, residual
+    # scale and signature scale, so the codes stay valid
     sf = index.split_factor if split_factor is None else split_factor
     labels, rep, n_lists, capacity, _ = bound_capacity(labels, index.n_lists, sf)
-    centers, centers_rot = index.centers, index.centers_rot
+    per_list = {"centers": index.centers, "centers_rot": index.centers_rot}
+    if per_cluster:
+        per_list["codebooks"] = index.codebooks
+    if index.scale_normed:
+        per_list["list_scales"] = index.list_scales
+    if index.has_fast_scan:
+        per_list["sig_scales"] = index.sig_scales
     if rep is not None:
         reps = torch.from_numpy(rep).to(dev)
-        centers = centers.repeat_interleave(reps, dim=0)
-        centers_rot = centers_rot.repeat_interleave(reps, dim=0)
-    buf, idbuf, sizes, cbuf = _fill_code_lists(codes, new_ids, labels, n_lists,
-                                               capacity, consts)
-    return dataclasses.replace(
-        index, centers=centers, centers_rot=centers_rot, list_codes=buf,
-        list_ids=idbuf, list_sizes=sizes, list_consts=cbuf,
-        list_sig=torch.zeros((n_lists, 0, 0), dtype=torch.uint8, device=dev),
-        split_factor=sf)
+        per_list = {name: a.repeat_interleave(reps, dim=0) for name, a in per_list.items()}
+    buf, idbuf, sizes, cbuf, sbuf = _fill_code_lists(codes, new_ids, labels, n_lists,
+                                                     capacity, consts, sig)
+    return dataclasses.replace(index, list_codes=buf, list_ids=idbuf, list_sizes=sizes,
+                               list_consts=cbuf, list_sig=sbuf, split_factor=sf, **per_list)
 
 
 def resolve_scan_impl(params: SearchParams, index: IvfPqIndex, n_codes: int) -> str:
@@ -650,20 +966,36 @@ def _codebooks_f32(index: IvfPqIndex):
 
 def _probe_luts(index: IvfPqIndex, qrot, pc, cb, cb_n2):
     """LUT (T, pc, pq_dim, K) and bias (T, pc) of each (query, probe) pair
-    (ref ivfpq_search_worker :419): for L2, ``|c|² - 2·r·c`` over the
-    rotated residual r = q_rot - c_rot and the bias Σ_s |r_s|²; for inner
-    product, ``q_rot·c`` and the bias q_rot·c_rot."""
+    (ref ivfpq_search_worker :419; the JAX package's order, ivf_pq.py
+    :1660-1703): for L2, ``|c|² - 2·r·c`` over the rotated residual
+    r = q_rot - c_rot and the bias Σ_s |r_s|²; for inner product,
+    ``q_rot·c`` and the bias q_rot·c_rot. Per-cluster codebooks are the
+    probed list's; with per-list residual scales s, r is divided by s
+    before the products, the bias stays raw, and the LUT is multiplied by
+    s² (L2) or s (inner product)."""
     t, p = pc.shape
     pq_dim, pq_len = index.pq_dim, index.pq_len
     crot = index.centers_rot[pc]                          # (T, pc, d_rot)
+    sc = index.list_scales[pc] if index.scale_normed else None
+    per_cluster = index.codebook_kind == "per_cluster"
+    eq = "tpsl,tpkl->tpsk" if per_cluster else "tpsl,skl->tpsk"
+    cbl = cb[pc] if per_cluster else cb
     with full_f32():
         if index.metric == DistanceType.InnerProduct:
             qs = qrot.reshape(t, 1, pq_dim, pq_len).expand(t, p, pq_dim, pq_len)
-            return (torch.einsum("tpsl,skl->tpsk", qs, cb),
-                    torch.einsum("td,tpd->tp", qrot, crot))
+            lut = torch.einsum(eq, qs, cbl)
+            if sc is not None:
+                lut = lut * sc[:, :, None, None]
+            return lut, torch.einsum("td,tpd->tp", qrot, crot)
         r = (qrot[:, None, :] - crot).reshape(t, p, pq_dim, pq_len)
-        return (cb_n2[None, None] - 2.0 * torch.einsum("tpsl,skl->tpsk", r, cb),
-                (r * r).sum(dim=(2, 3)))
+        bias = (r * r).sum(dim=(2, 3))
+        if sc is not None:
+            r = r / sc[:, :, None, None]
+        cnl = cb_n2[pc][:, :, None, :] if per_cluster else cb_n2[None, None]
+        lut = cnl - 2.0 * torch.einsum(eq, r, cbl)
+        if sc is not None:
+            lut = lut * (sc * sc)[:, :, None, None]
+        return lut, bias
 
 
 def _fuses_scan_and_select(index: IvfPqIndex, scan_impl: str, select_impl: str, pc: int,
@@ -683,76 +1015,269 @@ def _fuses_scan_and_select(index: IvfPqIndex, scan_impl: str, select_impl: str, 
     return pq_scan_topk_fits(index.pq_dim, index.pq_split, _lut_type(lut_dtype), pc)
 
 
+def _finish(index: IvfPqIndex, dists, idx, empty=None):
+    """The square root of an L2Sqrt index's distances, and id -1 wherever
+    ``empty(dists)`` holds: ``torch.isinf`` after a filtered tiled search,
+    not finite after the grouped order (the JAX package's two tails)."""
+    if index.metric in _SQRT_METRICS:
+        dists = torch.where(torch.isfinite(dists),
+                            torch.sqrt(torch.clamp_min(dists, 0.0)), dists)
+    if empty is not None:
+        idx = torch.where(empty(dists), -1, idx)
+    return dists, idx
+
+
+def _tiled(index: IvfPqIndex, queries, n_probes: int, k: int, query_tile: int,
+           probe_chunk: int, select_impl: str, keep_mask, chunk_step):
+    """The tile and chunk loop shared by the tiled search and the funnel: the
+    coarse probes and the rotated queries, then per tile of ``query_tile``
+    queries ``chunk_step(qrot_tile, probes_chunk) -> (values, ids)`` over
+    chunks of ``probe_chunk`` probes; a tile of one chunk keeps that
+    chunk's k, a tile of several merges them."""
+    inner = index.metric == DistanceType.InnerProduct
+    qf = queries.to(torch.float32)
+    probes = _coarse_probes(index, qf, n_probes)
+    with full_f32():
+        qrot = qf @ index.rotation.T
+    dists, idx = [], []
+    for t0 in range(0, qf.shape[0], query_tile):
+        q = qrot[t0:t0 + query_tile]
+        pr = probes[t0:t0 + query_tile].to(torch.int64)
+        parts = [chunk_step(q, pr[:, c0:c0 + probe_chunk])
+                 for c0 in range(0, n_probes, probe_chunk)]
+        v, i = parts[0]
+        if len(parts) > 1:
+            v, i = select_k_impl(torch.cat([p[0] for p in parts], dim=1),
+                                 torch.cat([p[1] for p in parts], dim=1), k, not inner,
+                                 impl=select_impl)
+        dists.append(v)
+        idx.append(i)
+    return _finish(index, torch.cat(dists), torch.cat(idx),
+                   torch.isinf if keep_mask is not None else None)
+
+
 def _pq_search(index: IvfPqIndex, queries, n_probes: int, k: int, query_tile: int,
                probe_chunk: int, lut_dtype: str, scan_impl: str,
-               select_impl: str = "auto"):
+               select_impl: str = "auto", keep_mask=None):
     """The tiled search (the JAX package's ``_pq_search``). A chunk step
-    either runs ``pq_scan_topk`` (:func:`_fuses_scan_and_select`) or scans,
-    adds the bias (and split L2's constants), masks empty slots and selects;
-    a tile of one chunk keeps that chunk's k, a tile of several merges them."""
+    either runs ``pq_scan_topk`` (:func:`_fuses_scan_and_select`, with the
+    filter as its packed bitset) or scans, adds the bias (and split L2's
+    constants), masks empty and filtered slots and selects."""
+    from ..ops.pq_scan import pack_keep_words, pq_scan_topk
+
+    inner = index.metric == DistanceType.InnerProduct
+    cb, cb_n2 = _codebooks_f32(index)
+    bad = -math.inf if inner else math.inf
+    consts = index.list_consts if index.pq_split and not inner else None
+    fused = _fuses_scan_and_select(index, scan_impl, select_impl, probe_chunk, k, lut_dtype)
+    keep_words = pack_keep_words(keep_mask) if fused and keep_mask is not None else None
+
+    def chunk_step(q, pc):
+        lut, bias = _probe_luts(index, q, pc, cb, cb_n2)
+        if fused:
+            return pq_scan_topk(index.list_codes, index.list_ids, pc.to(torch.int32).contiguous(),
+                                lut.to(_lut_type(lut_dtype)).contiguous(), bias.contiguous(), k,
+                                not inner, split=index.pq_split, list_consts=consts,
+                                keep_words=keep_words)
+        scores = _scan(index, pc, lut, scan_impl, lut_dtype) + bias[:, :, None]
+        if consts is not None:
+            scores = scores + consts[pc]
+        ids = index.list_ids[pc]                          # (T, pc, cap)
+        scores = torch.where(ids >= 0, scores, bad)
+        if keep_mask is not None:
+            scores = apply_id_filter(scores, ids, keep_mask, not inner)
+        t = q.shape[0]
+        return select_k_impl(scores.reshape(t, -1), ids.reshape(t, -1), k, not inner,
+                             impl=select_impl)
+
+    return _tiled(index, queries, n_probes, k, query_tile, probe_chunk, select_impl, keep_mask,
+                  chunk_step)
+
+
+def _decode(index: IvfPqIndex, codes, lists, cb):
+    """Codewords (..., pq_dim, pq_len) of ``codes`` (..., pq_dim) stored in
+    ``lists`` (...): cb[s, code] (split: cb1[hi] + cb2[lo]); per-cluster
+    codebooks are the list's."""
+    c = codes.to(torch.int64)
+    if index.codebook_kind == "per_cluster":
+        cbl = cb[lists.to(torch.int64)]                     # (..., K, L)
+
+        def take(col):
+            return torch.gather(cbl, -2, col[..., None].expand(*col.shape, cbl.shape[-1]))
+    else:
+        s = torch.arange(index.pq_dim, device=c.device)
+
+        def take(col):
+            return cb[s, col]
+    if index.pq_split:
+        return take(c >> 4) + take(16 + (c & 15))
+    return take(c)
+
+
+def _pq_search_funnel(index: IvfPqIndex, queries, n_probes: int, k: int, k_widen: int,
+                      query_tile: int, probe_chunk: int, lut_dtype: str,
+                      select_impl: str = "auto", keep_mask=None):
+    """The quantization funnel (the JAX package's ``_pq_search_funnel``):
+    per chunk, the signature estimator over every probed slot (the
+    ``pq_scan`` kernel over ``list_sig`` with the nibble LUT of
+    :func:`_sig_nibble_lut`), the best ``k_widen`` flat positions, those
+    survivors re-scored exactly against their decoded PQ codes, and the k
+    best kept; the chunks merge as in :func:`_pq_search`. Estimator-filtered
+    survivors keep their ±inf score."""
+    from ..ops.pq_scan import pq_scan
+
+    inner = index.metric == DistanceType.InnerProduct
+    d_rot, cap = index.rot_dim, index.capacity
+    sig_w = index.list_sig.shape[2]
+    cb = index.codebooks.to(torch.float32)
+    bad = -math.inf if inner else math.inf
+
+    def chunk_step(q, pc):
+        t, p = pc.shape
+        crot = index.centers_rot[pc]
+        ids = index.list_ids[pc]
+        ss = index.sig_scales[pc]
+        # stage A, in the raw residual domain the signature scales were fit
+        # in: L2 est = |r|² + s²·d_rot - 2·s·raw, IP est = q·c + s·raw
+        r = q[:, None, :].expand(t, p, d_rot) if inner else q[:, None, :] - crot
+        slut = _sig_nibble_lut(r, index.fast_scan, sig_w)
+        raw = pq_scan(index.list_sig, pc.reshape(-1).to(torch.int32).contiguous(),
+                      slut.reshape(t * p, sig_w, 32).to(_lut_type(lut_dtype)).contiguous(),
+                      split=True).reshape(t, p, cap)
+        with full_f32():
+            if inner:
+                est = torch.einsum("td,tpd->tp", q, crot)[:, :, None] + ss[:, :, None] * raw
+            else:
+                est = (((r * r).sum(dim=-1) + ss * ss * d_rot)[:, :, None]
+                       - 2.0 * ss[:, :, None] * raw)
+        est = torch.where(ids >= 0, est, bad)
+        if keep_mask is not None:
+            est = apply_id_filter(est, ids, keep_mask, not inner)
+        est_sel, pos_sel = select_k_impl(est.reshape(t, -1), None, k_widen, not inner,
+                                         impl=select_impl)
+        pos_sel = pos_sel.to(torch.int64)
+        list_sel = torch.gather(pc, 1, pos_sel // cap)      # (T, kw)
+        slot_sel = pos_sel % cap
+        # stage B: the survivors' exact PQ scores by direct decode
+        dec = _decode(index, index.list_codes[list_sel, slot_sel], list_sel[..., None],
+                      cb).reshape(t, -1, d_rot)
+        if index.scale_normed:
+            dec = dec * index.list_scales[list_sel][..., None]
+        crot_sel = index.centers_rot[list_sel]
+        with full_f32():
+            if inner:
+                score = torch.einsum("td,twd->tw", q, crot_sel + dec)
+            else:
+                score = (q[:, None, :] - crot_sel - dec).square().sum(dim=-1)
+        score = torch.where(torch.isfinite(est_sel), score, est_sel)
+        return select_k_impl(score, index.list_ids[list_sel, slot_sel], k, not inner,
+                             impl=select_impl)
+
+    return _tiled(index, queries, n_probes, k, query_tile, probe_chunk, select_impl, keep_mask,
+                  chunk_step)
+
+
+def _pq_search_grouped(index: IvfPqIndex, queries, n_probes: int, k: int, lut_dtype: str,
+                       group_size: int = 16, group_chunk: int = 32,
+                       select_impl: str = "auto", keep_mask=None):
+    """The probe-major order (the JAX package's ``_pq_search_grouped``): the
+    batch's (query, probe) pairs sorted by list (stably, so each list's
+    pairs keep their order) and cut into groups of ``group_size`` pairs of
+    one list; a group scores the list's one-hot codes against all its
+    pairs' LUTs in one product and selects k per pair. The pairs' answers
+    go back to their queries in probe order and merge there, so ties fall
+    as in the tiled order. Slots are laid out as in the JAX package, which
+    pads them to a static bound; here only to the groups the batch has."""
     m = queries.shape[0]
     qf = queries.to(torch.float32)
     inner = index.metric == DistanceType.InnerProduct
+    n_lists, cap, pq_dim = index.n_lists, index.capacity, index.pq_dim
+    n_codes = index.codebooks.shape[-2]
+    g_sz, dev = group_size, qf.device
     probes = _coarse_probes(index, qf, n_probes)
     with full_f32():
         qrot = qf @ index.rotation.T
     cb, cb_n2 = _codebooks_f32(index)
     bad = -math.inf if inner else math.inf
-    consts = index.list_consts if index.pq_split and not inner else None
-    fused = _fuses_scan_and_select(index, scan_impl, select_impl, probe_chunk, k, lut_dtype)
-    dists, idx = [], []
-    for t0 in range(0, m, query_tile):
-        q = qrot[t0:t0 + query_tile]
-        pr = probes[t0:t0 + query_tile].to(torch.int64)
-        t = q.shape[0]
-        cvs, cis = [], []
-        for c0 in range(0, n_probes, probe_chunk):
-            pc = pr[:, c0:c0 + probe_chunk]               # (T, pc)
-            lut, bias = _probe_luts(index, q, pc, cb, cb_n2)
-            if fused:
-                from ..ops.pq_scan import pq_scan_topk
 
-                v, i = pq_scan_topk(index.list_codes, index.list_ids,
-                                    pc.to(torch.int32).contiguous(),
-                                    lut.to(_lut_type(lut_dtype)).contiguous(),
-                                    bias.contiguous(), k, not inner, split=index.pq_split,
-                                    list_consts=consts)
-            else:
-                scores = _scan(index, pc, lut, scan_impl, lut_dtype) + bias[:, :, None]
-                if consts is not None:
-                    scores = scores + consts[pc]
-                ids = index.list_ids[pc]                  # (T, pc, cap)
-                scores = torch.where(ids >= 0, scores, bad)
-                v, i = select_k_impl(scores.reshape(t, -1), ids.reshape(t, -1), k,
-                                     not inner, impl=select_impl)
-            cvs.append(v)
-            cis.append(i)
-        if len(cvs) > 1:
-            v, i = select_k_impl(torch.cat(cvs, dim=1), torch.cat(cis, dim=1), k,
-                                 not inner, impl=select_impl)
-        dists.append(v)
-        idx.append(i)
-    dists = torch.cat(dists)
-    if index.metric in _SQRT_METRICS:
-        dists = torch.where(torch.isfinite(dists),
-                            torch.sqrt(torch.clamp_min(dists, 0.0)), dists)
-    return dists, torch.cat(idx)
+    # pair grouping: sorted pair j sits at slot slot_sorted[j] of its list's
+    # padded run
+    mp = m * n_probes
+    pairs = probes.reshape(-1).to(torch.int64)
+    order = torch.argsort(pairs, stable=True)
+    sorted_list = pairs[order]
+    counts = torch.bincount(pairs, minlength=n_lists)
+    padded = -(-counts // g_sz) * g_sz
+    pstart = torch.cumsum(padded, 0) - padded
+    starts = torch.cumsum(counts, 0) - counts
+    slot_sorted = pstart[sorted_list] + torch.arange(mp, device=dev) - starts[sorted_list]
+    n_groups = int(padded.sum()) // g_sz
+    n_slots = -(-n_groups // group_chunk) * group_chunk * g_sz
+    all_slots = torch.arange(n_slots, device=dev)
+    j_of_slot = torch.searchsorted(slot_sorted, all_slots)
+    jc = j_of_slot.clamp_max(mp - 1)
+    slot_live = (j_of_slot < mp) & (slot_sorted[jc] == all_slots)
+    l_of_slot = torch.searchsorted(pstart + padded, all_slots, right=True).clamp_max(n_lists - 1)
+    q_of_slot = torch.where(slot_live, order[jc] // n_probes, 0)
+
+    ar = torch.arange(16 if index.pq_split else n_codes, device=dev).to(torch.uint8)
+    consts = index.list_consts if index.pq_split and not inner else None
+    per = group_chunk * g_sz
+    slot_v, slot_i = [], []
+    for s0 in range(0, n_slots, per):
+        qs, ls = q_of_slot[s0:s0 + per], l_of_slot[s0:s0 + per]
+        lg = ls.reshape(group_chunk, g_sz)[:, 0]
+        lut, bias = _probe_luts(index, qrot[qs], ls[:, None], cb, cb_n2)
+        lutf = lut.reshape(group_chunk, g_sz, pq_dim * lut.shape[-1]).to(torch.float32)
+        codes = index.list_codes[lg][..., None]           # (Gc, cap, pq_dim, 1)
+        oh = (torch.cat([(codes >> 4) == ar, (codes & 15) == ar], dim=-1) if index.pq_split
+              else codes == ar).reshape(group_chunk, cap, -1).to(torch.float32)
+        scale = None
+        if lut_dtype == "int8":
+            scale = torch.clamp_min(lutf.abs().amax(dim=2, keepdim=True), 1e-30) / 127.0
+            lutf = torch.clamp(torch.round(lutf / scale), -127, 127)
+        elif lut_dtype == "bfloat16":
+            lutf = lutf.to(torch.bfloat16).to(torch.float32)
+        with full_f32():
+            scores = torch.bmm(oh, lutf.transpose(1, 2))  # (Gc, cap, G)
+        if scale is not None:
+            scores = scores * scale.transpose(1, 2)
+        scores = scores + bias.reshape(group_chunk, 1, g_sz)
+        if consts is not None:
+            scores = scores + consts[lg][:, :, None]
+        ids = index.list_ids[lg]
+        scores = torch.where(ids[:, :, None] >= 0, scores, bad)
+        sc_t = scores.transpose(1, 2).reshape(per, cap)
+        ids_t = ids[:, None, :].expand(group_chunk, g_sz, cap).reshape(per, cap)
+        if keep_mask is not None:
+            sc_t = apply_id_filter(sc_t, ids_t, keep_mask, not inner)
+        sv, si = select_k_impl(sc_t, ids_t, k, not inner, impl=select_impl)
+        live = slot_live[s0:s0 + per, None]
+        slot_v.append(torch.where(live, sv, bad))
+        slot_i.append(torch.where(live, si, -1))
+    # un-sort: slots -> sorted pairs -> pairs in probe order, merged per query
+    inv = torch.argsort(order)
+    pv = torch.cat(slot_v)[slot_sorted][inv].reshape(m, n_probes * k)
+    pi = torch.cat(slot_i)[slot_sorted][inv].reshape(m, n_probes * k)
+    dists, idx = select_k_impl(pv, pi, k, not inner, impl=select_impl)
+    return _finish(index, dists, idx, lambda d: ~torch.isfinite(d))
 
 
 def search(params: SearchParams, index: IvfPqIndex, queries, k: int,
            sample_filter=None, res: Resources | None = None):
-    """Search (reference: ivf_pq::search :723). Returns (distances (m, k)
-    float32, ids (m, k) int32) on the index's device; distances are the
-    PQ-quantized ones, id -1 marks empty candidate slots. A handle ``res``
+    """Search (reference: ivf_pq::search :723, the filtered overload
+    search_with_filtering). Returns (distances (m, k) float32, ids (m, k)
+    int32) on the index's device; distances are the PQ-quantized ones, id
+    -1 marks empty candidate slots and, with ``sample_filter`` (a keep-mask
+    or BitsetFilter over ids), filtered ones. A byte index takes queries of
+    its dtype (or float queries in its original domain). A handle ``res``
     that names another device than the index's raises."""
     if res is not None:
         res.check_holds(index.device, "the ivf_pq index")
     res = res or default_resources()
-    if sample_filter is not None:
-        _not_ported("sample_filter")
     queries = torch.as_tensor(queries).to(index.device)
     expects(queries.ndim == 2 and queries.shape[1] == index.dim, "query dim mismatch")
-    _check_supported(index)
+    queries = _coerce_queries(index.data_kind, queries)
     expects(index.capacity > 0, "index is empty")
     _check_split_consts(index)
     expects(index.size > 0, "index is empty")
@@ -769,21 +1294,69 @@ def search(params: SearchParams, index: IvfPqIndex, queries, k: int,
 
         expects(k <= TOPK_MAX_K, "select_impl='pallas' selects with the topk kernel: "
                 "k=%d must be <= %d", k, TOPK_MAX_K)
-    expects(int(params.funnel_widen) >= 1, "funnel_widen must be >= 1, got %d",
-            params.funnel_widen)
-    if params.funnel_widen > 1:
-        _not_ported("the fast-scan funnel (funnel_widen > 1)")
-    expects(params.scan_order in ("auto", "tiled", "grouped"),
-            "scan_order must be 'auto', 'tiled' or 'grouped', got %r", params.scan_order)
-    if params.scan_order == "grouped":
-        _not_ported("scan_order='grouped'")
+    select_impl = _SELECT_IMPLS[params.select_impl]
+    widen = int(params.funnel_widen)
+    expects(widen >= 1, "funnel_widen must be >= 1, got %d", widen)
+    if widen > 1:
+        expects(index.has_fast_scan,
+                "funnel_widen=%d widens through the fast-scan tier, but this index carries "
+                "none — build with IndexParams.fast_scan='1bit'|'4bit'", widen)
+        bytes_per_probe_row = funnel_scan_bytes_per_probe_row(index.capacity,
+                                                              index.list_sig.shape[2])
+    else:
+        bytes_per_probe_row = pq_scan_bytes_per_probe_row(index.capacity, index.pq_dim,
+                                                          n_codes)
     query_tile, probe_chunk = plan_search_tiles(
         queries.shape[0], n_probes, int(k), index.capacity,
-        bytes_per_probe_row=pq_scan_bytes_per_probe_row(index.capacity, index.pq_dim,
-                                                        n_codes),
-        budget_bytes=res.workspace_bytes, max_query_tile=128)
+        bytes_per_probe_row=bytes_per_probe_row, budget_bytes=res.workspace_bytes,
+        max_query_tile=128)
+    keep_mask = resolve_filter(sample_filter, index.device)
+    if keep_mask is not None:
+        validate_filter_covers(index, keep_mask)
+    expects(params.scan_order in ("auto", "tiled", "grouped"),
+            "scan_order must be 'auto', 'tiled' or 'grouped', got %r", params.scan_order)
+    # the JAX package's "auto" scan is the one-hot contraction, which the
+    # funnel and the grouped order require; the port's "auto" takes the
+    # kernel where it can, so those two check the asked-for scan_impl
+    one_hot = params.scan_impl in ("auto", "onehot")
+    if widen > 1:
+        expects(params.scan_order != "grouped", "funnel_widen > 1 rides the tiled scan "
+                "order; set scan_order='tiled' (or 'auto')")
+        expects(one_hot, "funnel_widen > 1 implements the one-hot signature contraction; "
+                "set scan_impl='onehot' (or 'auto'; either runs the signature scan on the "
+                "pq_scan kernel here)")
+        expects(params.lut_dtype != "int8", "lut_dtype='int8' quantizes the PQ LUT; the "
+                "funnel's signature tier is already 1-4 bit — use float32/bfloat16")
+        # per-chunk widen pool: at least k, at most every slot the chunk scans
+        k_widen = max(int(k), min(widen * int(k), probe_chunk * index.capacity))
+        return _pq_search_funnel(index, queries, n_probes, int(k), k_widen, query_tile,
+                                 probe_chunk, params.lut_dtype, select_impl, keep_mask)
+    if params.scan_order == "grouped":
+        expects(k <= index.capacity, "scan_order='grouped' selects per (pair, list): k=%d "
+                "must be <= capacity=%d", k, index.capacity)
+        expects(one_hot, "scan_order='grouped' implements the one-hot contraction; set "
+                "scan_impl='onehot' (or 'auto')")
+        expects(1 <= params.group_size <= 1024,
+                "group_size must be in [1, 1024], got %d", params.group_size)
+        return _pq_search_grouped(index, queries, n_probes, int(k), params.lut_dtype,
+                                  int(params.group_size), select_impl=select_impl,
+                                  keep_mask=keep_mask)
     return _pq_search(index, queries, n_probes, int(k), query_tile, probe_chunk,
-                      params.lut_dtype, scan_impl, _SELECT_IMPLS[params.select_impl])
+                      params.lut_dtype, scan_impl, select_impl, keep_mask)
+
+
+def batched_searcher(index: IvfPqIndex, params: SearchParams | None = None):
+    """The serving hook (contract in :mod:`._hooks`): ``fn(queries, k) ->
+    (distances, ids)`` with ``kind``, ``dim`` and ``query_dtype``. An index
+    with a tune decision and no ``params`` would take its pinned operating
+    point from ``tune/``, which is not yet ported."""
+    from ._hooks import make_hook
+
+    if params is None and index.tuned is not None:
+        _not_ported("batched_searcher of a tuned index without params (tune.apply)")
+    sp = params or SearchParams()
+    return make_hook(lambda queries, k: search(sp, index, queries, k),
+                     "ivf_pq", index.dim, index.data_kind)
 
 
 def write_index(f, index: IvfPqIndex) -> None:

@@ -155,6 +155,7 @@ extern "C" int pq_scan_launch(int lut_dtype, int split, const void* codes,
 // probes in the chunk (p = 0 .. pc-1, flat position p * cap + j):
 //     score = (scan + bias[t, p]) + list_consts[l, j]   (consts: split L2)
 //     score = list_ids[l, j] < 0 ? bad : score          (bad = ±inf)
+//     score = keep bit of list_ids[l, j] clear ? bad : score   (a filter)
 // with scan summed as pq_scan's above, every add rounded alone (__fadd_rn),
 // and writes only the k best scores and their list_ids, best first. Ranking
 // is the topk kernel's: the key of select_block.cuh (clamp to ±2.9e38, -0
@@ -162,7 +163,16 @@ extern "C" int pq_scan_launch(int lut_dtype, int split, const void* codes,
 // are the scores' exact bits. ops/pq_scan.py's pq_scan_topk_plain is the same
 // composition in PyTorch (pq_scan_plain, the two adds, torch.where,
 // topk_plain), so the two agree bit for bit. A probed list id outside the
-// index makes all its slots bad, with id -1.
+// index makes all its slots bad, with id -1. A sample filter comes as keep,
+// a packed bitset of n_words words (bit i & 31 of word i >> 5 set when id i
+// is kept; an id past the last word is not kept; null keeps every id), and
+// is the JAX package's apply_id_filter on the chunk's
+// scores: a slot whose id's bit is clear scores bad exactly as an empty slot
+// does, and keeps its id (the search reports -1 wherever a returned value is
+// ±inf). The filter is a template flag, so the unfiltered kernel carries no
+// test; the filtered one loads a slot's keep word as soon as the tile's ids
+// (prefetched a tile ahead) come up and tests it after the tile's sums, so
+// the load's latency hides behind them.
 //
 // Design: the CUDA original's compute_similarity (IVF-PQ, LUT in shared
 // memory, a block-level top-k fused behind it) carried to Hopper.
@@ -203,7 +213,8 @@ extern "C" int pq_scan_launch(int lut_dtype, int split, const void* codes,
 // Bound at the main shape (128 queries x 8 probes of the 1M-row, 1,024-list
 // index, cap 1,272, S=64, bf16 LUT, k=40): the distinct probed lists' codes
 // (~298 lists, 24.3 MB) and their list_ids (1.5 MB), the LUTs (2.1 MB), bias
-// and output: ~28 MB, ~8.3 us at 3.35 TB/s, so bytes bound it (the 83.4M
+// and output: ~28 MB, ~8.3 us at 3.35 TB/s (a filter over 1M ids adds its
+// 125 KB bitset), so bytes bound it (the 83.4M
 // adds take ~1.2 us at 67 TFLOP/s). The shared-memory lookups set a floor the
 // bytes bound does not show: 83.4M lookups at one 32-lane shared load per SM
 // per clock is ~10 us on 132 SMs.
@@ -293,10 +304,11 @@ struct Cursor {
   }
 };
 
-template <typename LutT, bool SPLIT, bool STAGED>
+template <typename LutT, bool SPLIT, bool STAGED, bool FILTER>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 2)
 pq_scan_topk_kernel(const uint8_t* __restrict__ codes, const int* __restrict__ list_ids,
-                    const float* __restrict__ consts, const int* __restrict__ probe_lists,
+                    const float* __restrict__ consts, const uint32_t* __restrict__ keep,
+                    int n_words, const int* __restrict__ probe_lists,
                     const LutT* __restrict__ lut, const float* __restrict__ bias, int n_lists,
                     int cap, int S, int lcps, int pc, int k, int select_min,
                     float* __restrict__ out_v, int* __restrict__ out_i) {
@@ -377,10 +389,13 @@ pq_scan_topk_kernel(const uint8_t* __restrict__ codes, const int* __restrict__ l
   for (int u = 0; u < U; ++u) {
     int id[SPT];
     float cst[SPT];
+    uint32_t kw[SPT];   // the slots' keep words (FILTER), tested after the sums
 #pragma unroll
     for (int e = 0; e < SPT; ++e) {
       id[e] = id_next[e];
       cst[e] = cst_next[e];
+      kw[e] = (FILTER && id[e] >= 0 && (id[e] >> 5) < n_words) ? __ldg(keep + (id[e] >> 5))
+                                                                : 0u;
     }
     Cursor nx = at;
     nx.next(cap);
@@ -441,7 +456,7 @@ pq_scan_topk_kernel(const uint8_t* __restrict__ codes, const int* __restrict__ l
     for (int e = 0; e < SPT; ++e) {
       const int j = at.j0 + e * THREADS + tid;
       float v = bad;
-      if (id[e] >= 0) {
+      if (id[e] >= 0 && (!FILTER || ((kw[e] >> (id[e] & 31)) & 1u))) {
         v = __fadd_rn(acc[e], pbias[p]);
         if (consts != nullptr) v = __fadd_rn(v, cst[e]);
       }
@@ -504,22 +519,24 @@ pq_scan_topk_kernel(const uint8_t* __restrict__ codes, const int* __restrict__ l
   }
 }
 
-template <typename LutT, bool SPLIT, bool STAGED>
-int launch(const void* codes, const void* list_ids, const void* consts, const void* probe_lists,
-           const void* lut, const void* bias, int T, int pc, int n_lists, int cap, int S, int k,
-           int select_min, float* out_v, int* out_i, cudaStream_t st) {
+template <typename LutT, bool SPLIT, bool STAGED, bool FILTER>
+int launch(const void* codes, const void* list_ids, const void* consts, const void* keep,
+           int n_words, const void* probe_lists, const void* lut, const void* bias, int T, int pc,
+           int n_lists, int cap, int S, int k, int select_min, float* out_v, int* out_i,
+           cudaStream_t st) {
   constexpr int K = SPLIT ? 32 : 16;
   int lcps = 0;
   while ((16 << lcps) < S) ++lcps;
   const Layout L(S, K, (int)sizeof(LutT), STAGED, pc);
   if ((size_t)L.total + sizeof(Sel) > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kern = pq_scan_topk_kernel<LutT, SPLIT, STAGED>;
+  auto kern = pq_scan_topk_kernel<LutT, SPLIT, STAGED, FILTER>;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (e != cudaSuccess) return (int)e;
   kern<<<T * CL, THREADS, L.total, st>>>(
       static_cast<const uint8_t*>(codes), static_cast<const int*>(list_ids),
-      static_cast<const float*>(consts), static_cast<const int*>(probe_lists),
+      static_cast<const float*>(consts), static_cast<const uint32_t*>(keep), n_words,
+      static_cast<const int*>(probe_lists),
       static_cast<const LutT*>(lut), static_cast<const float*>(bias), n_lists, cap, S, lcps, pc,
       k, select_min, out_v, out_i);
   return (int)cudaGetLastError();
@@ -527,13 +544,15 @@ int launch(const void* codes, const void* list_ids, const void* consts, const vo
 
 template <typename LutT, bool SPLIT>
 int launch_staged(bool staged, const void* codes, const void* list_ids, const void* consts,
-                  const void* probe_lists, const void* lut, const void* bias, int T, int pc,
-                  int n_lists, int cap, int S, int k, int select_min, float* out_v, int* out_i,
-                  cudaStream_t st) {
-  return staged ? launch<LutT, SPLIT, true>(codes, list_ids, consts, probe_lists, lut, bias, T,
-                                            pc, n_lists, cap, S, k, select_min, out_v, out_i, st)
-                : launch<LutT, SPLIT, false>(codes, list_ids, consts, probe_lists, lut, bias, T,
-                                             pc, n_lists, cap, S, k, select_min, out_v, out_i, st);
+                  const void* keep, int n_words, const void* probe_lists, const void* lut,
+                  const void* bias, int T, int pc, int n_lists, int cap, int S, int k,
+                  int select_min, float* out_v, int* out_i, cudaStream_t st) {
+  auto go = staged ? (keep != nullptr ? &launch<LutT, SPLIT, true, true>
+                                      : &launch<LutT, SPLIT, true, false>)
+                   : (keep != nullptr ? &launch<LutT, SPLIT, false, true>
+                                      : &launch<LutT, SPLIT, false, false>);
+  return go(codes, list_ids, consts, keep, n_words, probe_lists, lut, bias, T, pc, n_lists, cap,
+            S, k, select_min, out_v, out_i, st);
 }
 
 }  // namespace fused
@@ -541,16 +560,19 @@ int launch_staged(bool staged, const void* codes, const void* list_ids, const vo
 // The k best (T, k) float32 scores and their int32 list_ids of every slot of
 // the pc lists each query probes, best first (see the note above). codes:
 // (n_lists, cap, S) uint8; list_ids: (n_lists, cap) int32; consts: (n_lists,
-// cap) float32 or null; probe_lists: (T, pc) int32; lut: (T, pc, S, K)
+// cap) float32 or null; keep: the filter's packed bitset of n_words words
+// (ids past its end are not kept), or null; probe_lists: (T, pc) int32; lut: (T, pc, S, K)
 // float32 (lut_dtype 0) or bfloat16 (1), 16-byte aligned, K = 32 with split,
 // else 16; bias: (T, pc) float32. 1 <= k <= min(256, pc * cap). Returns the
 // launch's cudaError_t.
 extern "C" int pq_scan_topk_launch(int lut_dtype, int split, const void* codes,
-                                   const void* list_ids, const void* consts,
-                                   const void* probe_lists, const void* lut, const void* bias,
-                                   int T, int pc, int n_lists, int cap, int S, int k,
-                                   int select_min, float* out_v, int* out_i, void* stream) {
+                                   const void* list_ids, const void* consts, const void* keep,
+                                   int n_words, const void* probe_lists, const void* lut,
+                                   const void* bias, int T, int pc, int n_lists, int cap, int S,
+                                   int k, int select_min, float* out_v, int* out_i,
+                                   void* stream) {
   if (T < 1 || pc < 1 || cap < 1 || S < 1 || n_lists < 1 || k < 1 || k > select_block::MAXK ||
+      (keep != nullptr && n_words < 0) ||
       (long long)pc * cap > 0x7ffffffe || k > pc * cap ||
       reinterpret_cast<uintptr_t>(lut) % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -559,22 +581,15 @@ extern "C" int pq_scan_topk_launch(int lut_dtype, int split, const void* codes,
   const bool staged = S % 16 == 0 && ((S / 16) & (S / 16 - 1)) == 0 &&
                       reinterpret_cast<uintptr_t>(codes) % 16 == 0;
   if (lut_dtype == 0) {
-    return split ? fused::launch_staged<float, true>(staged, codes, list_ids, consts, probe_lists,
-                                                     lut, bias, T, pc, n_lists, cap, S, k,
-                                                     select_min, out_v, out_i, st)
-                 : fused::launch_staged<float, false>(staged, codes, list_ids, consts,
-                                                      probe_lists, lut, bias, T, pc, n_lists, cap,
-                                                      S, k, select_min, out_v, out_i, st);
+    auto go = split ? &fused::launch_staged<float, true> : &fused::launch_staged<float, false>;
+    return go(staged, codes, list_ids, consts, keep, n_words, probe_lists, lut, bias, T, pc,
+              n_lists, cap, S, k, select_min, out_v, out_i, st);
   }
   if (lut_dtype == 1) {
-    return split ? fused::launch_staged<__nv_bfloat16, true>(staged, codes, list_ids, consts,
-                                                             probe_lists, lut, bias, T, pc,
-                                                             n_lists, cap, S, k, select_min,
-                                                             out_v, out_i, st)
-                 : fused::launch_staged<__nv_bfloat16, false>(staged, codes, list_ids, consts,
-                                                              probe_lists, lut, bias, T, pc,
-                                                              n_lists, cap, S, k, select_min,
-                                                              out_v, out_i, st);
+    auto go = split ? &fused::launch_staged<__nv_bfloat16, true>
+                    : &fused::launch_staged<__nv_bfloat16, false>;
+    return go(staged, codes, list_ids, consts, keep, n_words, probe_lists, lut, bias, T, pc,
+              n_lists, cap, S, k, select_min, out_v, out_i, st);
   }
   return (int)cudaErrorInvalidValue;
 }

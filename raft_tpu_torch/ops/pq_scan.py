@@ -30,7 +30,11 @@ keeps the k best, so only (T, k) values and ids leave the kernel.
 :func:`pq_scan_topk_plain` is the same composition in PyTorch
 (:func:`pq_scan_plain`, the two adds, ``torch.where``, ``topk_plain`` with
 the ids as payload); ``pq_scan_topk.launches`` counts the fused kernel's
-launches.
+launches. Both take an optional sample filter, ``keep_words``: the keep-mask
+packed by :func:`pack_keep_words`, one bit for each id; a slot whose id's
+bit is clear, or whose id lies past the bitset's last word, scores ±inf as
+an empty slot does (the JAX package's ``apply_id_filter`` on the chunk's
+scores) and keeps its id.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from ..core.errors import expects
 from .topk import TOPK_MAX_K, topk_plain
 
 __all__ = ["pq_scan", "pq_scan_plain", "pq_scan_topk", "pq_scan_topk_plain",
-           "pq_scan_topk_fits"]
+           "pq_scan_topk_fits", "pack_keep_words", "keep_bits"]
 
 _LUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448            # shared memory a block can use (H100)
@@ -136,6 +140,27 @@ def pq_scan(list_codes, probe_lists, lut, split: bool = False):
 pq_scan.launches = 0
 
 
+def pack_keep_words(keep_mask):
+    """A bool keep-mask (n,) as the kernel's bitset: (ceil(n / 32),) int32,
+    bit ``i & 31`` of word ``i >> 5`` set when id ``i`` is kept."""
+    keep = keep_mask.to(torch.bool).reshape(-1)
+    n = keep.shape[0]
+    bits = torch.zeros(-(-n // 32) * 32, dtype=torch.int64, device=keep.device)
+    bits[:n] = keep.to(torch.int64)
+    words = (bits.reshape(-1, 32) << torch.arange(32, device=keep.device)).sum(dim=1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def keep_bits(keep_words, ids):
+    """Whether each id of ``ids`` (any shape, -1 padding allowed) is kept by
+    the packed ``keep_words``; padding and ids past the bitset's last word
+    read as not kept."""
+    i = ids.to(torch.int64).clamp_min(0)
+    n_words = keep_words.shape[0]
+    word = keep_words.to(torch.int64)[(i >> 5).clamp_max(n_words - 1)]
+    return (((word >> (i & 31)) & 1) == 1) & (ids >= 0) & ((i >> 5) < n_words)
+
+
 # pq_scan_topk's shared memory, as csrc/pq_scan.cu lays it out (fused::Layout)
 _TOPK_STAGES = 2              # tiles in the kernel's ring
 _TOPK_TILE = 512              # slots a tile
@@ -156,7 +181,8 @@ def pq_scan_topk_fits(s: int, split: bool, lut_dtype, pc: int) -> bool:
     return pq_scan_topk_smem(s, split, lut_dtype, pc) <= _MAX_SMEM
 
 
-def _check_topk(list_codes, list_ids, probe_lists, lut, bias, k, split, list_consts):
+def _check_topk(list_codes, list_ids, probe_lists, lut, bias, k, split, list_consts,
+                keep_words=None):
     expects(list_codes.ndim == 3 and list_codes.dtype == torch.uint8,
             "pq_scan_topk: list_codes must be (n_lists, cap, S) uint8, got %s %s",
             tuple(list_codes.shape), list_codes.dtype)
@@ -180,22 +206,26 @@ def _check_topk(list_codes, list_ids, probe_lists, lut, bias, k, split, list_con
     expects(list_consts is None or (tuple(list_consts.shape) == (n_lists, cap)
                                     and list_consts.dtype == torch.float32),
             "pq_scan_topk: list_consts must be (n_lists, cap) float32 or None")
+    expects(keep_words is None or (keep_words.ndim == 1 and keep_words.dtype == torch.int32
+                                   and keep_words.shape[0] >= 1),
+            "pq_scan_topk: keep_words must be (words >= 1,) int32 or None")
     expects(0 < k <= min(TOPK_MAX_K, pc * cap),
             "pq_scan_topk: k=%d must be in (0, min(%d, pc x cap = %d)]",
             k, TOPK_MAX_K, pc * cap)
-    devs = {a.device for a in (list_codes, list_ids, probe_lists, lut, bias, list_consts)
-            if a is not None}
+    devs = {a.device for a in (list_codes, list_ids, probe_lists, lut, bias, list_consts,
+                               keep_words) if a is not None}
     expects(len(devs) == 1, "pq_scan_topk: every tensor must be on one device")
     return t, pc, cap, s
 
 
 def pq_scan_topk_plain(list_codes, list_ids, probe_lists, lut, bias, k: int,
-                       select_min: bool, split: bool = False, list_consts=None):
+                       select_min: bool, split: bool = False, list_consts=None,
+                       keep_words=None):
     """Plain PyTorch version of the ``pq_scan_topk`` kernel: the same
     arguments, the same (values (T, k) float32, ids (T, k) int32), on any
     device."""
     t, pc, cap, s = _check_topk(list_codes, list_ids, probe_lists, lut, bias, k, split,
-                                list_consts)
+                                list_consts, keep_words)
     scores = pq_scan_plain(list_codes, probe_lists.reshape(-1),
                            lut.reshape(t * pc, s, lut.shape[3]), split).reshape(t, pc, cap)
     scores = scores + bias[:, :, None]
@@ -203,20 +233,21 @@ def pq_scan_topk_plain(list_codes, list_ids, probe_lists, lut, bias, k: int,
     if list_consts is not None:
         scores = scores + list_consts[rows]
     ids = list_ids[rows]                                    # (T, pc, cap)
-    scores = torch.where(ids >= 0, scores, math.inf if select_min else -math.inf)
+    live = ids >= 0 if keep_words is None else keep_bits(keep_words, ids)
+    scores = torch.where(live, scores, math.inf if select_min else -math.inf)
     v, pos = topk_plain(scores.reshape(t, pc * cap), k, select_min)
     return v, torch.gather(ids.reshape(t, pc * cap), 1, pos.to(torch.int64))
 
 
 def _launch_topk(list_codes, list_ids, probe_lists, lut, bias, k, select_min, split,
-                 list_consts):
+                 list_consts, keep_words):
     from ._build import load
 
     t, pc = probe_lists.shape
     n_lists, cap, s = list_codes.shape
     for a, name in ((list_codes, "list_codes"), (list_ids, "list_ids"),
                     (probe_lists, "probe_lists"), (lut, "lut"), (bias, "bias"),
-                    (list_consts, "list_consts")):
+                    (list_consts, "list_consts"), (keep_words, "keep_words")):
         expects(a is None or a.is_contiguous(), "pq_scan_topk: %s must be contiguous", name)
     expects(t > 0, "pq_scan_topk needs at least one query")
     expects(lut.data_ptr() % 16 == 0, "pq_scan_topk: lut must be 16-byte aligned")
@@ -224,8 +255,8 @@ def _launch_topk(list_codes, list_ids, probe_lists, lut, bias, k, select_min, sp
             "pq_scan_topk: S=%d, pc=%d needs %d bytes of shared memory, more than a block's",
             s, pc, pq_scan_topk_smem(s, split, lut.dtype, pc))
     fn = load("pq_scan").pq_scan_topk_launch
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 3)
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     out_v = torch.empty((t, k), dtype=torch.float32, device=lut.device)
     out_i = torch.empty((t, k), dtype=torch.int32, device=lut.device)
@@ -233,15 +264,17 @@ def _launch_topk(list_codes, list_ids, probe_lists, lut, bias, k, select_min, sp
         stream = torch.cuda.current_stream(lut.device).cuda_stream
         err = fn(_LUT_CODE[lut.dtype], int(split), list_codes.data_ptr(), list_ids.data_ptr(),
                  None if list_consts is None else list_consts.data_ptr(),
-                 probe_lists.data_ptr(), lut.data_ptr(), bias.data_ptr(), t, pc, n_lists,
-                 cap, s, k, int(select_min), out_v.data_ptr(), out_i.data_ptr(), stream)
+                 None if keep_words is None else keep_words.data_ptr(),
+                 0 if keep_words is None else keep_words.shape[0], probe_lists.data_ptr(),
+                 lut.data_ptr(), bias.data_ptr(), t, pc, n_lists, cap, s, k, int(select_min),
+                 out_v.data_ptr(), out_i.data_ptr(), stream)
     pq_scan_topk.launches += 1
     expects(err == 0, "pq_scan_topk kernel launch failed: cudaError %d", err)
     return out_v, out_i
 
 
 def pq_scan_topk(list_codes, list_ids, probe_lists, lut, bias, k: int, select_min: bool,
-                 split: bool = False, list_consts=None):
+                 split: bool = False, list_consts=None, keep_words=None):
     """The k best scores of every slot of the lists each query probes, and
     their ids: (values (T, k) float32, ids (T, k) int32), best first.
 
@@ -249,21 +282,24 @@ def pq_scan_topk(list_codes, list_ids, probe_lists, lut, bias, k: int, select_mi
     int32 as the index stores them; ``probe_lists`` (T, pc) int32;
     ``lut`` (T, pc, S, K) float32 or bfloat16 (K as in :func:`pq_scan`);
     ``bias`` (T, pc) float32; ``list_consts`` (n_lists, cap) float32, added
-    for split pq8 under L2, else None. Score = (scan + bias) + const; slots
-    with ``list_ids < 0`` score +inf (``select_min``) or -inf. Ranked as
+    for split pq8 under L2, else None; ``keep_words`` (words,) int32, the
+    filter's bitset (:func:`pack_keep_words`), or None; an id past its last
+    word is not kept. Score = (scan + bias) + const; slots with ``list_ids < 0`` or whose
+    id's keep bit is clear score +inf (``select_min``) or -inf. Ranked as
     :func:`~raft_tpu_torch.ops.topk.topk` ranks, equal scores to the lowest
     flat position ``p * cap + j``; a query with fewer than k filled slots
     gets ±inf and id -1 in the rest. k <= 256. A CUDA tensor launches the
     kernel; a CPU tensor runs :func:`pq_scan_topk_plain`.
     """
-    _check_topk(list_codes, list_ids, probe_lists, lut, bias, k, split, list_consts)
+    _check_topk(list_codes, list_ids, probe_lists, lut, bias, k, split, list_consts,
+                keep_words)
     if lut.device.type == "cpu":
         return pq_scan_topk_plain(list_codes, list_ids, probe_lists, lut, bias, k,
-                                  select_min, split, list_consts)
+                                  select_min, split, list_consts, keep_words)
     expects(lut.device.type == "cuda", "pq_scan_topk runs on cuda or cpu tensors, got %s",
             lut.device)
     return _launch_topk(list_codes, list_ids, probe_lists, lut, bias, int(k),
-                        bool(select_min), bool(split), list_consts)
+                        bool(select_min), bool(split), list_consts, keep_words)
 
 
 pq_scan_topk.launches = 0

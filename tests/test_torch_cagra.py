@@ -403,9 +403,10 @@ def test_not_yet_ported_and_contract_errors(data):
         chunk_rows = 1024
 
     params = tc.IndexParams(intermediate_graph_degree=16, graph_degree=8)
-    for dataset in (np.round(x * 255).astype(np.uint8), x.astype(np.int8), Reader()):
-        with pytest.raises(RaftError, match="not yet ported"):
-            tc.build(params, dataset, res=CPU)
+    # byte datasets build (tests/test_torch_cagra_bytes.py); the streamed
+    # build waits for core/chunked.py
+    with pytest.raises(RaftError, match="not yet ported"):
+        tc.build(params, Reader(), res=CPU)
     with pytest.raises(RaftError, match="L2"):
         tc.build(tc.IndexParams(metric="inner_product"), x, res=CPU)
     with pytest.raises(RaftError, match="graph_degree"):

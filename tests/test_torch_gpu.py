@@ -19,8 +19,8 @@ from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
 from raft_tpu_torch.neighbors.brute_force import BruteForce
 from raft_tpu_torch.ops.cagra_hop import cagra_hop, cagra_hop_plain
 from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
-from raft_tpu_torch.ops.pq_scan import (pq_scan, pq_scan_plain, pq_scan_topk,
-                                        pq_scan_topk_plain)
+from raft_tpu_torch.ops.pq_scan import (pack_keep_words, pq_scan, pq_scan_plain,
+                                        pq_scan_topk, pq_scan_topk_plain)
 from raft_tpu_torch.ops.topk import topk, topk_plain
 
 pytestmark = pytest.mark.gpu
@@ -358,6 +358,72 @@ def test_pq_scan_topk_kernel_main_shape(cuda):
     assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
 
 
+@pytest.mark.parametrize("keep", [0.5, 0.02, 0.0])
+@pytest.mark.parametrize("split,dtype,inner", [
+    (False, torch.float32, False), (False, torch.bfloat16, True), (True, torch.float32, False),
+])
+def test_pq_scan_topk_kernel_filtered_bit_equal_to_plain(cuda, keep, split, dtype, inner):
+    """A packed keep bitset: the grid's inputs with 50%, 2% and none of the
+    ids kept (underfill), k in {1, 40, 256}: values' bits and ids."""
+    for s, pc, k in ((16, 3, 40), (24, 8, 256), (64, 1, 1)):
+        args = [None if a is None else a.to(cuda)
+                for a in pq_topk_inputs(s, split, pc, dtype, inner, seed=s + pc)]
+        g = torch.Generator(device=cuda).manual_seed(s)
+        mask = torch.rand(args[1].numel(), generator=g, device=cuda) < keep
+        words = pack_keep_words(mask)
+        before = pq_scan_topk.launches
+        v, i = pq_scan_topk(*args[:5], k, not inner, split=split, list_consts=args[5],
+                            keep_words=words)
+        torch.cuda.synchronize()
+        assert pq_scan_topk.launches == before + 1
+        pv, pi = pq_scan_topk_plain(*args[:5], k, not inner, split, args[5], words)
+        assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+        kept = torch.isfinite(v)
+        assert bool(mask[i[kept].long()].all())
+
+
+def test_pq_scan_topk_kernel_short_bitset_keeps_no_id_past_it(cuda):
+    """A bitset shorter than the stored ids: ids past its last word score
+    ±inf as filtered ones, on the kernel as on the plain version."""
+    for split, dtype, inner in ((False, torch.float32, False), (True, torch.bfloat16, True)):
+        args = [None if a is None else a.to(cuda)
+                for a in pq_topk_inputs(24, split, 8, dtype, inner, seed=5)]
+        words = pack_keep_words(torch.ones(args[1].numel() // 2, dtype=torch.bool,
+                                           device=cuda))
+        v, i = pq_scan_topk(*args[:5], 40, not inner, split=split, list_consts=args[5],
+                            keep_words=words)
+        pv, pi = pq_scan_topk_plain(*args[:5], 40, not inner, split, args[5], words)
+        assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+        assert bool((i[torch.isfinite(v)] < words.numel() * 32).all())
+
+
+def test_ivf_pq_filtered_search_on_card_equals_cpu(cuda, tmp_path):
+    """A filtered search on the card runs pq_scan_topk (and no topk) where
+    the unfiltered one does, and answers as the CPU's plain versions."""
+    rng = np.random.default_rng(8)
+    centers = rng.normal(size=(60, 32)) * 3.0
+    x = (centers[rng.integers(0, 60, 40_000)] + rng.normal(size=(40_000, 32))).astype(np.float32)
+    q = (centers[rng.integers(0, 60, 200)] + rng.normal(size=(200, 32))).astype(np.float32)
+    cpu = Resources(device="cpu")
+    index = ivf_pq.build(ivf_pq.IndexParams(n_lists=64, pq_dim=16), x, res=cpu)
+    path = str(tmp_path / "index.bin")
+    ivf_pq.save(index, path)
+    card = ivf_pq.load(path, res=Resources(device="cuda"))
+    for frac in (0.5, 0.02):
+        keep = rng.random(40_000) < frac
+        for select in ("pallas", "xla"):
+            params = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16", select_impl=select)
+            counts = pq_scan_topk.launches, topk.launches
+            d, i = ivf_pq.search(params, card, q, 20, sample_filter=keep)
+            torch.cuda.synchronize()
+            if select == "pallas":
+                assert pq_scan_topk.launches > counts[0]
+            rd, ri = ivf_pq.search(params, index, q, 20, sample_filter=keep, res=cpu)
+            _knn_equiv(d.cpu(), i.cpu(), rd, ri, rtol=1e-5, atol=1e-4)
+            ic = i.cpu().numpy()
+            assert keep[ic[ic >= 0]].all()
+
+
 @pytest.mark.parametrize("bits", [4, 8])
 def test_ivf_pq_search_on_card_equals_cpu(cuda, tmp_path, bits):
     """An index built on the CPU, loaded onto the card: the card's search
@@ -482,6 +548,30 @@ def test_cagra_hop_kernel_bit_equal_to_plain(cuda, merge, width, rows, d):
     assert cagra_hop.launches == before + 1
     for a, b in zip(got, cagra_hop_plain(*args, 32, width, merge=merge)):
         assert torch.equal(a, b)
+
+
+def test_cagra_byte_build_searches_int8_rows_on_card(cuda):
+    """A uint8 dataset built on the card is held as int8 rows; the card's
+    fused search runs cagra_hop over them and answers as the CPU's search
+    of the same index."""
+    rng = np.random.default_rng(6)
+    x = np.round(rng.random((3000, 24)) * 255).astype(np.uint8)
+    q = np.round(rng.random((40, 24)) * 255).astype(np.uint8)
+    params = cagra.IndexParams(intermediate_graph_degree=32, graph_degree=16)
+    card = cagra.build(params, x, res=Resources(device="cuda"))
+    assert card.dataset.dtype == torch.int8 and card.data_kind == "uint8"
+    index = cagra.CagraIndex(dataset=card.dataset.cpu(), graph=card.graph.cpu(),
+                             metric=card.metric, data_kind="uint8")
+    ids = torch.from_numpy(rng.permutation(3000)[:64])
+    qs = torch.from_numpy(q.astype(np.float32) - 128.0)
+    before = cagra_hop.launches
+    d, i = cagra._cagra_search(card, qs.to(cuda), 10, 32, 42, 1, False, seed_pool=64,
+                               hop_impl="fused_arena", pool_ids=ids)
+    torch.cuda.synchronize()
+    assert cagra_hop.launches > before
+    rd, ri = cagra._cagra_search(index, qs, 10, 32, 42, 1, False, seed_pool=64,
+                                 hop_impl="fused_arena", pool_ids=ids)
+    _knn_equiv(d.cpu(), i.cpu(), rd, ri, rtol=1e-5, atol=1e-5)
 
 
 def test_cagra_search_on_card_equals_cpu(cuda, tmp_path):

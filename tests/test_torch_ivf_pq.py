@@ -13,6 +13,7 @@ formulations: the id set of every row, and the sorted distances at rtol 1e-5
 / atol 1e-4, after checking that both sides probe the same lists.
 """
 
+import dataclasses
 import io
 
 import numpy as np
@@ -254,20 +255,32 @@ def test_extend_matches_jax(data, jax_files, name):
 
 def test_not_yet_ported_and_contract_errors(data, jax_files):
     x, q, _ = data
-    for kw in (dict(codebook_kind="per_cluster"), dict(residual_scale_norm=True),
-               dict(rotation="opq"), dict(fast_scan="1bit"),
-               dict(codebook_loss="anisotropic")):
-        with pytest.raises(RaftError, match="not yet ported"):
-            tpq.build(tpq.IndexParams(n_lists=8, **kw), x[:500], res=CPU)
+
+    class Reader:
+        chunks = take = None
+        chunk_rows = 1024
+
+    # the streamed build and a tuned index's hook without params wait for
+    # core/chunked.py and tune/
     with pytest.raises(RaftError, match="not yet ported"):
-        tpq.build(tpq.IndexParams(n_lists=8), x[:500].astype(np.int8), res=CPU)
+        tpq.build(tpq.IndexParams(n_lists=8), Reader(), res=CPU)
     index = tpq.load(jax_files["pq4"][1], res=CPU)
-    for kw in (dict(scan_order="grouped"), dict(funnel_widen=2)):
-        with pytest.raises(RaftError, match="not yet ported"):
-            tpq.search(tpq.SearchParams(n_probes=4, **kw), index, q, 10, res=CPU)
     with pytest.raises(RaftError, match="not yet ported"):
+        tpq.extend(index, Reader())
+    with pytest.raises(RaftError, match="not yet ported"):
+        tpq.batched_searcher(dataclasses.replace(index, tuned={"n_probes": 4}))
+    for kw, msg in ((dict(codebook_kind="per_tree"), "codebook_kind"),
+                    (dict(rotation="pca"), "rotation"), (dict(fast_scan="2bit"), "fast_scan"),
+                    (dict(codebook_loss="l1"), "codebook_loss")):
+        with pytest.raises(RaftError, match=msg):
+            tpq.build(tpq.IndexParams(n_lists=8, **kw), x[:500], res=CPU)
+    with pytest.raises(RaftError, match="fast-scan tier"):
+        tpq.search(tpq.SearchParams(n_probes=4, funnel_widen=2), index, q, 10, res=CPU)
+    with pytest.raises(RaftError, match="scan_order"):
+        tpq.search(tpq.SearchParams(n_probes=4, scan_order="sorted"), index, q, 10, res=CPU)
+    with pytest.raises(RaftError, match="cover"):
         tpq.search(tpq.SearchParams(n_probes=4), index, q, 10,
-                   sample_filter=np.ones(4000, bool), res=CPU)
+                   sample_filter=np.ones(3999, bool), res=CPU)
     with pytest.raises(RaftError, match="one-hot"):
         tpq.search(tpq.SearchParams(n_probes=4, scan_impl="pallas", lut_dtype="int8"),
                    index, q, 10, res=CPU)
