@@ -4,6 +4,7 @@ end to end.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --phases 01  # build and kernel checks only
+    python3 chip_smoke.py --phases 0124  # all but phase 3's timings
     python3 chip_smoke.py --out DIR    # where the profile tables go
                                        # (default build/profiles)
 
@@ -119,7 +120,26 @@ Phases, each printing JSON lines:
      under the 50% filter, whose bound gains the bitset's bytes); and a
      sweep of ``topk`` against the plain route and ``torch.topk`` over
      10,000 and 128 rows, 1,024 to 100,003 columns and k in {10, 32, 40,
-     193}, with the crossover it gives beside ``WIDE_SELECT_COLS_DEFAULT``.
+     193}, with the crossover it gives beside ``WIDE_SELECT_COLS_DEFAULT``;
+  4. ``raft_tpu_torch.serve`` on phase 2's indexes (run after phase 2, before
+     phase 3's timings): the serve path's kernels at its small shapes
+     against their plain versions (``fused_knn`` at m = 1 and 64 over the
+     1M set, ``pq_scan_topk`` on one query and on 64, the entry-pool
+     ``topk`` at m = 1 and 64, ``cagra_hop`` at m = 1); the JAX package's
+     serving row (bench.py:733-869): the IVF-PQ + refine hook (4k
+     candidates refined to k=10) behind ``SearchService(max_batch=64,
+     max_wait_us=2000)``, 8 threads x 400 one-row requests, a second
+     IVF-PQ build published at mid-load, with ``pipeline_depth`` 2 and 0,
+     against the same hook called one row at a time; then brute force,
+     IVF-Flat and CAGRA (itopk 32) published on the running service, 400
+     requests each, and 20 full 64-row buckets back to back. Every request
+     must be answered, no kernel built in a loaded window, each served
+     row equal (``knn_equiv`` at 1e-5) to the serving index's direct
+     search at the shape that served it (CAGRA: recall@10 >= 0.95), IVF-PQ
+     + refine recall@10 >= 0.85, and the memory ledger's bytes for the
+     second build within 10% of its allocation delta. Prints QPS, p50 /
+     p99, occupancy, host syncs (``torch.cuda.set_sync_debug_mode``),
+     device ms and launches a flush for each index kind.
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -161,6 +181,11 @@ H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores, H100 SXM data sheet
 H100_INT8_OPS = 1979e12         # dense int8 tensor cores, H100 SXM data sheet
 FILTER_KEEP = (0.5, 0.02)       # shares of the ids the filtered IVF-PQ searches keep
 BYTE_SCALE = 12.0               # the IVF-PQ blob set as bytes: round(12 x) (+128 for uint8)
+SERVE_THREADS, SERVE_PER_THREAD, SERVE_SEQ = 8, 400, 512   # bench.py:733 _row_serve
+SERVE_MAX_BATCH, SERVE_WAIT_US = 64, 2000.0
+SERVE_OTHER_THREADS, SERVE_OTHER_PER_THREAD = 4, 100       # brute force, IVF-Flat, CAGRA
+SERVE_CHECK = 1_000              # served rows held against a direct search
+LEDGER_TOL = 0.10                # ledger bytes against the build's allocation delta
 
 
 def emit(**kw):
@@ -687,11 +712,22 @@ def hop_candidates(beam_i, lq, lx, cw, g):
     return nbrs.contiguous()
 
 
-def phase_hop_kernel(st):
+HOP_CASES = [   # (itopk, width, merge, rows, d)
+    (32, 1, "extract", "f32", 128), (32, 1, "arena", "f32", 128),
+    (32, 2, "extract", "f32", 128), (32, 2, "arena", "f32", 128),
+    (64, 1, "arena", "f32", 128), (64, 2, "extract", "f32", 128),
+    (64, 2, "arena", "f32", 128), (32, 1, "arena", "int8", 128),
+    (64, 2, "extract", "int8", 128), (32, 1, "extract", "f32", 100),
+    (32, 2, "arena", "f32", 126), (32, 1, "arena", "int8", 100),
+]
+
+
+def phase_hop_kernel(st, m=HOP_M, cases=HOP_CASES):
     """``cagra_hop`` against ``cagra_hop_plain`` on the card, bit for bit, on
-    2,048 queries of the CAGRA set. Each case starts from a beam of random
-    ids with their true distances (every 7th row half full), sorted by one
-    plain prime call, then checks the kernel's prime call and one hop."""
+    ``m`` queries of the CAGRA set (2,048; the serve phase checks m=1). Each
+    case starts from a beam of random ids with their true distances (every
+    7th row half full), sorted by one plain prime call, then checks the
+    kernel's prime call and one hop."""
     import torch
 
     from raft_tpu_torch.ops.cagra_hop import cagra_hop, cagra_hop_plain
@@ -699,7 +735,7 @@ def phase_hop_kernel(st):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
     x, q, lx, lq = cagra_data()
-    q, lq = q[:HOP_M].contiguous(), lq[:HOP_M]
+    q, lq = q[:m].contiguous(), lq[:m]
     sets = {("f32", 128): (x, q),
             ("int8", 128): ((x * 12.7 - 64.0).round().clamp(-128, 127).to(torch.int8),
                             q * 12.7 - 64.0),
@@ -707,15 +743,6 @@ def phase_hop_kernel(st):
             ("f32", 126): (x[:, :126].contiguous(), q[:, :126].contiguous()),
             ("int8", 100): (x[:, :100].mul(12.7).sub(64.0).round().clamp(-128, 127)
                             .to(torch.int8).contiguous(), q[:, :100] * 12.7 - 64.0)}
-    cases = [   # (itopk, width, merge, rows, d)
-        (32, 1, "extract", "f32", 128), (32, 1, "arena", "f32", 128),
-        (32, 2, "extract", "f32", 128), (32, 2, "arena", "f32", 128),
-        (64, 1, "arena", "f32", 128), (64, 2, "extract", "f32", 128),
-        (64, 2, "arena", "f32", 128), (32, 1, "arena", "int8", 128),
-        (64, 2, "extract", "int8", 128), (32, 1, "extract", "f32", 100),
-        (32, 2, "arena", "f32", 126), (32, 1, "arena", "int8", 100),
-    ]
-    m = HOP_M
     for itopk, width, merge, kind, d in cases:
         data, qq = sets[(kind, d)]
         qq = qq.contiguous()
@@ -1081,6 +1108,7 @@ def phase_ivf(st):
     phase_ivf_bytes(st, x, q, IVF_CHECK)
     phase_ivf_codecs(st, x, q, truth)
     st["ivf"] = (index, q)
+    st["ivf_x"], st["ivf_truth"] = x, truth
 
 
 def pq_counts():
@@ -1571,7 +1599,7 @@ def phase_matrix_ops(st):
          shape=list(m.shape), card=st["card"])
 
 
-def profile_batch(st, path, filename, batch):
+def profile_batch(st, path, filename, batch, what="10,000-query batch"):
     """Device time by kernel over one call of ``batch`` (torch.profiler),
     and the device's idle share of the batch's host time. The whole table
     goes to ``filename`` in the ``--out`` directory."""
@@ -1597,7 +1625,7 @@ def profile_batch(st, path, filename, batch):
     busy_ms = sum(r[0] for r in rows)
     os.makedirs(st["out"], exist_ok=True)
     with open(os.path.join(st["out"], filename), "w") as f:
-        f.write(f"# {st['card']}; one 10,000-query {path} batch; "
+        f.write(f"# {st['card']}; one {what} of {path}; "
                 f"host {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n")
         for ms, n, key in rows:
             f.write(f"{ms:12.3f} ms {n:8d}  {key}\n")
@@ -1758,6 +1786,7 @@ def phase_cagra(st):
     profile_batch(st, "cagra.search", "cagra_profile.txt",
                   lambda: cagra.search(sp, index, q, K_MAIN, res=res))
     st["cagra"] = (index, q)
+    st["cagra_truth"] = truth
 
 
 def phase_ivf_flat(st):
@@ -1894,6 +1923,7 @@ def phase_ivf_flat(st):
          filter_routes_equal=filter_equal, filter_underfilled_rows=underfilled,
          chunk=chunk, card=st["card"])
     assert rec >= IVF_FLAT_RECALL_FLOOR, f"recall@10 {rec} below {IVF_FLAT_RECALL_FLOOR}"
+    st["ivf_flat"] = (index, sp)
     del index, d, i, pd, pi, fd, fi, fpd, fpi
 
     # (e) bfloat16 lists
@@ -2633,10 +2663,547 @@ def topk_sweep(st):
          matches_default=crossover == sk.WIDE_SELECT_COLS_DEFAULT, card=st["card"])
 
 
+def all_counts():
+    """Every kernel wrapper's launch count (``fused_knn`` by mode)."""
+    from raft_tpu_torch.ops.cagra_hop import cagra_hop
+    from raft_tpu_torch.ops.fused_knn import bf16_split, fused_knn
+    from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_topk
+    from raft_tpu_torch.ops.topk import topk
+
+    return {"fused_knn": fused_knn.launches_by_mode["f32"],
+            "fused_knn_tc": sum(v for m, v in fused_knn.launches_by_mode.items()
+                                if m != "f32"),
+            "bf16_split": bf16_split.launches, "topk": topk.launches,
+            "pq_scan": pq_scan.launches, "pq_scan_topk": pq_scan_topk.launches,
+            "cagra_hop": cagra_hop.launches}
+
+
+def reset_all_counts():
+    from raft_tpu_torch.ops.cagra_hop import cagra_hop
+    from raft_tpu_torch.ops.fused_knn import bf16_split, fused_knn
+    from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_topk
+    from raft_tpu_torch.ops.topk import topk
+
+    for fn in (fused_knn, bf16_split, topk, pq_scan, pq_scan_topk, cagra_hop):
+        fn.launches = 0
+    fused_knn.launches_by_mode = dict.fromkeys(fused_knn.launches_by_mode, 0)
+
+
+def row_equiv(d, i, rd, ri, rtol=1e-5, atol=1e-5):
+    """Per-row ``knn_equiv``: True where a row's distances agree within
+    tolerance (underfill slots exactly) and its ids agree, or differ only
+    where distances tie within that tolerance."""
+    import torch
+
+    fin = torch.isfinite(rd)
+    close = torch.where(fin, (d - rd).abs() <= atol + rtol * rd.abs(), d == rd)
+    dist_ok = close.all(1) & (torch.isfinite(d) == fin).all(1)
+    same_ids = (i == ri).all(1)
+    same_set = (torch.sort(i, 1).values == torch.sort(ri, 1).values).all(1)
+    sd, srd = torch.sort(d, 1).values, torch.sort(rd, 1).values
+    ties = torch.where(torch.isfinite(srd), (sd - srd).abs() <= atol + rtol * srd.abs(),
+                       sd == srd).all(1)
+    return dist_ok & (same_ids | same_set | ties)
+
+
+def add_serve_launches(st, launches):
+    """Add one loaded window's launch counts to the serve phase's total."""
+    total = st.setdefault("launches_serve", {})
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def serve_kernel_checks(st):
+    """The kernels the serve path launches, at its small shapes, against
+    their plain versions (phase 1's rules: bit for bit, f32 ``fused_knn`` by
+    knn_equiv at 1e-5): ``fused_knn`` at m = 1 and 64 over the 1M set,
+    ``pq_scan_topk`` on one query (an underfilled one and one with ties)
+    and on 64 at the main tile's shape, the entry-pool ``topk`` at m = 1
+    and 64 over 16,384 columns, and ``cagra_hop`` at m = 1."""
+    import torch
+
+    from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
+    from raft_tpu_torch.ops.pq_scan import pq_scan_topk, pq_scan_topk_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(40)
+    x, q = st["main"]
+    err = 0.0
+    for m in (1, 64):
+        dv, di = fused_knn(x, q[:m], K_MAIN)
+        torch.cuda.synchronize()
+        rd, ri = fused_knn_plain(x, q[:m], K_MAIN)
+        e = knn_equiv(dv, di, rd, ri, rtol=1e-5, atol=1e-5)
+        err = max(err, e)
+        # its time at the serving shape, beside the bound of reading the set
+        t_ops = 2.0 * m * N_MAIN * D_MAIN / H100_F32_FLOPS
+        t_bytes = ((N_MAIN * D_MAIN + m * D_MAIN + N_MAIN) * 4 + m * K_MAIN * 8) / H100_BYTES_S
+        emit(phase="check", kernel="fused_knn", n=N_MAIN, d=D_MAIN, m=m, k=K_MAIN,
+             mode="f32", max_abs_err=e, ok=True, serve=True,
+             ms=cuda_ms(lambda: fused_knn(x, q[:m], K_MAIN), reps=5),
+             bound_ms=max(t_ops, t_bytes) * 1e3,
+             bound_by="operations" if t_ops >= t_bytes else "bytes", card=st["card"])
+    st["fused_err"] = max(st.get("fused_err", 0.0), err)
+    codes, ids, probes, lut, bias, _ = pq_topk_case(
+        g, n_lists=PQ_LISTS, cap=PQ_CAP, s=64, t=64, pc=8, split=False,
+        dt=torch.bfloat16, inner=False, top=300)
+    for rows in (slice(0, 1), slice(1, 2), slice(0, 64)):
+        args = (codes, ids, probes[rows].contiguous(), lut[rows].contiguous(),
+                bias[rows].contiguous(), IVF_K0, True)
+        v, i = pq_scan_topk(*args)
+        torch.cuda.synchronize()
+        pv, pi = pq_scan_topk_plain(*args)
+        assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi), (
+            f"pq_scan_topk differs from its plain version at T={rows}")
+        emit(phase="check", kernel="pq_scan_topk", n_lists=PQ_LISTS, cap=PQ_CAP, S=64,
+             T=rows.stop - rows.start, pc=8, k=IVF_K0, lut_dtype="bfloat16",
+             underfilled_rows=int((i == -1).any(1).sum()), max_abs_err=0.0,
+             bit_equal=True, ok=True, serve=True)
+    for m in (1, 64):
+        v = torch.rand((m, 16_384), generator=g, device=dev)
+        if m > 1:
+            plant_topk_rows(v, g)
+        for k in (K_MAIN, CAGRA_ITOPK, IVF_K0):
+            check_topk(v, k, True)
+        emit(phase="check", kernel="topk", shape=[m, 16_384], k=[K_MAIN, CAGRA_ITOPK, IVF_K0],
+             select_min=True, max_abs_err=0.0, bit_equal=True, ok=True, serve=True)
+    phase_hop_kernel(st, m=1, cases=[(32, 1, "arena", "f32", 128),
+                                     (32, 1, "extract", "f32", 128),
+                                     (64, 2, "arena", "f32", 128)])
+
+
+COLD_PUBLISH = """
+import json, sys
+import torch
+from raft_tpu_torch.core import Resources
+from raft_tpu_torch.neighbors import ivf_pq
+from raft_tpu_torch.serve import IndexRegistry
+
+index = ivf_pq.load(sys.argv[1], res=Resources(device="cuda"))
+sp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
+reg = IndexRegistry()
+first = reg.publish("serve", index, search_params=sp, k=10)
+again = reg.publish("serve", index, search_params=sp, k=10)
+print(json.dumps({"first": first["warm"][10], "again": again["warm"][10]}))
+"""
+
+
+def serve_cold_publish(st, index):
+    """First calls in a fresh process: the IVF-PQ index saved to a file,
+    loaded by a new Python process that publishes it (the warm ladder: one
+    search a bucket) and publishes it again. The first publish pays the
+    CUDA context, cuBLAS handles, the allocator's first blocks and the
+    cached kernel library's load; the build attribution beside each bucket
+    says which were kernel builds (nvcc runs: ``programs``) and which
+    cached loads (``cache_hits``)."""
+    import shutil
+
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(root, "build", "serve")
+    os.makedirs(tmp, exist_ok=True)
+    path = os.path.join(tmp, "ivf_pq.bin")
+    try:
+        ivf_pq.save(index, path)
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", COLD_PUBLISH, path], cwd=root,
+                             env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+                             text=True, timeout=300)
+        proc_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert out.returncode == 0, out.stderr[-4000:]
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    emit(phase="serve_first_call", index="ivf_pq (1M, n_probes 8, bf16 LUT)", k=K_MAIN,
+         process_seconds=proc_s, first_publish=rep["first"], second_publish=rep["again"],
+         card=st["card"])
+    assert all(b["programs"] == 0 and b["cache_hits"] == 0 for b in rep["again"].values())
+
+
+def serve_load(svc, name, pool, threads, per_thread, k, check_rows, swap=None):
+    """Closed-loop load (bench.py:733 ``_row_serve``): ``threads`` threads
+    each send ``per_thread`` one-row requests to ``name`` and wait for each
+    answer; ``swap`` (a zero-argument publish) runs once half the requests
+    are answered. Returns the per-request latencies, the answers of rows
+    below ``check_rows`` by row (with the request id the service's request
+    log holds them under), the failures, the load seconds and the swap's
+    report."""
+    import threading
+
+    lats, results, failures = [], {}, []
+    lock = threading.Lock()
+    served = [0]
+    half = threading.Event()
+
+    def submitter(tid):
+        mine_l, mine_r = [], {}
+        for j in range(per_thread):
+            qi = (tid + j * threads) % pool.shape[0]
+            t0 = time.perf_counter()
+            try:
+                rid = f"{name}-{tid}-{j}"
+                d, i = svc.submit(name, pool[qi:qi + 1], k, rid=rid).result(timeout=120)
+            except Exception as e:  # every loss is counted and fails the phase
+                with lock:
+                    failures.append(f"{type(e).__name__}: {str(e)[:120]}")
+                    served[0] += 1
+                    if served[0] >= threads * per_thread // 2:
+                        half.set()
+                continue
+            mine_l.append(time.perf_counter() - t0)
+            if qi < check_rows:
+                mine_r[qi] = (d[0], i[0], rid)
+            with lock:
+                served[0] += 1
+                if served[0] >= threads * per_thread // 2:
+                    half.set()
+        with lock:
+            lats.extend(mine_l)
+            results.update(mine_r)
+
+    workers = [threading.Thread(target=submitter, args=(t,)) for t in range(threads)]
+    t_load = time.perf_counter()
+    for w in workers:
+        w.start()
+    report = None
+    if swap is not None:
+        assert half.wait(timeout=600), "the load never reached its midpoint"
+        report = swap()
+    for w in workers:
+        w.join(600)
+        assert not w.is_alive(), "a submitter thread did not finish"
+    return lats, results, failures, time.perf_counter() - t_load, report
+
+
+def served_rows_equal(results, log, searchers, pool, k):
+    """Each served row against its direct search at the shape that served
+    it: the request log gives each request's bucket, and the rows served in
+    bucket b are searched b at a time, zero-padded as a flush pads them (a
+    GEMM's rounding depends on its shape, not on the other rows). A row
+    passes if it equals (``row_equiv``) the answer of any of ``searchers``
+    (the versions that may have served it). Returns the rows, the pass mask
+    and the served ids."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rows = sorted(results)
+    got_d = torch.from_numpy(np.stack([results[r][0] for r in rows])).to(dev)
+    got_i = torch.from_numpy(np.stack([results[r][1] for r in rows])).to(dev)
+    by_bucket = {}
+    for n, r in enumerate(rows):
+        by_bucket.setdefault(log.get(results[r][2])["bucket"], []).append(n)
+    ok = torch.zeros(len(rows), dtype=torch.bool, device=dev)
+    for searcher in searchers:
+        pos, ref_d, ref_i = [], [], []
+        for b, ns in sorted(by_bucket.items()):
+            for s in range(0, len(ns), b):
+                grp = ns[s:s + b]
+                batch = np.zeros((b, pool.shape[1]), pool.dtype)
+                batch[:len(grp)] = pool[[rows[n] for n in grp]]
+                d, i = searcher(batch, k)
+                pos += grp
+                ref_d.append(d[:len(grp)])
+                ref_i.append(i[:len(grp)])
+        order = torch.argsort(torch.tensor(pos, device=dev))
+        ok |= row_equiv(got_d, got_i, torch.cat(ref_d)[order], torch.cat(ref_i)[order])
+    return rows, ok, got_i
+
+
+def serve_window(before, after, stream):
+    """Flushes, buckets and mean occupancy of one stream between two
+    ``obs.to_json()`` snapshots."""
+    from raft_tpu_torch.obs import metrics
+
+    dl = metrics.delta(before, after)
+    pre = "raft_tpu_serve_flush_total{bucket=\""
+    buckets = {int(key[len(pre):].split("\"")[0]): int(v) for key, v in dl.items()
+               if key.startswith(pre) and f'stream="{stream}"' in key}
+    occ_sum = dl.get('raft_tpu_serve_batch_occupancy_sum{stream="%s"}' % stream, 0.0)
+    occ_cnt = dl.get('raft_tpu_serve_batch_occupancy_count{stream="%s"}' % stream, 0)
+    return sum(buckets.values()), dict(sorted(buckets.items())), occ_sum / max(occ_cnt, 1)
+
+
+def flush_profile(st, kind, searcher, qhost, k):
+    """One flush of ``searcher`` as the pipelined service runs it, at buckets
+    1 and 64 on device-resident queries: the dispatch (search and the start
+    of the copy to pinned host memory) under ``torch.cuda.
+    set_sync_debug_mode("warn")``, whose warnings count the host syncs the
+    dispatch makes; the milliseconds between CUDA events recorded before
+    and after it (``event_ms``: the card's busy and idle time of the
+    flush); the kernel launches it made; and, at bucket 64, the device's
+    busy time and idle share over one flush (torch.profiler, table in
+    ``serve_<kind>_flush_profile.txt``)."""
+    import warnings
+
+    import torch
+
+    from raft_tpu_torch.serve.service import _start_copy_to_host
+
+    dev = torch.device("cuda")
+    out = {}
+    for b in (1, SERVE_MAX_BATCH):
+        qd = torch.as_tensor(qhost[:b]).to(dev)
+        searcher(qd, k)                      # first calls of this shape
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        reset_all_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                e0.record()
+                _, done = _start_copy_to_host(searcher(qd, k))
+                e1.record()
+                dispatch_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        done.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+        out[b] = dict(host_syncs=len(syncs), event_ms=e0.elapsed_time(e1),
+                      dispatch_ms=dispatch_ms, wall_ms=wall_ms,
+                      launches={kk: v for kk, v in all_counts().items() if v})
+    prof = profile_batch(st, f"{kind} serve flush", f"serve_{kind}_flush_profile.txt",
+                         lambda: _start_copy_to_host(searcher(qd, k))[1].synchronize(),
+                         what=f"{SERVE_MAX_BATCH}-row flush")
+    # the idle share of an unprofiled flush: the profiler slows the host
+    out[SERVE_MAX_BATCH].update(
+        device_busy_ms=prof["device_busy_ms"],
+        idle_share=1.0 - prof["device_busy_ms"] / out[SERVE_MAX_BATCH]["wall_ms"])
+    return out
+
+
+def phase_serve(st):
+    """Phase 4: ``raft_tpu_torch.serve`` on the card. The serve path's
+    kernels at its small shapes (:func:`serve_kernel_checks`); then the JAX
+    package's serving row (bench.py:733-869, ``serve_ivf_pq_100k``) at the
+    IVF-PQ index of phase 2: the IVF-PQ + refine hook (search 4k candidates,
+    refine to k; bench.py:785-800) behind ``SearchService(max_batch=64,
+    max_wait_us=2000)``, 8 threads x 400 one-row requests at k=10, a second
+    IVF-PQ build (outside the timed window) published at mid-load, once
+    with ``pipeline_depth=2`` and once with 0; then brute force, IVF-Flat
+    and CAGRA (itopk 32) published on the same service and served 400
+    requests each. Every request must be answered, the swap must fail none,
+    the loaded window must build no kernel (``obs.compile.attribution``),
+    served rows must equal the serving index's direct search of the row
+    (CAGRA: recall@10 >= 0.95) and IVF-PQ + refine's recall@10 must reach
+    0.85. Prints QPS, the sequential batch-1 QPS, p50 / p99, occupancy,
+    host syncs, device ms and launches per flush, and the memory ledger
+    beside the second build's allocation delta."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.obs import RequestLog
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.serve import SearchService
+
+    serve_kernel_checks(st)
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+    index, q = st["ivf"]
+    serve_cold_publish(st, index)
+    x, truth = st["ivf_x"], st["ivf_truth"]
+    sp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
+    params = ivf_pq.IndexParams(n_lists=1024, pq_bits=4, pq_dim=64, seed=0)
+    k = K_MAIN
+
+    def pq_refine_hook(ix):
+        def fn(queries, k_):
+            qd = torch.as_tensor(queries, device=dev)
+            _, cand = ivf_pq.search(sp, ix, qd, 4 * k_, res=res)
+            return refine(x, qd, cand, k_, res=res)
+
+        fn.kind, fn.dim, fn.query_dtype, fn.device = "ivf_pq+refine", D_MAIN, "float32", dev
+        return fn
+
+    pool = q.cpu().numpy()
+    serving = pq_refine_hook(index)
+    serving(pool[:1], k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(SERVE_SEQ):                       # no batcher: one row a call
+        serving(pool[j:j + 1], k)[1].cpu()
+    seq_qps = SERVE_SEQ / (time.perf_counter() - t0)
+
+    # the swap target, built outside the timed window; its allocation delta
+    # against the ledger's bytes for it
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    index2 = ivf_pq.build(params, x, res=res)
+    torch.cuda.synchronize()
+    delta = torch.cuda.memory_allocated() - before
+    ledger_bytes = obs.mem.unaccounted_index_bytes(index2)
+    tok = obs.mem.account_index(index2, name="serve_v2")
+    emit(phase="serve_ledger", index="ivf_pq (swap target)", ledger_bytes=ledger_bytes,
+         allocation_delta_bytes=delta, ratio=ledger_bytes / max(delta, 1), tolerance=LEDGER_TOL,
+         hbm=obs.mem.hbm_stats(), card=st["card"])
+    assert abs(ledger_bytes - delta) <= LEDGER_TOL * delta, (ledger_bytes, delta)
+    obs.mem.release(tok)
+    swap_target = pq_refine_hook(index2)
+
+    stream = f"serve.k{k}"
+    other = None
+    for depth in (2, 0):
+        log = RequestLog(capacity=8192)
+        svc = SearchService(max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US,
+                            max_queue_rows=4 * SERVE_MAX_BATCH * SERVE_THREADS,
+                            pipeline_depth=depth, request_log=log)
+        first = svc.publish("serve", serving, k=k)
+        m_before = obs.to_json()
+        reset_all_counts()
+        with obs_compile.attribution() as rec:
+            lats, results, failures, load_s, swap_rep = serve_load(
+                svc, "serve", pool, SERVE_THREADS, SERVE_PER_THREAD, k, SERVE_CHECK,
+                swap=lambda: svc.publish("serve", swap_target, k=k))
+        torch.cuda.synchronize()
+        launches = all_counts()
+        flushes, buckets, occupancy = serve_window(m_before, obs.to_json(), stream)
+        # the window's searcher calls: its flushes and the swap's warm ladder
+        calls = flushes + len(swap_rep["warm"][k])
+        n_req = SERVE_THREADS * SERVE_PER_THREAD
+        rows, ok, got_i = served_rows_equal(results, log, (serving, swap_target), pool, k)
+        rec10 = recall(got_i, truth[rows])
+        lat_ms = np.sort(np.array(lats)) * 1e3
+        emit(phase="serve", path="ivf_pq + refine (serve_ivf_pq_100k's protocol)",
+             n=N_MAIN, d=D_MAIN, n_probes=8, k0=4 * k, k=k, pipeline_depth=depth,
+             threads=SERVE_THREADS, requests=n_req, max_batch=SERVE_MAX_BATCH,
+             max_wait_us=SERVE_WAIT_US, qps=(n_req - len(failures)) / load_s,
+             seq_qps=seq_qps, serve_over_seq=(n_req - len(failures)) / load_s / seq_qps,
+             p50_ms=float(lat_ms[len(lat_ms) // 2]),
+             p99_ms=float(lat_ms[int(len(lat_ms) * 0.99) - 1]),
+             mean_batch_occupancy=occupancy, flushes=flushes, flushes_by_bucket=buckets,
+             launches=launches, search_calls=calls,
+             launches_per_search_call={kk: v / calls for kk, v in launches.items() if v},
+             swap={"failed": len(failures), "version": swap_rep["version"],
+                   "warm": swap_rep["warm"][k]},
+             builds_in_window=rec.summary(), first_publish_warm=first["warm"][k],
+             staging=svc.staging_stats(), checked_rows=len(rows),
+             rows_equal_direct_search=int(ok.sum()), recall_at_10=rec10,
+             recall_floor=IVF_RECALL_FLOOR, card=st["card"])
+        assert not failures, failures[:5]
+        assert len(lats) == n_req
+        assert rec.programs == 0 and rec.cache_misses == 0 and rec.cache_hits == 0, (
+            rec.summary())
+        assert bool(ok.all()), (f"{int((~ok).sum())} served rows differ from the direct "
+                                f"search: rows {[rows[r] for r in torch.nonzero(~ok)[:5, 0]]}")
+        assert rec10 >= IVF_RECALL_FLOOR, f"recall@10 {rec10} below {IVF_RECALL_FLOOR}"
+        assert launches["pq_scan_topk"] > 0, "the served path did not launch pq_scan_topk"
+        add_serve_launches(st, launches)
+        if depth == 2:
+            other = serve_other_kinds(st, svc, log)
+        svc.shutdown()
+        assert svc.registry.live_versions("serve") == (2,)
+
+    profiles = {"ivf_pq+refine": flush_profile(st, "ivf_pq_refine", serving, pool, k),
+                **other}
+    emit(phase="serve_flush", per_kind=profiles, card=st["card"])
+    emit(phase="serve_launches", launches=st["launches_serve"], card=st["card"])
+
+
+def serve_other_kinds(st, svc, log):
+    """Brute force, IVF-Flat and CAGRA on the running service: publish each,
+    serve ``SERVE_OTHER_THREADS x SERVE_OTHER_PER_THREAD`` one-row requests,
+    hold the answers against the index's direct search of each row at the
+    shape that served it (CAGRA, whose entry pool is drawn per batch, by
+    recall@10). Returns each kind's flush profile."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import brute_force, cagra
+    from raft_tpu_torch.obs import compile as obs_compile
+
+    res = Resources(device="cuda")
+    x, qm = st["main"]
+    cindex, qc = st["cagra"]
+    findex, fsp = st["ivf_flat"]
+    csp = cagra.SearchParams(itopk_size=CAGRA_ITOPK)
+    kinds = {
+        "brute_force": (brute_force.BruteForce("sqeuclidean").build(x, res=res), None, qm,
+                        None),
+        "ivf_flat": (findex, fsp, qc, None),
+        "cagra": (cindex, csp, qc, st["cagra_truth"]),
+    }
+    n_req = SERVE_OTHER_THREADS * SERVE_OTHER_PER_THREAD
+    profiles = {}
+    for name, (ix, params, queries, truth) in kinds.items():
+        pool = queries[:n_req].cpu().numpy()
+        first = svc.publish(name, ix, search_params=params, k=K_MAIN)
+        with svc.registry.lease(name) as v:
+            searcher = v.searcher
+        m_before = obs.to_json()
+        reset_all_counts()
+        with obs_compile.attribution() as rec:
+            lats, results, failures, load_s, _ = serve_load(
+                svc, name, pool, SERVE_OTHER_THREADS, SERVE_OTHER_PER_THREAD, K_MAIN, n_req)
+        torch.cuda.synchronize()
+        launches = {kk: v for kk, v in all_counts().items() if v}
+        add_serve_launches(st, launches)
+        flushes, buckets, occupancy = serve_window(m_before, obs.to_json(), f"{name}.k{K_MAIN}")
+        rows, ok, got_i = served_rows_equal(results, log, (searcher,), pool, K_MAIN)
+        lat_ms = np.sort(np.array(lats)) * 1e3
+        out = dict(phase="serve", path=name, requests=n_req, threads=SERVE_OTHER_THREADS,
+                   qps=(n_req - len(failures)) / load_s,
+                   p50_ms=float(lat_ms[len(lat_ms) // 2]),
+                   p99_ms=float(lat_ms[int(len(lat_ms) * 0.99) - 1]), flushes=flushes,
+                   flushes_by_bucket=buckets, mean_batch_occupancy=occupancy,
+                   launches=launches,
+                   launches_per_flush={kk: v / flushes for kk, v in launches.items()},
+                   builds_in_window=rec.summary(), first_publish_warm=first["warm"][K_MAIN],
+                   failed=len(failures), checked_rows=len(rows),
+                   rows_equal_direct_search=int(ok.sum()), card=st["card"])
+        if truth is not None:
+            out.update(recall_at_10=recall(got_i, truth[rows]),
+                       recall_floor=CAGRA_RECALL_FLOOR)
+        emit(**out)
+        assert not failures, failures[:5]
+        assert rec.programs == 0 and rec.cache_misses == 0 and rec.cache_hits == 0, (
+            rec.summary())
+        if truth is None:
+            assert bool(ok.all()), f"{name}: {int((~ok).sum())} served rows differ"
+        else:
+            assert out["recall_at_10"] >= CAGRA_RECALL_FLOOR, out["recall_at_10"]
+        if name == "brute_force":
+            back_to_back(svc, searcher, qm)
+        profiles[name] = flush_profile(st, name, searcher, pool, K_MAIN)
+    return profiles
+
+
+def back_to_back(svc, searcher, queries, blocks=20):
+    """Full 64-row buckets submitted back to back, faster than they flush:
+    the pipelined path rewrites each bucket's pinned staging buffers
+    several times over, and every answer must equal the direct search of
+    its block (a buffer rewritten before its upload landed would not)."""
+    import torch
+
+    dev = torch.device("cuda")
+    pool = queries[:blocks * SERVE_MAX_BATCH].cpu().numpy()
+    futs = [svc.submit("brute_force", pool[b * SERVE_MAX_BATCH:(b + 1) * SERVE_MAX_BATCH],
+                       K_MAIN) for b in range(blocks)]
+    got = [f.result(timeout=120) for f in futs]
+    got_d = torch.cat([torch.from_numpy(d) for d, _ in got]).to(dev)
+    got_i = torch.cat([torch.from_numpy(i) for _, i in got]).to(dev)
+    ref = [searcher(pool[b * SERVE_MAX_BATCH:(b + 1) * SERVE_MAX_BATCH], K_MAIN)
+           for b in range(blocks)]
+    ok = row_equiv(got_d, got_i, torch.cat([r[0] for r in ref]), torch.cat([r[1] for r in ref]))
+    emit(phase="serve_back_to_back", blocks=blocks, rows_per_block=SERVE_MAX_BATCH,
+         rows_equal_direct_search=int(ok.sum()), rows=int(ok.numel()),
+         staging=svc.staging_stats().get(f"brute_force.k{K_MAIN}"))
+    assert bool(ok.all()), f"{int((~ok).sum())} rows of back-to-back buckets differ"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0123",
-                    help="phases to run, e.g. 01 (default: all)")
+    ap.add_argument("--phases", default="01234",
+                    help="phases to run, e.g. 01 (default: all); 4 needs 2")
     ap.add_argument("--out", default=os.path.join("build", "profiles"),
                     help="directory for the IVF-PQ, CAGRA and IVF-Flat profile tables")
     args = ap.parse_args(argv)
@@ -2658,6 +3225,10 @@ def main(argv=None):
     phase_build(st)
     if "1" in args.phases:
         phase_kernels(st)
+    if "4" in args.phases and "2" not in args.phases:
+        print("chip_smoke: phase 4 serves phase 2's indexes; run it with 2",
+              file=sys.stderr)
+        return 2
     if "2" in args.phases:
         phase_main(st)
         phase_tc_path(st)
@@ -2668,6 +3239,8 @@ def main(argv=None):
         phase_slice(st)
         phase_ball_cover(st)
         phase_matrix_ops(st)
+    if "4" in args.phases:
+        phase_serve(st)
     if "3" in args.phases and "2" in args.phases:
         time_fused_modes(st)
         phase_times(st)
@@ -2675,12 +3248,13 @@ def main(argv=None):
         time_cagra_hop(st)
     if all(p in args.phases for p in "123"):
         launches = st["launches"]
+        serve = st.get("launches_serve", {})
         emit(kernels=[
             dict(name="fused_knn", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn.cu",
                  replaces="raft_tpu/ops/fused_knn.py:150", mode="f32",
-                 launches=launches["fused_knn"], max_abs_err=st["fused_err"],
-                 **st["fused_t"]),
+                 launches=launches["fused_knn"], launches_serve=serve.get("fused_knn"),
+                 max_abs_err=st["fused_err"], **st["fused_t"]),
             dict(name="fused_knn_tc", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
                  replaces="raft_tpu/ops/fused_knn.py:150", mode="bf16",
@@ -2696,6 +3270,7 @@ def main(argv=None):
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
                  replaces="raft_tpu/ops/topk.py:91", launches=launches["topk"],
                  launches_ivf_flat=launches["topk_ivf_flat"],
+                 launches_serve=serve.get("topk"),
                  launches_ball_cover={m: launches[f"topk_ball_cover_{m}"]
                                       for m in ("sqeuclidean", "haversine")},
                  max_abs_err=st["topk_err"], **st["topk_t"]),
@@ -2706,6 +3281,7 @@ def main(argv=None):
                  max_abs_err=st["pq_err"], **st["pq_t"]),
             dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
                  replaces="raft_tpu/ops/pq_scan.py:61", launches=launches["pq_scan_topk"],
+                 launches_serve=serve.get("pq_scan_topk"),
                  launches_filtered={str(f): launches[f"pq_scan_topk_filtered_{f}"]
                                     for f in FILTER_KEEP},
                  launches_codecs={n: launches[f"pq_scan_topk_{n}"]
@@ -2714,6 +3290,7 @@ def main(argv=None):
             dict(name="cagra_hop", route="cuda",
                  source="raft_tpu_torch/ops/csrc/cagra_hop.cu",
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
+                 launches_serve=serve.get("cagra_hop"),
                  launches_int8_rows=launches["cagra_hop_int8"],
                  max_abs_err=st["hop_err"], **st["hop_t"]),
         ])

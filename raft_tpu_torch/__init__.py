@@ -10,7 +10,8 @@ Entry points run on ``cuda`` unless the caller passes
 ``Resources(device="cpu")``; a CPU tensor takes each kernel's plain version.
 
 Ported so far:
-  core       errors, resource handle, index-file serialization (raft_tpu/13)
+  core       errors, resource handle, index-file serialization (raft_tpu/13),
+             logging, profiler ranges
   cluster    k-means, balanced k-means
   distance   metric vocabulary, pairwise distances (every metric), fused and
              masked L2 nearest neighbour, Gram matrices
@@ -18,7 +19,11 @@ Ported so far:
   neighbors  brute-force kNN (the ``fused_knn`` kernel), IVF-Flat, IVF-PQ
              (the ``pq_scan`` kernel), CAGRA (the ``cagra_hop`` kernel),
              exact refine, the epsilon neighbourhood, sample filters
+  obs        metrics, kernel-build attribution, the event journal, request
+             traces, the memory ledger and its budget gate
   ops        the kernels and their build
+  serve      micro-batched serving with warm hot-swap (SearchService,
+             IndexRegistry, MicroBatcher, StagingBuffers)
   spatial    the legacy spatial::knn entry points
   stats      dispersion
 """
@@ -28,8 +33,8 @@ import importlib
 from .core import RaftError, Resources, default_resources, set_default_resources
 from .version import __version__
 
-_SUBMODULES = {"cluster", "core", "distance", "matrix", "neighbors", "ops", "spatial",
-               "stats"}
+_SUBMODULES = {"cluster", "core", "distance", "matrix", "neighbors", "obs", "ops", "serve",
+               "spatial", "stats"}
 
 
 def __getattr__(name):

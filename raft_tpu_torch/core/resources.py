@@ -37,8 +37,8 @@ class Resources:
         ``distance.pairwise._choose_tile`` on the GEMM + top-k path. The
         fused kernel does not read it.
       memory_budget_bytes: hard budget for long-lived device allocations
-        (``None`` = unenforced). The admission gates that read it wait for
-        the port of ``obs.mem``.
+        (``None`` = unenforced), read at ``serve`` publish through
+        ``obs.mem.gate``. The build-time gates wait for ``core/chunked.py``.
     """
 
     device: Any = "cuda"

@@ -354,4 +354,4 @@ def batched_searcher(index: BruteForce, params=None):
     expects(index.dataset is not None, "index is not built")
     expects(params is None, "brute_force has no search params")
     return make_hook(index.search, "brute_force", index.dataset.shape[1],
-                     _dtype_name(index.dataset))
+                     _dtype_name(index.dataset), index.dataset.device)

@@ -33,8 +33,8 @@ An int8 / uint8 dataset builds on its float32 image and is stored and
 searched as signed bytes (``cagra_hop`` reads int8 rows).
 
 Not yet ported (each raises ``RaftError("not yet ported")``): the streamed
-build from a chunked reader, ``batched_searcher`` and the serve / tune hooks, the obs
-instrument and memory gates, and the distributed CAGRA.
+build from a chunked reader, the tune hook (``batched_searcher`` of a tuned index
+without params), the obs instrument and memory gates, and the distributed CAGRA.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ from .refine import refine
 
 __all__ = ["IndexParams", "SearchParams", "CagraIndex", "build", "search",
            "build_knn_graph", "optimize", "estimate_seed_pool", "save", "load",
-           "write_index", "read_index", "from_state"]
+           "write_index", "read_index", "from_state", "batched_searcher"]
 
 logger = logging.getLogger("raft_tpu_torch")
 
@@ -668,3 +668,18 @@ def load(path: str, res: Resources | None = None) -> CagraIndex:
     dev = (res or default_resources()).torch_device
     with open(path, "rb") as f:
         return read_index(f, dev)
+
+
+def batched_searcher(index: CagraIndex, params: SearchParams | None = None):
+    """The serving hook (contract in :mod:`._hooks`): ``fn(queries, k) ->
+    (distances, ids)`` with ``kind``, ``dim``, ``query_dtype`` and
+    ``device``. The serving ``k`` must satisfy ``k <= itopk_size``. An index
+    with a tune decision and no ``params`` would take its pinned operating
+    point from ``tune/``, which is not yet ported."""
+    from ._hooks import make_hook
+
+    if params is None and index.tuned is not None:
+        _not_ported("batched_searcher of a tuned index without params (tune.apply)")
+    sp = params or SearchParams()
+    return make_hook(lambda queries, k: search(sp, index, queries, k),
+                     "cagra", index.dim, index.data_kind, index.device)

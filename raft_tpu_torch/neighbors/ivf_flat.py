@@ -481,4 +481,4 @@ def batched_searcher(index: IvfFlatIndex, params: SearchParams | None = None):
         _not_ported("batched_searcher of a tuned index without params (tune.apply)")
     sp = params or SearchParams()
     return make_hook(lambda queries, k: search(sp, index, queries, k),
-                     "ivf_flat", index.dim, index.data_kind)
+                     "ivf_flat", index.dim, index.data_kind, index.device)

@@ -1356,7 +1356,7 @@ def batched_searcher(index: IvfPqIndex, params: SearchParams | None = None):
         _not_ported("batched_searcher of a tuned index without params (tune.apply)")
     sp = params or SearchParams()
     return make_hook(lambda queries, k: search(sp, index, queries, k),
-                     "ivf_pq", index.dim, index.data_kind)
+                     "ivf_pq", index.dim, index.data_kind, index.device)
 
 
 def write_index(f, index: IvfPqIndex) -> None:

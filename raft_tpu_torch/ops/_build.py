@@ -13,6 +13,15 @@ an edited source builds anew and an unchanged one loads from the cache.
 register, shared-memory and spill report (``-Xptxas -v``) is printed once
 per process. A failed build raises; nothing is downloaded, only the sources
 here and the CUDA toolkit are used.
+
+Loading is thread-safe: one module lock covers :func:`build_all` and the
+first :func:`load` of a kernel, so two threads (a serve flush worker and
+the caller, say) never both start nvcc for one source. Each nvcc run and
+each cached library loaded is reported to
+:func:`raft_tpu_torch.obs.compile.record_build`, so a region's builds show
+in its ``obs.compile.attribution()``. The wrappers count their launches
+with :func:`count_launch`, under a lock of its own, so launches from
+concurrent threads are not lost.
 """
 
 from __future__ import annotations
@@ -23,12 +32,14 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 from ..core.errors import RaftError
+from ..obs import compile as obs_compile
 
-__all__ = ["build_all", "load", "SOURCES"]
+__all__ = ["build_all", "load", "count_launch", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -38,6 +49,18 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _reports: dict[str, str] = {}   # name -> ptxas report of this process's build
+_lock = threading.Lock()        # builds and loads
+_count_lock = threading.Lock()  # launch counters
+
+
+def count_launch(fn, mode=None) -> None:
+    """Add one to the wrapper ``fn``'s ``launches`` (and to
+    ``launches_by_mode[mode]``): a read-modify-write that concurrent flushes
+    would otherwise lose."""
+    with _count_lock:
+        fn.launches += 1
+        if mode is not None:
+            fn.launches_by_mode[mode] += 1
 
 
 def _nvcc() -> str:
@@ -77,6 +100,11 @@ def _start(name: str):
 def build_all(names=SOURCES) -> dict:
     """Build every named kernel library (one nvcc each, run in parallel)
     and load it. Returns {name: seconds spent building, 0.0 if cached}."""
+    with _lock:
+        return _build_locked(names)
+
+
+def _build_locked(names) -> dict:
     t0 = time.perf_counter()
     started = {n: _start(n) for n in names if n not in _libs}
     secs = {n: 0.0 for n in names}
@@ -94,14 +122,19 @@ def build_all(names=SOURCES) -> dict:
             print(f"[raft_tpu_torch] built {lib.name} in {secs[name]:.1f} s; "
                   f"ptxas report:\n{out.strip()}", file=sys.stderr, flush=True)
         _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        obs_compile.record_build(name, secs[name], cached=job is None)
     return secs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built at first use."""
-    if name not in _libs:
-        build_all((name,))
-    return _libs[name]
+    lib = _libs.get(name)
+    if lib is None:
+        with _lock:
+            if name not in _libs:
+                _build_locked((name,))
+            lib = _libs[name]
+    return lib
 
 
 def report(name: str) -> str:

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.errors import expects
+from ._build import count_launch
 
 __all__ = ["cagra_hop", "cagra_hop_plain", "hop_shapes_eligible", "MAX_D", "POOL"]
 
@@ -224,7 +225,7 @@ def _launch(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, itopk, width,
                  beam_d.data_ptr(), beam_i.data_ptr(), beam_v.data_ptr(), nbrs.data_ptr(),
                  valid.data_ptr(), cw, itopk, width, _MERGES[merge], od.data_ptr(),
                  oi.data_ptr(), ov.data_ptr(), pick.data_ptr(), nocand.data_ptr(), stream)
-    cagra_hop.launches += 1
+    count_launch(cagra_hop)
     expects(err == 0, "cagra_hop kernel launch failed: cudaError %d", err)
     return od, oi, ov, pick, nocand
 

@@ -39,6 +39,7 @@ import math
 import torch
 
 from ..core.errors import expects
+from ._build import count_launch
 from ..distance.pairwise import full_f32
 from .topk import top_k_lowest_index
 
@@ -119,7 +120,7 @@ def bf16_split(x):
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), hi.data_ptr(), lo.data_ptr(), x.numel(),
                  torch.cuda.current_stream(x.device).cuda_stream)
-    bf16_split.launches += 1
+    count_launch(bf16_split)
     expects(err == 0, "bf16_split kernel launch failed: cudaError %d", err)
     return hi, lo
 
@@ -339,8 +340,7 @@ def _launch(qs, ds, yn, k, l2, mode):
             fn.restype = ctypes.c_int
             err = fn(ops[0].data_ptr(), ops[1].data_ptr(), yn.data_ptr(), m, n, d, k,
                      int(l2), ns, *outs, stream)
-    fused_knn.launches += 1
-    fused_knn.launches_by_mode[mode] += 1
+    count_launch(fused_knn, mode)
     expects(err == 0, "fused_knn kernel launch failed: cudaError %d", err)
     return out_v, out_i
 

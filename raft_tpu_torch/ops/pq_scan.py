@@ -45,6 +45,7 @@ import math
 import torch
 
 from ..core.errors import expects
+from ._build import count_launch
 from .topk import TOPK_MAX_K, topk_plain
 
 __all__ = ["pq_scan", "pq_scan_plain", "pq_scan_topk", "pq_scan_topk_plain",
@@ -114,7 +115,7 @@ def _launch(list_codes, probe_lists, lut, split):
         err = fn(_LUT_CODE[lut.dtype], int(split), list_codes.data_ptr(),
                  probe_lists.data_ptr(), lut.data_ptr(), pairs, n_lists, cap, s,
                  out.data_ptr(), stream)
-    pq_scan.launches += 1
+    count_launch(pq_scan)
     expects(err == 0, "pq_scan kernel launch failed: cudaError %d", err)
     return out
 
@@ -268,7 +269,7 @@ def _launch_topk(list_codes, list_ids, probe_lists, lut, bias, k, select_min, sp
                  0 if keep_words is None else keep_words.shape[0], probe_lists.data_ptr(),
                  lut.data_ptr(), bias.data_ptr(), t, pc, n_lists, cap, s, k, int(select_min),
                  out_v.data_ptr(), out_i.data_ptr(), stream)
-    pq_scan_topk.launches += 1
+    count_launch(pq_scan_topk)
     expects(err == 0, "pq_scan_topk kernel launch failed: cudaError %d", err)
     return out_v, out_i
 

@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from ..core.errors import expects
+from ._build import count_launch
 
 __all__ = ["topk", "topk_plain", "top_k_lowest_index", "lowest_index_positions",
            "float_order_key", "gather_exact", "TOPK_MAX_K"]
@@ -165,7 +166,7 @@ def _launch(x: torch.Tensor, k: int, select_min: bool, in_idx):
                  None if in_idx is None else in_idx.data_ptr(),
                  0 if in_idx is None else _PAYLOAD_CODE[in_idx.dtype],
                  out_v.data_ptr(), out_i.data_ptr(), stream)
-    topk.launches += 1
+    count_launch(topk)
     expects(err == 0, "topk kernel launch failed: cudaError %d", err)
     return out_v, out_i
 

@@ -595,3 +595,48 @@ def test_cagra_search_on_card_equals_cpu(cuda, tmp_path):
     rd, ri = cagra._cagra_search(index, torch.from_numpy(q), 10, 32, 42, 1, False,
                                  seed_pool=64, hop_impl="fused_arena", pool_ids=ids)
     _knn_equiv(d.cpu(), i.cpu(), rd, ri, rtol=1e-5, atol=1e-5)
+
+
+def test_pipelined_service_on_card_equals_direct_search(cuda):
+    """The pipelined serve path on the card: full 64-row buckets submitted
+    back to back through pinned staging buffers and device slots (the
+    rotation rewrites each buffer several times) answer as direct searches
+    of the same blocks; the slots are reused and no kernel is built."""
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.serve import SearchService
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.rand((50_000, 128), generator=g, device=cuda)
+    q = torch.rand((20 * 64, 128), generator=g, device=cuda).cpu().numpy()
+    index = BruteForce("sqeuclidean").build(x, res=Resources(device="cuda"))
+    svc = SearchService(max_batch=64, max_wait_us=2000, pipeline_depth=2)
+    try:
+        svc.publish("bf", index, k=10)
+        with obs_compile.attribution() as rec:
+            futs = [svc.submit("bf", q[b * 64:(b + 1) * 64], 10) for b in range(20)]
+            got = [f.result(timeout=60) for f in futs]
+        stats = svc.staging_stats()["bf.k10"]
+    finally:
+        svc.shutdown()
+    assert rec.programs == 0 and rec.cache_hits == 0
+    assert stats["pinned"] and stats["slot_reuses"] >= 1
+    for b, (d, i) in enumerate(got):
+        rd, ri = index.search(q[b * 64:(b + 1) * 64], 10)
+        _knn_equiv(torch.from_numpy(d), torch.from_numpy(i), rd.cpu(), ri.cpu())
+
+
+def test_cagra_batched_searcher_serves_on_card(cuda):
+    """CAGRA's serving hook answers as ``search`` with the same params on
+    the card, at the serve ladder's smallest and largest buckets."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.rand((20_000, 64), generator=g, device=cuda)
+    index = cagra.build(cagra.IndexParams(graph_degree=32, intermediate_graph_degree=64),
+                        x, res=Resources(device="cuda"))
+    sp = cagra.SearchParams(itopk_size=32)
+    hook = cagra.batched_searcher(index, sp)
+    assert hook.kind == "cagra" and hook.dim == 64 and hook.device.type == "cuda"
+    for m in (1, 64):
+        q = torch.rand((m, 64), generator=g, device=cuda)
+        d, i = hook(q, 10)
+        rd, ri = cagra.search(sp, index, q, 10)
+        assert torch.equal(i, ri) and torch.equal(d, rd)
