@@ -4,7 +4,7 @@ end to end.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --phases 01  # build and kernel checks only
-    python3 chip_smoke.py --phases 0124  # all but phase 3's timings
+    python3 chip_smoke.py --phases 01245  # all but phase 3's timings
     python3 chip_smoke.py --out DIR    # where the profile tables go
                                        # (default build/profiles)
 
@@ -139,9 +139,38 @@ Phases, each printing JSON lines:
      + refine recall@10 >= 0.85, and the memory ledger's bytes for the
      second build within 10% of its allocation delta. Prints QPS, p50 /
      p99, occupancy, host syncs (``torch.cuda.set_sync_debug_mode``),
-     device ms and launches a flush for each index kind.
+     device ms and launches a flush for each index kind; ``fused_knn`` at m
+     = 1 and 64 is timed beside ``torch.addmm`` + ``torch.topk``;
+  5. ``raft_tpu_torch.stream`` behind ``SearchService.upsert`` / ``delete``
+     (after phase 4, on phase 2's indexes and data): the IVF-PQ churn row of
+     the JAX package (bench.py:1122-1185, ``serve_churn_ivf_pq_100k``'s
+     protocol) on the 1M IVF-PQ index: ``MutableIndex(delta_capacity=4096,
+     retain_vectors=False)`` published on ``SearchService(max_batch=64,
+     max_wait_us=2000)``, ``Compactor(CompactionPolicy(delta_fill=0.75))``,
+     8 closed-loop reader threads, one writer of 64 steps x (96 upserts of
+     fresh blob rows + 32 deletes of random live ids) folding (extend) at
+     the watermark; brute force over the 1M uniform set with the delta
+     taken across the 2,048 -> 4,096 bucket and a rebuild, ids against a
+     fresh ``knn`` over the live rows; the CAGRA churn row (bench.py:
+     1187-1215, 100k x 128 clustered, ``IndexParams(seed=0)``, itopk 32, 48
+     steps, rebuild folds); ``pq_scan_topk`` under a ~3% tombstone bitset
+     on phase 2's index (two 128-query tiles) and on the churn index as its
+     folds extended it, with its own tombstone words, at T = 1, 4 and 64,
+     and ``fused_knn`` over the 4,096-row delta with its keep mask (m = 1,
+     8, 64), against their plain versions. Every window must fail no request
+     and build no kernel, each write step's rows must come back at rank 0,
+     no read submitted after a delete returned may hold the deleted id, the
+     IVF-PQ window must fold at least twice, and recall@10 through the
+     service right after the first fold must be within 0.01 of a fresh
+     build over the same live rows (IVF-PQ and CAGRA). Prints write rows/s,
+     read QPS, p50 / p99, each fold's wall time, bytes uploaded per write
+     step, and a mutable flush at 8 and 64 rows (host syncs, launches,
+     device ms).
 
-The line before the last lists the kernels; the last line is
+The line before the last lists the kernels (``launches_stream``: phase 5's
+windows; ``launches_stream_folds``: the part of those that the compactions'
+folds made on the writer thread, CAGRA's rebuild graph build among them);
+the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line; so does a machine without CUDA.
 """
@@ -149,6 +178,7 @@ exits non-zero without that line; so does a machine without CUDA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import os
@@ -1108,6 +1138,7 @@ def phase_ivf(st):
     phase_ivf_bytes(st, x, q, IVF_CHECK)
     phase_ivf_codecs(st, x, q, truth)
     st["ivf"] = (index, q)
+    st["ivf_centers"] = centers
     st["ivf_x"], st["ivf_truth"] = x, truth
 
 
@@ -2725,9 +2756,12 @@ def serve_kernel_checks(st):
     from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
     from raft_tpu_torch.ops.pq_scan import pq_scan_topk, pq_scan_topk_plain
 
+    from raft_tpu_torch.distance.pairwise import full_f32
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(40)
     x, q = st["main"]
+    yn = x.square().sum(1)
     err = 0.0
     for m in (1, 64):
         dv, di = fused_knn(x, q[:m], K_MAIN)
@@ -2735,12 +2769,22 @@ def serve_kernel_checks(st):
         rd, ri = fused_knn_plain(x, q[:m], K_MAIN)
         e = knn_equiv(dv, di, rd, ri, rtol=1e-5, atol=1e-5)
         err = max(err, e)
+
+        def library(qm=q[:m]):
+            # the same function as two PyTorch calls: the expanded-L2
+            # product (full float32) and torch.topk
+            with full_f32():
+                dd = torch.addmm(yn[None, :], qm, x.T, alpha=-2.0)
+            torch.topk(dd, K_MAIN, dim=1, largest=False)
+
         # its time at the serving shape, beside the bound of reading the set
+        # and the library calls' time
         t_ops = 2.0 * m * N_MAIN * D_MAIN / H100_F32_FLOPS
         t_bytes = ((N_MAIN * D_MAIN + m * D_MAIN + N_MAIN) * 4 + m * K_MAIN * 8) / H100_BYTES_S
         emit(phase="check", kernel="fused_knn", n=N_MAIN, d=D_MAIN, m=m, k=K_MAIN,
              mode="f32", max_abs_err=e, ok=True, serve=True,
              ms=cuda_ms(lambda: fused_knn(x, q[:m], K_MAIN), reps=5),
+             library_ms=cuda_ms(library, reps=5), library="torch.addmm + torch.topk",
              bound_ms=max(t_ops, t_bytes) * 1e3,
              bound_by="operations" if t_ops >= t_bytes else "bytes", card=st["card"])
     st["fused_err"] = max(st.get("fused_err", 0.0), err)
@@ -2925,9 +2969,9 @@ def serve_window(before, after, stream):
     return sum(buckets.values()), dict(sorted(buckets.items())), occ_sum / max(occ_cnt, 1)
 
 
-def flush_profile(st, kind, searcher, qhost, k):
-    """One flush of ``searcher`` as the pipelined service runs it, at buckets
-    1 and 64 on device-resident queries: the dispatch (search and the start
+def flush_profile(st, kind, searcher, qhost, k, buckets=(1, SERVE_MAX_BATCH)):
+    """One flush of ``searcher`` as the pipelined service runs it, at
+    ``buckets`` (1 and 64 by default) on device-resident queries: the dispatch (search and the start
     of the copy to pinned host memory) under ``torch.cuda.
     set_sync_debug_mode("warn")``, whose warnings count the host syncs the
     dispatch makes; the milliseconds between CUDA events recorded before
@@ -2943,7 +2987,7 @@ def flush_profile(st, kind, searcher, qhost, k):
 
     dev = torch.device("cuda")
     out = {}
-    for b in (1, SERVE_MAX_BATCH):
+    for b in buckets:
         qd = torch.as_tensor(qhost[:b]).to(dev)
         searcher(qd, k)                      # first calls of this shape
         torch.cuda.synchronize()
@@ -3200,10 +3244,515 @@ def back_to_back(svc, searcher, queries, blocks=20):
     assert bool(ok.all()), f"{int((~ok).sum())} rows of back-to-back buckets differ"
 
 
+# -- phase 5: the write path (raft_tpu_torch.stream behind the service) ----------
+
+STREAM_CAP, STREAM_FILL = 4096, 0.75                    # bench.py:1122 _row_serve_churn
+STREAM_STEPS, STREAM_UPSERTS, STREAM_DELETES = 64, 96, 32
+CAGRA_CHURN_N, CAGRA_CHURN_STEPS = 100_000, 48          # bench.py:1187 _row_serve_churn_cagra
+STREAM_THREADS = 8
+STREAM_EVAL = 1_000             # recall@10 queries through the service after the first fold
+STREAM_RYW = 4                  # rows just upserted, searched after each write step
+STREAM_RECALL_GAP = 0.01        # the JAX rows' recall_gap bound (bench.py:1135-1138)
+STREAM_DELETED = 0.03           # share of ids the pq_scan_topk check tombstones
+
+
+def churn_window(st, svc, name, m, comp, pool, fresh, n0, steps, eval_q):
+    """The churn protocol of bench.py's ``_serve_churn_impl`` (bench.py:1217)
+    on a published ``MutableIndex``: ``STREAM_THREADS`` closed-loop reader
+    threads send one-row queries from ``pool`` while one writer runs
+    ``steps`` steps of ``STREAM_UPSERTS`` upserts (rows ``fresh``, fresh ids
+    from ``n0`` on) and ``STREAM_DELETES`` deletes of random live ids, and
+    calls ``comp.run_once()`` at the watermark. After each step a search for
+    ``STREAM_RYW`` of the rows just upserted must return each one's id at
+    rank 0; right after the first fold ``eval_q`` is searched through the
+    service and the live ids are recorded. The whole window runs under the
+    launch counters (set to 0 just before) and build attribution; the
+    launches the folds make on the writer thread (``launch_tally``) are
+    reported apart from the window's total, which also holds the reads
+    other threads served meanwhile. Returns what the window measured; every
+    read is checked afterwards for ids deleted before it was submitted."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.ops._build import launch_tally
+
+    rng = np.random.default_rng(14)
+    k = K_MAIN
+    alive = np.zeros(n0 + steps * STREAM_UPSERTS, bool)
+    alive[:n0] = True
+    deleted_at = np.full(alive.shape[0], np.inf)
+    done = threading.Event()
+    lock = threading.Lock()
+    lats, reads, failures, ryw_bad, reports, snap, folds = [], [], [], [], [], {}, []
+    uploaded0 = m.uploaded_bytes
+
+    def ask(queries):
+        return svc.submit(name, queries, k).result(timeout=120)
+
+    def reader(tid):
+        my_l, my_r, j = [], [], 0
+        while not done.is_set():
+            qi = (tid + j * STREAM_THREADS) % pool.shape[0]
+            j += 1
+            t0 = time.perf_counter()
+            try:
+                _, i = ask(pool[qi:qi + 1])
+            except Exception as e:  # every loss is counted and fails the phase
+                with lock:
+                    failures.append(f"{type(e).__name__}: {str(e)[:120]}")
+                continue
+            my_l.append((t0, time.perf_counter() - t0))
+            my_r.append((t0, i[0]))
+        with lock:
+            lats.extend(my_l)
+            reads.extend(my_r)
+
+    reset_all_counts()
+    write_calls_s, fold_bytes, fold_launches = 0.0, 0, {}
+    with obs_compile.attribution() as rec:
+        workers = [threading.Thread(target=reader, args=(t,)) for t in range(STREAM_THREADS)]
+        t_load = time.perf_counter()
+        for w in workers:
+            w.start()
+        t_write = time.perf_counter()
+        for step in range(steps):
+            lo = step * STREAM_UPSERTS
+            ids = n0 + np.arange(lo, lo + STREAM_UPSERTS)
+            t0 = time.perf_counter()
+            svc.upsert(name, fresh[lo:lo + STREAM_UPSERTS], ids=ids)
+            cand = np.flatnonzero(alive)
+            dels = rng.choice(cand, STREAM_DELETES, replace=False)
+            alive[ids] = True
+            svc.delete(name, dels)
+            t1 = time.perf_counter()
+            write_calls_s += t1 - t0
+            deleted_at[dels] = t1
+            alive[dels] = False
+            probe = rng.choice(STREAM_UPSERTS, STREAM_RYW, replace=False)
+            t0 = time.perf_counter()
+            _, got = ask(fresh[lo + probe])
+            reads.extend((t0, r) for r in got)
+            if got[:, 0].tolist() != ids[probe].tolist():
+                ryw_bad.append((step, got[:, 0].tolist(), ids[probe].tolist()))
+            while comp.due():
+                u0, f0 = m.uploaded_bytes, time.perf_counter()
+                with launch_tally() as tally:
+                    reports.append(comp.run_once())
+                folds.append((f0, time.perf_counter()))
+                add_counts(fold_launches, tally_counts(tally))
+                fold_bytes += m.uploaded_bytes - u0
+                if len(reports) == 1:
+                    snap["ids"] = np.concatenate([ask(eval_q[b:b + SERVE_MAX_BATCH])[1]
+                                                  for b in range(0, eval_q.shape[0],
+                                                                 SERVE_MAX_BATCH)])
+                    snap["live"] = np.flatnonzero(alive)
+        write_s = time.perf_counter() - t_write
+        done.set()
+        for w in workers:
+            w.join(600)
+            assert not w.is_alive(), "a reader thread did not finish"
+        load_s = time.perf_counter() - t_load
+    torch.cuda.synchronize()
+    launches = all_counts()
+    # deletes stay invisible: no read submitted after a delete returned
+    # holds its id (ids are never upserted again)
+    late = [(t, [int(g) for g in i if g >= 0 and deleted_at[g] < t]) for t, i in reads]
+    late = [x for x in late if x[1]]
+    lat_ms = np.sort(np.array([dt for _, dt in lats])) * 1e3
+    # the reads that overlapped a fold (submitted before it ended, answered
+    # after it began) apart from the rest
+    during = [dt for t, dt in lats if any(t < f1 and t + dt > f0 for f0, f1 in folds)]
+    clear = np.sort(np.array([dt for t, dt in lats
+                              if not any(t < f1 and t + dt > f0 for f0, f1 in folds)])) * 1e3
+    out = dict(reads=len(lats), qps=len(lats) / load_s, p50_ms=float(lat_ms[len(lat_ms) // 2]),
+               p99_ms=float(lat_ms[int(len(lat_ms) * 0.99) - 1]),
+               reads_during_folds=len(during),
+               max_ms_during_folds=max(during, default=0.0) * 1e3,
+               p50_ms_outside_folds=float(clear[len(clear) // 2]),
+               p99_ms_outside_folds=float(clear[int(len(clear) * 0.99) - 1]),
+               write_rows_per_s=steps * (STREAM_UPSERTS + STREAM_DELETES) / write_s,
+               write_call_rows_per_s=steps * (STREAM_UPSERTS + STREAM_DELETES) / write_calls_s,
+               compactions=len(reports),
+               compaction_wall_s=[r["wall_s"] for r in reports],
+               compaction_compile_s=[r["compile_s"] for r in reports],
+               folded_rows=[r["folded"] for r in reports], modes=[r["mode"] for r in reports],
+               uploaded_bytes_per_step=(m.uploaded_bytes - uploaded0 - fold_bytes) / steps,
+               uploaded_bytes_per_fold=fold_bytes / max(len(reports), 1),
+               failed=len(failures), ryw_failures=len(ryw_bad), deleted_ids_seen=len(late),
+               checked_reads=len(reads), builds_in_window=rec.summary(),
+               launches={kk: v for kk, v in launches.items() if v},
+               launches_folds=fold_launches)
+    assert not failures, failures[:5]
+    assert not ryw_bad, ryw_bad[:3]
+    assert not late, late[:3]
+    assert rec.programs == 0 and rec.cache_misses == 0 and rec.cache_hits == 0, rec.summary()
+    assert reports, "the writer never reached the compaction watermark"
+    add_counts(st.setdefault("launches_stream", {}), launches)
+    add_counts(st.setdefault("launches_stream_folds", {}), fold_launches)
+    return out, snap
+
+
+def tally_counts(tally):
+    """A ``launch_tally`` dict under ``all_counts``' names."""
+    out = {}
+    for (name, mode), v in tally.items():
+        if name == "fused_knn":
+            name = "fused_knn" if mode == "f32" else "fused_knn_tc"
+        out[name] = out.get(name, 0) + v
+    return out
+
+
+def add_counts(total, counts):
+    for kk, v in counts.items():
+        if v:
+            total[kk] = total.get(kk, 0) + v
+
+
+def churn_recall(snap, rows_of, eval_q, fresh_search):
+    """recall@10 of the service's answers right after the first fold and of
+    a fresh build over exactly the live rows of that instant, both against
+    the live rows' exact neighbours (bench.py:1395-1412)."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import brute_force
+
+    live = snap["live"]
+    rows = rows_of(torch.from_numpy(live).to("cuda"))
+    qd = torch.as_tensor(eval_q, device="cuda")
+    _, pos = brute_force.knn(rows, qd, K_MAIN, res=Resources(device="cuda"))
+    truth = torch.from_numpy(live).to("cuda")[pos.long()]
+    got = torch.from_numpy(snap["ids"]).to("cuda").long()
+    _, fpos = fresh_search(rows, qd)
+    fresh_ids = torch.where(fpos >= 0, torch.from_numpy(live).to("cuda")[fpos.clamp_min(0).long()],
+                            -1)
+    del rows
+    return recall(got, truth), recall(fresh_ids, truth)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside (comparisons with plain versions, ground truth)
+    leave every kernel's launch count as it was."""
+    from raft_tpu_torch.ops.cagra_hop import cagra_hop
+    from raft_tpu_torch.ops.fused_knn import bf16_split, fused_knn
+    from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_topk
+    from raft_tpu_torch.ops.topk import topk
+
+    fns = (fused_knn, bf16_split, topk, pq_scan, pq_scan_topk, cagra_hop)
+    saved = [fn.launches for fn in fns], dict(fused_knn.launches_by_mode)
+    try:
+        yield
+    finally:
+        for fn, n in zip(fns, saved[0]):
+            fn.launches = n
+        fused_knn.launches_by_mode = saved[1]
+
+
+def stream_pq_check(st, index, words, tiles, what):
+    """``pq_scan_topk`` under the tombstone bitset ``words`` (packed as the
+    mutable index packs it) on ``index``, one call per query tile of
+    ``tiles`` (n_probes 8, bf16 LUT, k = 10, the churn's search), against the
+    plain version bit for bit; no slot whose bit is clear may come back."""
+    import torch
+
+    from raft_tpu_torch.distance.pairwise import full_f32
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops.pq_scan import pq_scan_topk, pq_scan_topk_plain
+
+    with uncounted():
+        for qt in tiles:
+            probes = ivf_pq._coarse_probes(index, qt, 8).to(torch.int64)
+            with full_f32():
+                qrot = qt @ index.rotation.T
+            lut, bias = ivf_pq._probe_luts(index, qrot, probes, *ivf_pq._codebooks_f32(index))
+            args = (index.list_codes, index.list_ids, probes.to(torch.int32).contiguous(),
+                    lut.to(torch.bfloat16).contiguous(), bias.contiguous(), K_MAIN, True)
+            kv, ki = pq_scan_topk(*args, keep_words=words)
+            pv, pi = pq_scan_topk_plain(*args, keep_words=words)
+            assert torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(
+                ki, pi), f"pq_scan_topk differs from its plain version ({what}, T={qt.shape[0]})"
+            got = ki[ki >= 0].long()
+            assert bool(((words[got >> 5] >> (got & 31)) & 1).bool().all()), \
+                f"a tombstoned id came back ({what}, T={qt.shape[0]})"
+    n = index.max_stored_id + 1
+    bits = ((words[:, None] >> torch.arange(32, device=words.device, dtype=torch.int32)) & 1)
+    kept = int(bits.reshape(-1)[:n].sum())
+    emit(phase="check", kernel="pq_scan_topk", what=what, n_lists=index.n_lists,
+         cap=index.capacity, S=int(index.list_codes.shape[2]), T=[int(t.shape[0]) for t in tiles],
+         pc=8, k=K_MAIN, lut_dtype="bfloat16", ids=n, deleted=n - kept,
+         deleted_share=(n - kept) / n, max_abs_err=0.0, bit_equal=True, ok=True, stream=True)
+
+
+def stream_fused_check(st, m, q):
+    """``fused_knn`` over the mutable index's 4,096-row delta bucket with its
+    keep mask, at m = 1, 8 and 64, against the plain version (knn_equiv at
+    1e-5)."""
+    import torch
+
+    from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
+
+    rows, dkeep, _, b = m._state.delta_view
+    assert b == STREAM_CAP, b
+    err = 0.0
+    with uncounted():
+        for mm in (1, 8, 64):
+            dv, di = fused_knn(rows, q[:mm], K_MAIN, keep_mask=dkeep)
+            torch.cuda.synchronize()
+            rd, ri = fused_knn_plain(rows, q[:mm], K_MAIN, keep_mask=dkeep)
+            err = max(err, knn_equiv(dv, di, rd, ri, rtol=1e-5, atol=1e-5))
+    emit(phase="check", kernel="fused_knn", n=b, d=D_MAIN, m=[1, 8, 64], k=K_MAIN, mode="f32",
+         kept=int(dkeep.sum()), max_abs_err=err, tolerance=1e-5, ok=True, stream=True)
+    st["fused_err"] = max(st.get("fused_err", 0.0), err)
+
+
+def stream_bf_exact(st):
+    """Brute force behind the write path, exact: ``MutableIndex`` over the
+    1M x 128 uniform set (phase 2's) with ``delta_capacity=4096``, a fixed
+    seeded write script (upserts of fresh rows and of existing ids, deletes
+    of sealed and delta ids) that takes the delta across the 2,048 -> 4,096
+    bucket (the delta scan moves from the GEMM route to ``fused_knn``), then
+    a rebuild compaction; 1,000 queries searched at bucket 2,048, at 4,096
+    and after the rebuild must give the ids of a fresh ``knn`` over exactly
+    the live rows (rows whose ids differ only at distances tied within 1e-5
+    are counted apart, as in ``knn_equiv``). ``fused_knn`` is checked
+    against its plain version on the 4,096-row delta before the rebuild."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import stream
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops._build import launch_tally
+
+    res = Resources(device="cuda")
+    x, q = st["main"]
+    q = q[:1000]
+    g = torch.Generator(device="cuda").manual_seed(50)
+    fresh = torch.rand((3_000, D_MAIN), generator=g, device="cuda")
+    fresh_h = fresh.cpu().numpy()
+    rng = np.random.default_rng(51)
+    m = stream.MutableIndex(brute_force.BruteForce("sqeuclidean").build(x, res=res),
+                            delta_capacity=STREAM_CAP, name="bf_exact")
+    sealed_alive = np.ones(N_MAIN, bool)
+    delta = []                              # (id, fresh row) in upsert order
+
+    def upsert(js, ids):
+        m.upsert(fresh_h[js], ids=ids)
+        for gid in ids:
+            if gid < N_MAIN:
+                sealed_alive[gid] = False
+        dead = set(int(i) for i in ids)
+        delta[:] = [(i, r) for i, r in delta if i not in dead] + list(zip(ids, js))
+
+    def delete(ids):
+        m.delete(ids)
+        dead = set(int(i) for i in ids)
+        sealed_alive[[i for i in dead if i < N_MAIN]] = False
+        delta[:] = [(i, r) for i, r in delta if i not in dead]
+
+    def check(label):
+        with uncounted():                   # the fresh knn is the reference
+            live_ids = np.concatenate([np.flatnonzero(sealed_alive),
+                                       np.array([i for i, _ in delta], np.int64)])
+            rows = torch.cat([x[torch.from_numpy(np.flatnonzero(sealed_alive)).to("cuda")],
+                              fresh[torch.tensor([r for _, r in delta], device="cuda")]])
+            rd, rp = brute_force.knn(rows, q, K_MAIN, res=res)
+            ri = torch.from_numpy(live_ids).to("cuda")[rp.long()].to(torch.int32)
+            del rows
+        before = all_counts()["fused_knn"]
+        d, i = m.search(q, K_MAIN)
+        torch.cuda.synchronize()
+        ok = row_equiv(d, i, rd, ri)
+        out = dict(delta_bucket=m.stats()["delta_bucket"], live=int(live_ids.size),
+                   rows_ids_equal=int((i == ri).all(1).sum()), rows_equiv=int(ok.sum()),
+                   fused_knn_launches=all_counts()["fused_knn"] - before)
+        assert m.size == live_ids.size
+        assert bool(ok.all()), f"{label}: {int((~ok).sum())} rows differ from a fresh knn"
+        return out
+
+    n_new = 0
+    for step in range(4):                   # 4 x 500 rows: bucket 2,048
+        upsert(np.arange(n_new, n_new + 500), N_MAIN + np.arange(n_new, n_new + 500))
+        n_new += 500
+        delete(rng.choice(N_MAIN, 100, replace=False))
+    upsert(np.arange(n_new, n_new + 8), np.array([3, 17, N_MAIN + 5, N_MAIN + 900, 40, 41,
+                                                  N_MAIN + 1999, 999_999]))
+    n_new += 8
+    delete(np.array([N_MAIN + 7, N_MAIN + 100, 12, 10 ** 7]))
+    out = {"at_2048": check("bucket 2048")}
+    upsert(np.arange(n_new, n_new + 600), N_MAIN + 2000 + np.arange(600))
+    n_new += 600
+    delete(rng.choice(N_MAIN + 2600, 150, replace=False))
+    out["at_4096"] = check("bucket 4096")
+    # the delta scan moved onto fused_knn at the 4,096-row bucket
+    assert (out["at_4096"]["fused_knn_launches"]
+            == out["at_2048"]["fused_knn_launches"] + 1), out
+    stream_fused_check(st, m, q)
+    t0 = time.perf_counter()
+    with launch_tally() as tally:
+        rep = m.compact("rebuild")
+    out["rebuild"] = dict(wall_s=time.perf_counter() - t0, reclaimed=rep["reclaimed"],
+                          folded=rep["folded"], launches=tally_counts(tally))
+    out["after_rebuild"] = check("after the rebuild")
+    return out
+
+
+def phase_stream(st):
+    """Phase 5: ``raft_tpu_torch.stream`` behind ``SearchService.upsert`` /
+    ``delete``, after phase 4 on phase 2's indexes and data. The IVF-PQ
+    churn row (``serve_churn_ivf_pq_100k``'s protocol on the 1M IVF-PQ
+    index: ``MutableIndex(delta_capacity=4096, retain_vectors=False)`` on a
+    ``SearchService(max_batch=64, max_wait_us=2000)`` with a
+    ``Compactor(CompactionPolicy(delta_fill=0.75))``, 8 reader threads, 64
+    writer steps of 96 upserts (fresh rows of phase 2's blobs) and 32
+    deletes of random live ids, extend folds at the watermark); brute force
+    over the 1M uniform set, exact across the 4,096 bucket and a rebuild;
+    the CAGRA churn row (``serve_churn_cagra_100k``: 100k x 128 clustered,
+    ``IndexParams(seed=0)``, itopk 32, 48 writer steps, rebuild folds); and
+    the kernels at the churn's shapes. Asserted: no failed request and no
+    kernel build in each loaded window, read-your-writes after every write
+    step, no deleted id in a read submitted after its delete returned, at
+    least 2 folds in the IVF-PQ window, and recall@10 through the service
+    right after the first fold within 0.01 of a fresh build over the same
+    live rows (IVF-PQ and CAGRA)."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import stream
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import cagra, ivf_pq
+    from raft_tpu_torch.ops.pq_scan import pack_keep_words
+    from raft_tpu_torch.serve import SearchService
+
+    t_phase = time.perf_counter()
+    res = Resources(device="cuda")
+    index, q = st["ivf"]
+    x, centers = st["ivf_x"], st["ivf_centers"]
+    sp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
+    params = ivf_pq.IndexParams(n_lists=1024, pq_bits=4, pq_dim=64, seed=0)
+    policy = stream.CompactionPolicy(delta_fill=STREAM_FILL, tombstone_ratio=None,
+                                     max_age_s=None)
+    n_up = STREAM_STEPS * STREAM_UPSERTS
+    fresh, _ = blobs(n_up, centers, 13)
+    pool = q[:STREAM_EVAL + 2048].cpu().numpy()
+    eval_q = pool[:STREAM_EVAL]
+
+    # ---- IVF-PQ churn on the 1M index -------------------------------------------
+    t0 = time.perf_counter()
+    m = stream.MutableIndex(index, search_params=sp, delta_capacity=STREAM_CAP,
+                            retain_vectors=False, name="churn")
+    wrap_s = time.perf_counter() - t0
+    svc = SearchService(max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US,
+                        max_queue_rows=4 * SERVE_MAX_BATCH * STREAM_THREADS)
+    first = svc.publish("churn", m, k=K_MAIN)
+    warm = m.warm(svc.buckets, ks=(K_MAIN,))
+    comp = stream.Compactor(m, publisher=svc, name="churn", ks=(K_MAIN,), policy=policy)
+    all_rows = torch.cat([x, fresh])
+    out, snap = churn_window(st, svc, "churn", m, comp, pool, fresh.cpu().numpy(),
+                             N_MAIN, STREAM_STEPS, eval_q)
+    # the flush profile at a 4,096-row delta bucket (the window ended on a
+    # fold), where the delta scan is a fused_knn launch
+    m.upsert(blobs(3_000, centers, 15)[0].cpu().numpy())
+    profile = flush_profile(st, "stream_ivf_pq", m.searcher(), pool, K_MAIN,
+                            buckets=(8, SERVE_MAX_BATCH))
+    svc.shutdown()
+    # the filtered kernel at the churn's own shapes: the sealed index as the
+    # folds extended it, with its live tombstone words, at T = 1 (a reader),
+    # 4 (a read-your-writes probe of the last step's rows) and 64 (a full
+    # bucket)
+    fst = m._state
+    assert fst.epoch == out["compactions"] and fst.sealed.size > N_MAIN, (fst.epoch, out)
+    pool_d = torch.as_tensor(pool, device="cuda")
+    stream_pq_check(st, fst.sealed, fst.sealed_keep_dev.words,
+                    [pool_d[:1], fresh[-STREAM_UPSERTS:][:STREAM_RYW], pool_d[:SERVE_MAX_BATCH]],
+                    f"churn index after {fst.epoch} folds")
+    del fst, pool_d
+    rec_mut, rec_fresh = churn_recall(
+        snap, lambda live: all_rows[live], eval_q,
+        lambda rows, qd: ivf_pq.search(sp, ivf_pq.build(params, rows, res=res), qd, K_MAIN,
+                                       res=res))
+    emit(phase="stream", path="ivf_pq churn (serve_churn_ivf_pq_100k's protocol)", n=N_MAIN,
+         d=D_MAIN, n_lists=1024, pq_dim=64, pq_bits=4, n_probes=8, lut_dtype="bfloat16",
+         k=K_MAIN, delta_capacity=STREAM_CAP, compact_fill=STREAM_FILL,
+         threads=STREAM_THREADS, writer_steps=STREAM_STEPS, upserts_per_step=STREAM_UPSERTS,
+         deletes_per_step=STREAM_DELETES, wrap_seconds=wrap_s, first_publish=first["warm"],
+         delta_warm={b: v for b, v in warm[K_MAIN].items()}, **out,
+         recall_at_10=rec_mut, recall_fresh_build=rec_fresh, recall_gap=rec_mut - rec_fresh,
+         recall_gap_floor=-STREAM_RECALL_GAP, eval_queries=STREAM_EVAL, card=st["card"])
+    emit(phase="stream_flush", index="ivf_pq (MutableIndex), 4,096-row delta bucket",
+         delta_rows=m.stats()["delta_rows"], per_bucket=profile, card=st["card"])
+    assert out["compactions"] >= 2, out["compactions"]
+    assert rec_mut >= rec_fresh - STREAM_RECALL_GAP, (rec_mut, rec_fresh)
+    assert out["launches"].get("pq_scan_topk", 0) > 0 and out["launches"].get("fused_knn", 0) > 0
+    del all_rows, fresh, snap, comp, svc, m
+
+    # ---- brute force, exact across the 4,096 bucket and a rebuild ---------------
+    reset_all_counts()
+    bf_out = stream_bf_exact(st)
+    bf_launches = all_counts()
+    add_counts(st.setdefault("launches_stream", {}), bf_launches)
+    add_counts(st.setdefault("launches_stream_folds", {}), bf_out["rebuild"]["launches"])
+    emit(phase="stream", path="brute_force exact (MutableIndex over 1M x 128)", n=N_MAIN,
+         d=D_MAIN, k=K_MAIN, queries=1000, delta_capacity=STREAM_CAP,
+         launches={kk: v for kk, v in bf_launches.items() if v}, **bf_out, card=st["card"])
+    g = torch.Generator(device="cuda").manual_seed(31)
+    keep = torch.rand(N_MAIN, generator=g, device="cuda") >= STREAM_DELETED
+    words = torch.from_numpy(stream.mutable._pack_words(keep.cpu().numpy())).to("cuda")
+    assert torch.equal(words, pack_keep_words(keep)), "host packing differs from the kernel's"
+    stream_pq_check(st, index, words, [q[:128], q[128 * 40:128 * 41]],
+                    f"phase 2's index, {STREAM_DELETED:.0%} deleted")
+
+    # ---- CAGRA churn at 100k ----------------------------------------------------
+    dev = torch.device("cuda")
+    ccent = 10.0 * torch.rand((CAGRA_CENTERS, D_MAIN), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(23))
+    n_cup = CAGRA_CHURN_STEPS * STREAM_UPSERTS
+    cx, _ = blobs(CAGRA_CHURN_N + n_cup, ccent, 24, 0.5)
+    cq, _ = blobs(STREAM_EVAL + 2048, ccent, 25, 0.5)
+    cparams = cagra.IndexParams(seed=0)
+    csp = cagra.SearchParams(itopk_size=CAGRA_ITOPK)
+    t0 = time.perf_counter()
+    cindex = cagra.build(cparams, cx[:CAGRA_CHURN_N], res=res)
+    torch.cuda.synchronize()
+    cbuild_s = time.perf_counter() - t0
+    cm = stream.MutableIndex(cindex, search_params=csp, index_params=cparams,
+                             delta_capacity=STREAM_CAP, name="churn_cagra")
+    svc = SearchService(max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US,
+                        max_queue_rows=4 * SERVE_MAX_BATCH * STREAM_THREADS)
+    svc.publish("churn_cagra", cm, k=K_MAIN)
+    cm.warm(svc.buckets, ks=(K_MAIN,))
+    comp = stream.Compactor(cm, publisher=svc, name="churn_cagra", ks=(K_MAIN,), policy=policy)
+    cpool = cq.cpu().numpy()
+    cout, csnap = churn_window(st, svc, "churn_cagra", cm, comp, cpool,
+                               cx[CAGRA_CHURN_N:].cpu().numpy(), CAGRA_CHURN_N,
+                               CAGRA_CHURN_STEPS, cpool[:STREAM_EVAL])
+    svc.shutdown()
+    crec_mut, crec_fresh = churn_recall(
+        csnap, lambda live: cx[live], cpool[:STREAM_EVAL],
+        lambda rows, qd: cagra.search(csp, cagra.build(cparams, rows, res=res), qd, K_MAIN))
+    emit(phase="stream", path="cagra churn (serve_churn_cagra_100k's protocol)",
+         n=CAGRA_CHURN_N, d=D_MAIN, itopk=CAGRA_ITOPK, k=K_MAIN, build_seconds=cbuild_s,
+         delta_capacity=STREAM_CAP, compact_fill=STREAM_FILL, threads=STREAM_THREADS,
+         writer_steps=CAGRA_CHURN_STEPS, upserts_per_step=STREAM_UPSERTS,
+         deletes_per_step=STREAM_DELETES, **cout, recall_at_10=crec_mut,
+         recall_fresh_build=crec_fresh, recall_gap=crec_mut - crec_fresh,
+         recall_gap_floor=-STREAM_RECALL_GAP, eval_queries=STREAM_EVAL, card=st["card"])
+    assert crec_mut >= crec_fresh - STREAM_RECALL_GAP, (crec_mut, crec_fresh)
+    assert cout["launches"].get("cagra_hop", 0) > 0
+    emit(phase="stream_launches", launches=st["launches_stream"],
+         launches_folds=st["launches_stream_folds"], seconds=time.perf_counter() - t_phase,
+         card=st["card"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="01234",
-                    help="phases to run, e.g. 01 (default: all); 4 needs 2")
+    ap.add_argument("--phases", default="012345",
+                    help="phases to run, e.g. 01 (default: all); 4 and 5 need 2")
     ap.add_argument("--out", default=os.path.join("build", "profiles"),
                     help="directory for the IVF-PQ, CAGRA and IVF-Flat profile tables")
     args = ap.parse_args(argv)
@@ -3225,8 +3774,8 @@ def main(argv=None):
     phase_build(st)
     if "1" in args.phases:
         phase_kernels(st)
-    if "4" in args.phases and "2" not in args.phases:
-        print("chip_smoke: phase 4 serves phase 2's indexes; run it with 2",
+    if any(p in args.phases for p in "45") and "2" not in args.phases:
+        print("chip_smoke: phases 4 and 5 serve phase 2's indexes; run them with 2",
               file=sys.stderr)
         return 2
     if "2" in args.phases:
@@ -3241,6 +3790,8 @@ def main(argv=None):
         phase_matrix_ops(st)
     if "4" in args.phases:
         phase_serve(st)
+    if "5" in args.phases:
+        phase_stream(st)
     if "3" in args.phases and "2" in args.phases:
         time_fused_modes(st)
         phase_times(st)
@@ -3249,39 +3800,52 @@ def main(argv=None):
     if all(p in args.phases for p in "123"):
         launches = st["launches"]
         serve = st.get("launches_serve", {})
+        strm = st.get("launches_stream", {})
+        folds = st.get("launches_stream_folds", {})
         emit(kernels=[
             dict(name="fused_knn", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn.cu",
                  replaces="raft_tpu/ops/fused_knn.py:150", mode="f32",
                  launches=launches["fused_knn"], launches_serve=serve.get("fused_knn"),
+                 launches_stream=strm.get("fused_knn"),
+                 launches_stream_folds=folds.get("fused_knn"),
                  max_abs_err=st["fused_err"], **st["fused_t"]),
             dict(name="fused_knn_tc", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
                  replaces="raft_tpu/ops/fused_knn.py:150", mode="bf16",
                  launches=sum(st["tc_launches"].values()),
-                 launches_by_mode=st["tc_launches"], max_abs_err=st["tc_err"],
+                 launches_by_mode=st["tc_launches"],
+                 launches_stream=strm.get("fused_knn_tc"),
+                 launches_stream_folds=folds.get("fused_knn_tc"), max_abs_err=st["tc_err"],
                  **{key: st["fused_modes_t"]["bf16"][key]
                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                  modes=st["fused_modes_t"]),
             dict(name="bf16_split", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
                  replaces="raft_tpu/ops/fused_knn.py:139", launches=st["split_launches"],
+                 launches_stream=strm.get("bf16_split"),
+                 launches_stream_folds=folds.get("bf16_split"),
                  launches_on="knn(compute='float32x3')", max_abs_err=0.0, **st["split_t"]),
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
                  replaces="raft_tpu/ops/topk.py:91", launches=launches["topk"],
                  launches_ivf_flat=launches["topk_ivf_flat"],
-                 launches_serve=serve.get("topk"),
+                 launches_serve=serve.get("topk"), launches_stream=strm.get("topk"),
+                 launches_stream_folds=folds.get("topk"),
                  launches_ball_cover={m: launches[f"topk_ball_cover_{m}"]
                                       for m in ("sqeuclidean", "haversine")},
                  max_abs_err=st["topk_err"], **st["topk_t"]),
             dict(name="pq_scan", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
                  replaces="raft_tpu/ops/pq_scan.py:61", launches=launches["pq_scan"],
                  launches_on="ivf_pq.search, select_impl='xla'",
+                 launches_stream=strm.get("pq_scan"),
+                 launches_stream_folds=folds.get("pq_scan"),
                  launches_funnel=launches["pq_scan_opq_anisotropic_4bit"],
                  max_abs_err=st["pq_err"], **st["pq_t"]),
             dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
                  replaces="raft_tpu/ops/pq_scan.py:61", launches=launches["pq_scan_topk"],
                  launches_serve=serve.get("pq_scan_topk"),
+                 launches_stream=strm.get("pq_scan_topk"),
+                 launches_stream_folds=folds.get("pq_scan_topk"),
                  launches_filtered={str(f): launches[f"pq_scan_topk_filtered_{f}"]
                                     for f in FILTER_KEEP},
                  launches_codecs={n: launches[f"pq_scan_topk_{n}"]
@@ -3290,7 +3854,8 @@ def main(argv=None):
             dict(name="cagra_hop", route="cuda",
                  source="raft_tpu_torch/ops/csrc/cagra_hop.cu",
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
-                 launches_serve=serve.get("cagra_hop"),
+                 launches_serve=serve.get("cagra_hop"), launches_stream=strm.get("cagra_hop"),
+                 launches_stream_folds=folds.get("cagra_hop"),
                  launches_int8_rows=launches["cagra_hop_int8"],
                  max_abs_err=st["hop_err"], **st["hop_t"]),
         ])

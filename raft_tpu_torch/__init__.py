@@ -26,6 +26,9 @@ Ported so far:
              IndexRegistry, MicroBatcher, StagingBuffers)
   spatial    the legacy spatial::knn entry points
   stats      dispersion
+  stream     the mutable index: delta memtable, tombstones, write-ahead log,
+             compaction with a warm hot-swap (serve's write path)
+  testing    the fault-injection registry
 """
 
 import importlib
@@ -34,7 +37,7 @@ from .core import RaftError, Resources, default_resources, set_default_resources
 from .version import __version__
 
 _SUBMODULES = {"cluster", "core", "distance", "matrix", "neighbors", "obs", "ops", "serve",
-               "spatial", "stats"}
+               "spatial", "stats", "stream", "testing"}
 
 
 def __getattr__(name):

@@ -202,7 +202,12 @@ def fsync_dir(dirname: str) -> None:
 def atomic_write(path: str):
     """Crash-safe writes: yields a binary handle onto a temporary file in the
     same directory and, only on a clean exit, fsyncs it and renames it over
-    ``path``; a crash or raise mid-write leaves the previous file as it was."""
+    ``path``; a crash or raise mid-write leaves the previous file as it was.
+    The ``serialize/atomic-write`` fault point
+    (:mod:`raft_tpu_torch.testing.faults`) sits between the complete
+    temporary file and the rename, so tests can crash a save there."""
+    from ..testing import faults
+
     tmp = f"{path}.tmp.{os.getpid()}"
     f = open(tmp, "wb")
     try:
@@ -210,7 +215,12 @@ def atomic_write(path: str):
         f.flush()
         os.fsync(f.fileno())
         f.close()
+        # the crash window: the new bytes are complete, the rename is not
+        # done, and the previous file must still load
+        faults.fire("serialize/atomic-write", path=path, tmp=tmp)
         os.replace(tmp, path)
+        # the rename is durable only once the directory entry is on disk: a
+        # WAL truncated after it must never meet the old snapshot
         fsync_dir(os.path.dirname(os.path.abspath(path)))
     except BaseException:
         if not f.closed:

@@ -121,6 +121,12 @@ class IvfFlatIndex:
     # given), "uint8" (bytes stored shifted by -128; queries shift alike)
     data_kind: str = "float32"
     tuned: dict | None = None
+    # the largest stored id (-1 when empty), read once when the index is
+    # made: extend returns a new index and nothing writes the lists in place
+    max_stored_id: int = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        self.max_stored_id = int(self.list_ids.max()) if self.list_ids.numel() else -1
 
     @property
     def device(self) -> torch.device:

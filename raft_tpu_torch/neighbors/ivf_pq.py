@@ -167,8 +167,12 @@ class IvfPqIndex:
     codebook_loss: str = "l2"
     fast_scan: str = "none"
     tuned: dict | None = None
+    # the largest stored id (-1 when empty), read once when the index is
+    # made: extend returns a new index and nothing writes the lists in place
+    max_stored_id: int = dataclasses.field(init=False, repr=False, compare=False)
 
     def __post_init__(self):
+        self.max_stored_id = int(self.list_ids.max()) if self.list_ids.numel() else -1
         dev = self.centers.device
         n = self.list_codes.shape[0]
         if self.list_consts is None:
@@ -1058,11 +1062,12 @@ def _tiled(index: IvfPqIndex, queries, n_probes: int, k: int, query_tile: int,
 
 def _pq_search(index: IvfPqIndex, queries, n_probes: int, k: int, query_tile: int,
                probe_chunk: int, lut_dtype: str, scan_impl: str,
-               select_impl: str = "auto", keep_mask=None):
+               select_impl: str = "auto", keep_mask=None, keep_words=None):
     """The tiled search (the JAX package's ``_pq_search``). A chunk step
     either runs ``pq_scan_topk`` (:func:`_fuses_scan_and_select`, with the
-    filter as its packed bitset) or scans, adds the bias (and split L2's
-    constants), masks empty and filtered slots and selects."""
+    filter as its packed bitset: ``keep_words`` when the caller packed it,
+    else packed here) or scans, adds the bias (and split L2's constants),
+    masks empty and filtered slots and selects."""
     from ..ops.pq_scan import pack_keep_words, pq_scan_topk
 
     inner = index.metric == DistanceType.InnerProduct
@@ -1070,7 +1075,10 @@ def _pq_search(index: IvfPqIndex, queries, n_probes: int, k: int, query_tile: in
     bad = -math.inf if inner else math.inf
     consts = index.list_consts if index.pq_split and not inner else None
     fused = _fuses_scan_and_select(index, scan_impl, select_impl, probe_chunk, k, lut_dtype)
-    keep_words = pack_keep_words(keep_mask) if fused and keep_mask is not None else None
+    if not fused or keep_mask is None:
+        keep_words = None
+    elif keep_words is None:
+        keep_words = pack_keep_words(keep_mask)
 
     def chunk_step(q, pc):
         lut, bias = _probe_luts(index, q, pc, cb, cb_n2)
@@ -1342,7 +1350,8 @@ def search(params: SearchParams, index: IvfPqIndex, queries, k: int,
                                   int(params.group_size), select_impl=select_impl,
                                   keep_mask=keep_mask)
     return _pq_search(index, queries, n_probes, int(k), query_tile, probe_chunk,
-                      params.lut_dtype, scan_impl, select_impl, keep_mask)
+                      params.lut_dtype, scan_impl, select_impl, keep_mask,
+                      keep_words=getattr(sample_filter, "words", None))
 
 
 def batched_searcher(index: IvfPqIndex, params: SearchParams | None = None):

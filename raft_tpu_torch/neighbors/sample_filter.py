@@ -27,10 +27,15 @@ class NoFilter:
 
 
 class BitsetFilter:
-    """Keep dataset row ``i`` iff ``bitset[i]`` (ref: bitset_filter)."""
+    """Keep dataset row ``i`` iff ``bitset[i]`` (ref: bitset_filter).
+    ``words`` (optional) is the same mask already packed as
+    ``ops.pq_scan.pack_keep_words`` packs it, on the mask's device: IVF-PQ's
+    ``pq_scan_topk`` route reads it instead of packing the mask per search
+    (a stream index packs its tombstone bitset once per write)."""
 
-    def __init__(self, bitset):
+    def __init__(self, bitset, words=None):
         self.mask = _as_bool_tensor(bitset)
+        self.words = words
 
 
 def resolve_filter(f, device=None):
@@ -44,10 +49,12 @@ def resolve_filter(f, device=None):
 
 def validate_filter_covers(index, keep_mask) -> None:
     """Check that the keep-mask covers every stored id: the largest of an
-    IVF index's ``list_ids``, or ``size - 1`` for an index whose ids are its
-    dataset rows (cagra)."""
-    ids = getattr(index, "list_ids", None)
-    max_id = index.size - 1 if ids is None else int(ids.max())
+    IVF index's ``list_ids`` (its ``max_stored_id``, read when the index was
+    made), or ``size - 1`` for an index whose ids are its dataset rows
+    (cagra)."""
+    max_id = getattr(index, "max_stored_id", None)
+    if max_id is None:
+        max_id = index.size - 1
     expects(keep_mask.shape[0] > max_id,
             "sample filter length %d must cover max stored id %d",
             keep_mask.shape[0], max_id)

@@ -37,7 +37,7 @@ over the port's tensors. Three pieces:
 Not yet ported (each raises ``RaftError("not yet ported")``): the footprint
 estimator :func:`plan`, :func:`gate_host` and the build-time gates that read
 them, which wait for ``core/chunked.py``; :func:`headroom` counts no tiered
-mirrors (``stream/`` is not ported).
+mirrors (``stream/tiered.py`` is not ported).
 
 ``obs.disable()`` reduces every ledger touch point to a single module-flag
 check (``account`` returns ``None`` and every entry point no-ops on
@@ -547,8 +547,8 @@ def gate(res, need_bytes, *, site: str, detail: str = "") -> None:
     ``budget_bytes`` / ``accounted_bytes`` / ``need_bytes``). An overage is
     journalled as ``mem_pressure`` and the refusal as ``budget_refusal``,
     as in the JAX module; the port has no pressure relief to consult
-    between them (the tiered stores' spills wait for ``stream/``), nor a
-    host budget (``gate_host``).
+    between them (the tiered stores' spills wait for
+    ``stream/tiered.py``), nor a host budget (``gate_host``).
 
     An armed budget REQUIRES observability: under ``obs.disable()`` the
     ledger stops accounting, so every gate would compare against a frozen
@@ -590,7 +590,7 @@ def gate(res, need_bytes, *, site: str, detail: str = "") -> None:
 
 def gate_host(res, host_bytes, *, site: str, detail: str = "") -> None:
     """The host half of :func:`gate` alone (raft_tpu/obs/mem.py:861), for
-    the tiered store's cold rows; not yet ported (``stream/``)."""
+    the tiered store's cold rows; not yet ported (``stream/tiered.py``)."""
     _not_ported("obs.mem.gate_host()")
 
 
@@ -601,8 +601,8 @@ def headroom(res=None) -> dict | None:
     a topology doubling is a double-buffered migration, so it is refused
     unless enough of the budget is free OR reclaimable by a pressure
     spill. ``spillable_bytes``/``spillable_frac`` count the tiered
-    stores' device mirrors, which the port does not have yet (``stream/``
-    is not ported): both are 0. Fractions are of
+    stores' device mirrors, which the port does not have yet
+    (``stream/tiered.py`` is not ported): both are 0. Fractions are of
     the budget, so ``headroom_frac + spillable_frac`` is the admission
     quantity — and the dict inlines as journal evidence verbatim, so a
     control decision and its admission check can never disagree."""
@@ -633,7 +633,7 @@ def debug_payload(top: int = 20) -> dict:
     """The ``/debug/mem`` JSON: totals + peaks, per-component aggregates,
     the ``top`` largest allocations (component/name/shard/epoch), audit
     status and per-device memory stats where a CUDA device is present
-    (the JAX module's extra ``tiers`` section waits for ``stream/``)."""
+    (the JAX module's extra ``tiers`` section waits for ``stream/tiered.py``)."""
     rows = _ledger.breakdown()
     by_comp: dict[str, dict] = {}
     for r in rows:

@@ -21,11 +21,14 @@ each cached library loaded is reported to
 :func:`raft_tpu_torch.obs.compile.record_build`, so a region's builds show
 in its ``obs.compile.attribution()``. The wrappers count their launches
 with :func:`count_launch`, under a lock of its own, so launches from
-concurrent threads are not lost.
+concurrent threads are not lost; :func:`launch_tally` also counts the
+launches one thread makes inside a region (a compaction's fold, say, apart
+from the reads that other threads serve meanwhile).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -39,7 +42,7 @@ from pathlib import Path
 from ..core.errors import RaftError
 from ..obs import compile as obs_compile
 
-__all__ = ["build_all", "load", "count_launch", "SOURCES"]
+__all__ = ["build_all", "load", "count_launch", "launch_tally", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -51,16 +54,36 @@ _libs: dict[str, ctypes.CDLL] = {}
 _reports: dict[str, str] = {}   # name -> ptxas report of this process's build
 _lock = threading.Lock()        # builds and loads
 _count_lock = threading.Lock()  # launch counters
+_tallies = threading.local()    # this thread's open launch_tally dicts
 
 
 def count_launch(fn, mode=None) -> None:
     """Add one to the wrapper ``fn``'s ``launches`` (and to
     ``launches_by_mode[mode]``): a read-modify-write that concurrent flushes
-    would otherwise lose."""
+    would otherwise lose. Also adds one to ``(fn.__name__, mode)`` in every
+    :func:`launch_tally` open on the calling thread."""
     with _count_lock:
         fn.launches += 1
         if mode is not None:
             fn.launches_by_mode[mode] += 1
+    for tally in getattr(_tallies, "open", ()):
+        key = (fn.__name__, mode)
+        tally[key] = tally.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """Yield a dict that counts, by ``(wrapper name, mode)``, the launches
+    made on the calling thread while the block runs; launches of other
+    threads are left out of it (they still count in the wrappers' totals)."""
+    tally: dict = {}
+    if not hasattr(_tallies, "open"):
+        _tallies.open = []
+    _tallies.open.append(tally)
+    try:
+        yield tally
+    finally:
+        _tallies.open.pop()             # blocks nest, so the last is this one
 
 
 def _nvcc() -> str:

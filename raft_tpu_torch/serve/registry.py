@@ -24,8 +24,9 @@ hook, so it works uniformly for brute-force, IVF-Flat, IVF-PQ and CAGRA —
 including the int8/uint8 byte-dataset variants, whose warmup queries are
 drawn in the index's own query dtype.
 
-Not yet ported (each raises ``RaftError("not yet ported")``): ``tuned=``
-(``tune/``) and publishing a ``stream.MutableIndex`` (``stream/``).
+A :class:`raft_tpu_torch.stream.MutableIndex` publishes through its own
+current-epoch searcher. Not yet ported (raises ``RaftError("not yet
+ported")``): ``tuned=`` (``tune/``).
 """
 
 from __future__ import annotations
@@ -76,12 +77,16 @@ def make_searcher(index, search_params=None) -> Callable:
     """Resolve an index object to its module's ``batched_searcher`` hook:
     a ``fn(queries, k) -> (distances, ids)`` closure carrying ``.kind``,
     ``.dim``, ``.query_dtype`` and ``.device`` attributes. Raises for
-    unknown types. A ``stream.MutableIndex`` (duck-typed: ``upsert`` and
-    ``searcher``) is refused: ``stream/`` is not yet ported."""
+    unknown types. A :class:`raft_tpu_torch.stream.MutableIndex`
+    (duck-typed, so serve never imports stream) resolves to its
+    current-epoch searcher; its search params were baked in at wrap time."""
     from ..neighbors import brute_force, cagra, ivf_flat, ivf_pq
 
     if hasattr(index, "upsert") and hasattr(index, "searcher"):
-        _not_ported("publishing a stream.MutableIndex")
+        expects(search_params is None,
+                "a MutableIndex bakes its search params at wrap time; "
+                "search_params here would be silently ignored")
+        return index.searcher()
     for mod, cls in ((brute_force, brute_force.BruteForce),
                      (ivf_flat, ivf_flat.IvfFlatIndex),
                      (ivf_pq, ivf_pq.IvfPqIndex),
@@ -90,7 +95,8 @@ def make_searcher(index, search_params=None) -> Callable:
             return mod.batched_searcher(index, search_params)
     raise RaftError(
         f"no serving hook for index type {type(index).__name__!r} "
-        "(expected BruteForce, IvfFlatIndex, IvfPqIndex or CagraIndex)")
+        "(expected BruteForce, IvfFlatIndex, IvfPqIndex, CagraIndex or "
+        "stream.MutableIndex)")
 
 
 @dataclass

@@ -26,8 +26,12 @@ an event; the batcher's completion stage waits on that event, on another
 thread, and the registry lease is held until then. No flush calls
 ``torch.cuda.synchronize()``: it would also wait for other streams' work.
 
-Not yet ported (each raises ``RaftError("not yet ported")``): the write
-path (:meth:`upsert` / :meth:`delete`, ``stream/``) and ``tuned=``
+The write path: publishing a :class:`raft_tpu_torch.stream.MutableIndex`
+(or its own ``searcher()`` hook, which a ``stream.Compactor`` republishes
+after each swap) under a name opens :meth:`upsert` / :meth:`delete` for
+it; publishing anything else under that name closes them again.
+
+Not yet ported (raises ``RaftError("not yet ported")``): ``tuned=``
 publishes (``tune/``). ``canary=``, ``slo=`` and ``request_log=`` are
 duck-typed hooks, as in the JAX package.
 
@@ -48,7 +52,7 @@ import numpy as np
 import torch
 
 from ..core import tracing
-from ..core.errors import expects, fail
+from ..core.errors import expects
 from ..obs import dispatch as obs_dispatch
 from ..obs import metrics, requestlog
 from .batcher import MicroBatcher, PendingFlush, _deadline_total, _host, bucket_sizes
@@ -195,6 +199,9 @@ class SearchService:
         # across an enqueue
         self._lock = threading.Lock()
         self._batchers: dict[tuple, MicroBatcher] = {}
+        # writable (stream.MutableIndex) handles per name: the write path
+        # (upsert / delete) routes through these
+        self._mutables: dict[str, object] = {}
         self._closed = False
 
     # -- publish ------------------------------------------------------------
@@ -207,8 +214,10 @@ class SearchService:
         Safe under load: in-flight requests finish on the old version.
         ``warm_data`` (optional (rows, dim) sample in the serving dtype)
         draws the warmup queries from real data — see
-        :func:`raft_tpu_torch._warmup.warm_buckets`. ``tuned`` raises "not
-        yet ported" (``tune/``), and so does a ``stream.MutableIndex``.
+        :func:`raft_tpu_torch._warmup.warm_buckets`. Publishing a
+        ``stream.MutableIndex`` (or its own ``searcher()`` hook) opens the
+        write path for ``name``; anything else closes it. ``tuned`` raises
+        "not yet ported" (``tune/``).
         ``res`` carries ``memory_budget_bytes`` for the publish admission
         gate (:meth:`IndexRegistry.publish`); over budget raises
         :class:`~raft_tpu_torch.serve.errors.MemoryBudgetError` with zero
@@ -253,6 +262,20 @@ class SearchService:
                 parts = report.pop("warm_hook", None)
                 if parts:
                     report.update(parts)
+                with self._lock:
+                    mut = getattr(index, "mutable", None)
+                    if hasattr(index, "upsert") and hasattr(index, "searcher"):
+                        self._mutables[name] = index
+                    elif mut is not None and hasattr(mut, "upsert"):
+                        # a MutableIndex's OWN hook (marked by searcher(),
+                        # what a stream.Compactor republishes after each
+                        # swap): the write path follows it
+                        self._mutables[name] = mut
+                    else:
+                        # a plain index or an unmarked hook closes the write
+                        # path: a stale handle would route upserts to an
+                        # index nobody serves
+                        self._mutables.pop(name, None)
             return report
 
     # -- serving ------------------------------------------------------------
@@ -446,17 +469,40 @@ class SearchService:
             _requests_total().inc(1, stream=f"{name}.k{k}")
         return fut
 
-    # -- write path (stream.MutableIndex names) ------------------------------
+    # -- write path (stream.MutableIndex names) -------------------------------
+    def _mutable(self, name: str):
+        if self._closed:
+            raise ServiceClosedError("service is shut down")
+        with self._lock:
+            m = self._mutables.get(name)
+        expects(m is not None,
+                "%r is not a mutable (stream) index — publish a "
+                "raft_tpu_torch.stream.MutableIndex under this name to open "
+                "the write path", name)
+        return m
+
     def upsert(self, name: str, rows, ids=None, res=None):
-        """Insert/upsert rows into a mutable index; not yet ported
-        (``stream/``)."""
-        fail("serve: SearchService.upsert is not yet ported to raft_tpu_torch "
-             "(stream/)")
+        """Insert/upsert rows into the mutable index published under
+        ``name``; returns the global ids. Synchronous, with read-your-writes
+        at the service boundary: when this returns, the rows win every later
+        search, except during a compaction swap's publish window, where
+        flushes still leasing the pre-swap epoch serve its frozen view for
+        one flush. Admission as in :meth:`submit`:
+        :class:`ServiceClosedError` after shutdown, and a full delta
+        memtable raises :class:`raft_tpu_torch.stream.DeltaFullError`, an
+        :class:`OverloadedError`, so callers shed write load as they shed
+        refused reads. ``res`` carries ``memory_budget_bytes``: a write
+        whose delta growth would exceed it raises
+        :class:`~raft_tpu_torch.serve.errors.MemoryBudgetError` (also an
+        ``OverloadedError``) with nothing written."""
+        return self._mutable(name).upsert(rows, ids, res=res)
 
     def delete(self, name: str, ids) -> int:
-        """Tombstone ids on a mutable index; not yet ported (``stream/``)."""
-        fail("serve: SearchService.delete is not yet ported to raft_tpu_torch "
-             "(stream/)")
+        """Tombstone ids on the mutable index published under ``name``;
+        returns how many were live. Visible to the very next search (the
+        same one-flush swap window as :meth:`upsert`); unknown ids are a
+        counted no-op."""
+        return self._mutable(name).delete(ids)
 
     def search(self, name: str, queries, k: int = 10, *,
                timeout_s: float | None = None):

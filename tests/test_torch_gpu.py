@@ -640,3 +640,76 @@ def test_cagra_batched_searcher_serves_on_card(cuda):
         d, i = hook(q, 10)
         rd, ri = cagra.search(sp, index, q, 10)
         assert torch.equal(i, ri) and torch.equal(d, rd)
+
+
+def test_mutable_brute_force_on_card_crosses_the_4096_bucket(cuda):
+    """A brute-force MutableIndex on the card: the delta scan takes the GEMM
+    route below the 4,096-row bucket and ``fused_knn`` from it on (its f32
+    launch count rises), and the ids equal the exact neighbours of the live
+    rows, computed on the CPU, on both sides of the switch."""
+    from raft_tpu_torch import stream
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((20_000, 128)).astype(np.float32)
+    new = rng.standard_normal((2_200, 128)).astype(np.float32)
+    q = rng.standard_normal((64, 128)).astype(np.float32)
+    m = stream.MutableIndex(BruteForce().build(x, res=Resources(device="cuda")),
+                            delta_capacity=4096)
+    assert m.device.type == "cuda"
+
+    def check():
+        st = m._state
+        s = np.nonzero(st.sealed_alive)[0]
+        dl = np.nonzero(st.delta_alive[:st.delta_n])[0]
+        rows = np.concatenate([x[s], st.delta[dl]])
+        gids = np.concatenate([st.id_map[s], st.delta_ids[dl]])
+        ref = BruteForce().build(rows, res=Resources(device="cpu"))
+        rd, ri = ref.search(q, 10)
+        d, i = m.search(q, 10)
+        _knn_equiv(d.cpu(), i.cpu(), rd, torch.from_numpy(gids[ri.numpy()]).to(torch.int32))
+
+    m.upsert(new[:2000])
+    m.delete(np.arange(0, 20_000, 7))
+    assert m.stats()["delta_bucket"] == 2048
+    check()
+    m.upsert(new[2000:])
+    m.delete([20_001, 20_100])
+    assert m.stats()["delta_bucket"] == 4096
+    before = fused_knn.launches_by_mode["f32"]
+    check()
+    assert fused_knn.launches_by_mode["f32"] >= before + 2   # sealed scan + delta scan
+
+
+def test_mutable_ivf_pq_on_card_equals_cpu(cuda, tmp_path):
+    """An IVF-PQ MutableIndex moved onto the card by ``device=``, under
+    tombstones: every chunk runs pq_scan_topk with the tombstone bitset
+    packed once per write, and the answers equal the CPU port's over the
+    same file and write script."""
+    from raft_tpu_torch import stream
+
+    rng = np.random.default_rng(12)
+    centers = rng.normal(size=(60, 32)) * 3.0
+    x = (centers[rng.integers(0, 60, 40_000)] + rng.normal(size=(40_000, 32))).astype(np.float32)
+    q = (centers[rng.integers(0, 60, 64)] + rng.normal(size=(64, 32))).astype(np.float32)
+    new = (centers[rng.integers(0, 60, 500)] + rng.normal(size=(500, 32))).astype(np.float32)
+    cpu = Resources(device="cpu")
+    path = str(tmp_path / "index.bin")
+    ivf_pq.save(ivf_pq.build(ivf_pq.IndexParams(n_lists=64, pq_dim=16), x, res=cpu), path)
+    sp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16", select_impl="pallas")
+    # device= moves a CPU-loaded index onto the card
+    mc = stream.MutableIndex(ivf_pq.load(path, res=cpu), search_params=sp,
+                             delta_capacity=1024, device="cuda")
+    assert mc.device.type == "cuda" and mc._state.sealed.list_codes.is_cuda
+    mh = stream.MutableIndex(ivf_pq.load(path, res=cpu), search_params=sp, delta_capacity=1024)
+    dead = rng.choice(40_000, 1_200, replace=False)
+    for m in (mc, mh):
+        m.upsert(new)
+        m.delete(dead)
+        m.upsert(new[:10] + 0.5, ids=dead[:10])
+    counts = pq_scan_topk.launches
+    d, i = mc.search(q, 10)
+    torch.cuda.synchronize()
+    assert pq_scan_topk.launches > counts
+    rd, ri = mh.search(q, 10)
+    _knn_equiv(d.cpu(), i.cpu(), rd, ri, rtol=1e-5, atol=1e-4)
+    assert not set(i.flatten().tolist()) & set(dead[10:].tolist())

@@ -387,6 +387,31 @@ def test_launch_counters_lose_nothing_under_threads():
     assert fn.launches_by_mode == {"f32": 20_000, "bf16": 20_000}
 
 
+def test_launch_tally_counts_only_its_own_thread():
+    """``launch_tally`` counts the launches of the thread that opened it,
+    inner blocks nest in outer ones, and the wrappers' totals keep every
+    thread's launches."""
+    def fn():
+        pass
+
+    fn.launches = 0
+    fn.launches_by_mode = {"f32": 0}
+    with _build.launch_tally() as outer:
+        _build.count_launch(fn, "f32")
+        with _build.launch_tally() as inner:
+            _build.count_launch(fn)
+            other = threading.Thread(target=lambda: [_build.count_launch(fn)
+                                                     for _ in range(7)])
+            other.start()
+            other.join(60)
+            assert not other.is_alive()
+        _build.count_launch(fn)
+    _build.count_launch(fn)
+    assert inner == {("fn", None): 1}
+    assert outer == {("fn", "f32"): 1, ("fn", None): 2}
+    assert fn.launches == 11 and fn.launches_by_mode == {"f32": 1}
+
+
 def test_wrappers_count_through_count_launch():
     """Every kernel wrapper counts its launches with ``count_launch``."""
     ops = REPO / "raft_tpu_torch" / "ops"

@@ -443,27 +443,46 @@ def test_external_registry_must_cover_service_buckets():
 
 
 def test_not_yet_ported_surfaces(bf, dataset):
-    """tune/ and stream/ wait for a later slice: a tuned publish, a mutable
-    index and the write path raise "not yet ported" before any state lands."""
+    """tune/ waits for a later slice: a tuned publish raises "not yet
+    ported" before any state lands. The write path is ported: a duck-typed
+    mutable publishes through its own searcher and opens upsert / delete,
+    which a plain index under the name refuses."""
     reg = IndexRegistry(buckets=(1,))
     with pytest.raises(RaftError, match="not yet ported"):
         reg.publish("main", bf, tuned=True, warm=False)
+    assert reg.names() == ()
+
+    writes = []
 
     class Mutable:
-        def upsert(self, rows, ids=None):
-            pass
+        def upsert(self, rows, ids=None, res=None):
+            writes.append(("upsert", len(rows)))
+            return np.arange(len(rows))
+
+        def delete(self, ids):
+            writes.append(("delete", len(ids)))
+            return 0
 
         def searcher(self):
             return brute_force.batched_searcher(bf)
 
-    with pytest.raises(RaftError, match="not yet ported"):
-        reg.publish("main", Mutable(), warm=False)
-    assert reg.names() == ()
+    with pytest.raises(RaftError, match="bakes its search params"):
+        reg.publish("main", Mutable(), search_params=object(), warm=False)
+    reg.publish("main", Mutable(), warm=False)
+    assert reg.names() == ("main",)
     svc = det_service(bf, FakeClock())
-    with pytest.raises(RaftError, match="not yet ported"):
+    with pytest.raises(RaftError, match="not a mutable"):
         svc.upsert("main", dataset[:1])
-    with pytest.raises(RaftError, match="not yet ported"):
+    with pytest.raises(RaftError, match="not a mutable"):
         svc.delete("main", [0])
+    svc.publish("main", Mutable(), k=5, warm=False)
+    svc.upsert("main", dataset[:2])
+    svc.delete("main", [0])
+    assert writes == [("upsert", 2), ("delete", 1)]
+    svc.publish("main", bf, k=5, warm=False)       # a plain index closes it
+    with pytest.raises(RaftError, match="not a mutable"):
+        svc.upsert("main", dataset[:1])
+    svc.shutdown()
     with pytest.raises(RaftError, match="not yet ported"):
         cagra.batched_searcher(dataclasses.replace(
             cagra.build(cagra.IndexParams(seed=0), dataset[:256], res=CPU),
