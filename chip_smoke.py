@@ -10,15 +10,24 @@ end to end.
 
 Phases, each printing JSON lines:
   0. the card (name, power limit, count), the kernels' build with nvcc (the
-     ptxas report: registers, spills, static shared memory) and the
+     ptxas report: registers, spills, static shared memory), the
      tensor-core ``fused_knn`` kernel's tile plans at d=128, k in {1, 10,
      64} (queries a block, resident query tile, ring stages, dynamic shared
-     memory, resident blocks, splits at the main shape);
+     memory, resident blocks, splits at the main shape; modes bf16, f32x3,
+     s8 and mode f32's batch route, tf32x3) and the row-split route's plans
+     at every m of the M_SMALL sweep (query tile, tile rows, stages, splits
+     and waves over 1M rows);
   1. each kernel against its plain PyTorch version on the card, at the main
      paths' widths: ``fused_knn`` over 1,000,000 x 128 rows (2,048 queries;
-     modes f32 (FFMA kernel) and f32x3 / bf16 / s8 (tensor-core kernel), l2
-     with and without sqrt, ip, k in {1, 10, 64}, a keep-mask that keeps
-     fewer than k rows, a ragged n, d = 126); the tensor-core modes also
+     mode f32 on its batch route (3xTF32 on the tensor cores) and f32x3 /
+     bf16 / s8, l2 with and without sqrt, ip, k in {1, 10, 64}, a keep-mask
+     that keeps fewer than k rows, a ragged n, d = 126); mode f32's two
+     routes, each named, at m of 1, 7, 64, 65 and 300 and d of 64, 128 and
+     256 over 100,003 rows (l2 / ip / sqrt, k 1 / 10 / 64, a row bias, a
+     keep mask that keeps 5 rows, ties; knn_equiv at 1e-5, one launch on the
+     named route each); the 3xTF32 route's gate at 10,000 x 1M at d of 64,
+     128 and 256 (knn_equiv at 1e-5) and 1,024 (within
+     ``tc_rounding_bound``); ``tf32_split`` bit for bit; the tensor-core modes also
      over d in {64, 70, 100, 128, 256, 1024} at 100,003 rows (m of 1 to
      2,047, ties from a repeated half of the dataset, underfill; s8 bit for
      bit, bf16 / f32x3 at 1e-5 and at d = 1024 within ``tc_rounding_bound``)
@@ -46,7 +55,9 @@ Phases, each printing JSON lines:
   2. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``BruteForce("sqeuclidean").build(x).search(q, k=10)``
      at 1M x 128 float32 (uniform data from seed 0, 10,000 queries from
-     seed 1), checked against the plain version; ``knn`` on the same data
+     seed 1), checked against the plain version, one launch a batch on mode
+     f32's batch route; the same index searched at m = 1 and 64, one
+     row-split launch each; ``knn`` on the same data
      with ``compute="bfloat16"``, ``compute="float32x3"`` and as int8 codes
      under the default compute, each batch launching the tensor-core kernel
      once (bf16 / f32x3 checked by recall@10 against the float32 answer,
@@ -112,7 +123,13 @@ Phases, each printing JSON lines:
   3. ``fused_knn``'s bf16, f32x3 and s8 modes timed at the f32 row's shape
      beside their tensor-core bounds, their plain version and one library
      call each (and at k = 1 and 64), with ``knn``'s QPS in each mode and
-     the cost of f32x3's bf16 planes (``bf16_split``); kernel
+     the cost of f32x3's bf16 planes (``bf16_split``); mode f32's batch
+     route at 10,000 x 1M x 128 beside its 3xTF32 bound, the plain version
+     and ``torch.addmm`` + ``torch.topk``, ``tf32_split``'s time, and the
+     M_SMALL sweep: both routes and the library at m in {1, 8, 16, 32, 64,
+     128, 256, 384, 512} over the 1M set, with the crossover beside
+     ``M_SMALL``; the split merge's two kernels, each at the other's
+     shapes; kernel
      times (CUDA events) beside their bound, their plain version's
      time and one library call's time (for ``cagra_hop``, which no single
      PyTorch call computes, the ``"xla"`` hop body's time instead; for
@@ -139,8 +156,10 @@ Phases, each printing JSON lines:
      + refine recall@10 >= 0.85, and the memory ledger's bytes for the
      second build within 10% of its allocation delta. Prints QPS, p50 /
      p99, occupancy, host syncs (``torch.cuda.set_sync_debug_mode``),
-     device ms and launches a flush for each index kind; ``fused_knn`` at m
-     = 1 and 64 is timed beside ``torch.addmm`` + ``torch.topk``;
+     device ms and launches a flush for each index kind (a brute-force
+     flush: one row-split launch); ``fused_knn`` at m = 1 and 64 (the
+     row-split route, the whole call) is timed beside ``torch.addmm`` +
+     ``torch.topk`` with |y|² precomputed;
   5. ``raft_tpu_torch.stream`` behind ``SearchService.upsert`` / ``delete``
      (after phase 4, on phase 2's indexes and data): the IVF-PQ churn row of
      the JAX package (bench.py:1122-1185, ``serve_churn_ivf_pq_100k``'s
@@ -157,7 +176,8 @@ Phases, each printing JSON lines:
      on phase 2's index (two 128-query tiles) and on the churn index as its
      folds extended it, with its own tombstone words, at T = 1, 4 and 64,
      and ``fused_knn`` over the 4,096-row delta with its keep mask (m = 1,
-     8, 64), against their plain versions. Every window must fail no request
+     8, 64, one row-split launch each), against their plain versions; a
+     mutable flush's delta scan is one row-split launch. Every window must fail no request
      and build no kernel, each write step's rows must come back at rank 0,
      no read submitted after a delete returned may hold the deleted id, the
      IVF-PQ window must fold at least twice, and recall@10 through the
@@ -172,7 +192,9 @@ windows; ``launches_stream_folds``: the part of those that the compactions'
 folds made on the writer thread, CAGRA's rebuild graph build among them);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
-exits non-zero without that line; so does a machine without CUDA.
+exits non-zero without that line; so does a machine without CUDA (exit 2),
+and the script alone, in a directory without ``raft_tpu_torch`` beside it
+(exit 2).
 """
 
 from __future__ import annotations
@@ -209,6 +231,16 @@ SLICE_N = 100_000               # masked_l2_nn, gram_matrix, eps_neighbors, kmea
 KMEANS_K, KMEANS_ITERS = 256, 20
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores, H100 SXM data sheet
 H100_INT8_OPS = 1979e12         # dense int8 tensor cores, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12        # dense tf32 tensor cores, H100 SXM data sheet
+F32_SWEEP_M = (1, 8, 16, 32, 64, 128, 256, 384, 512)   # mode f32's route sweep (M_SMALL)
+# (d, m, k, metric, extra) of mode f32's route checks at 100,003 rows: every
+# route at each m (each route takes any m), l2 / ip / sqrt, k 1 / 10 / 64,
+# a row bias, a keep mask that keeps 5 rows (underfill), ties
+F32_ROUTE_CASES = [(d, m, k, metric, extra)
+                   for d in (64, 128, 256) for m in (1, 7, 64, 65, 300)
+                   for k, metric, extra in [(10, "l2", None), (64, "ip", "bias"),
+                                            (1, "l2", "sqrt"), (10, "l2", "underfill"),
+                                            (10, "ip", "ties")]]
 FILTER_KEEP = (0.5, 0.02)       # shares of the ids the filtered IVF-PQ searches keep
 BYTE_SCALE = 12.0               # the IVF-PQ blob set as bytes: round(12 x) (+128 for uint8)
 SERVE_THREADS, SERVE_PER_THREAD, SERVE_SEQ = 8, 400, 512   # bench.py:733 _row_serve
@@ -239,6 +271,20 @@ def knn_equiv(dv, di, rd, ri, rtol, atol):
                                           torch.sort(rd[r]).values,
                                           rtol=rtol, atol=atol), f"row {r} ids differ"
     return float((dv[fin] - rd[fin]).abs().max()) if fin.any() else 0.0
+
+
+def f32_bound(m, n, d, k):
+    """The least time of mode f32's function on the card, whatever route
+    runs it: the larger of its bytes (queries and dataset read once, the
+    (m, k) results written once) and its three TF32 tensor-core products
+    (the float32-accurate 3xTF32 split the batch route runs). Beside it,
+    ``ffma_bound_ms``: the one float32 product at the FFMA peak, the floor
+    of the row-split route's FFMA design."""
+    t_bytes = ((n * d + m * d) * 4 + m * k * 8) / H100_BYTES_S
+    t_ops = 3 * 2.0 * m * n * d / H100_TF32_FLOPS
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ffma_bound_ms=max(2.0 * m * n * d / H100_F32_FLOPS, t_bytes) * 1e3)
 
 
 def cuda_ms(fn, reps=3, warm=1):
@@ -284,14 +330,20 @@ def phase_build(st):
         report[name] = lines
     emit(phase="build", seconds=round(time.perf_counter() - t0, 2),
          per_source=secs, ptxas=report)
-    from raft_tpu_torch.ops.fused_knn import _INSERT_TILES, _nsplit, fused_knn_config
+    from raft_tpu_torch.ops.fused_knn import (_INSERT_TILES, _nsplit, fused_knn_config,
+                                              row_splits)
 
-    for mode in ("bf16", "f32x3", "s8"):
+    for mode in ("bf16", "f32x3", "s8", "tf32x3"):
         for k in (1, 10, 64):
             c = fused_knn_config(mode, D_MAIN, k)
             emit(phase="plan", kernel="fused_knn_tc", mode=mode, d=D_MAIN, k=k,
                  nsplit_main=_nsplit(M_MAIN, N_MAIN, c["qt"], c["slots"], c["nb"],
                                      _INSERT_TILES * k), **c)
+    for m in F32_SWEEP_M:
+        c = fused_knn_config("rows", D_MAIN, K_MAIN, m=m)
+        splits, waves = row_splits(m, N_MAIN, c, c["slots"])
+        emit(phase="plan", kernel="fused_knn", route="rows", m=m, d=D_MAIN, k=K_MAIN,
+             splits=splits, waves=waves, **c)
 
 
 def phase_kernels(st):
@@ -337,10 +389,13 @@ def phase_kernels(st):
         dict(mode="f32x3", metric="l2", k=10, narrow=True),
         dict(mode="s8", metric="l2", k=1),
     ]
+    from raft_tpu_torch.ops.fused_knn import f32_route
+
     err = {"fused_knn": 0.0, "fused_knn_tc": 0.0}
     for c in cases:
         c = dict(c)
         kernel = "fused_knn" if c["mode"] == "f32" else "fused_knn_tc"
+        route = f32_route(2048) if c["mode"] == "f32" else None
         ragged, narrow = c.pop("ragged", False), c.pop("narrow", False)
         k = c.pop("k")
         if c["mode"] == "s8":
@@ -363,12 +418,16 @@ def phase_kernels(st):
         if "keep_mask" in c:
             assert bool((di[:, 5:] == -1).all()), "underfill ids are not -1"
         emit(phase="check", kernel=kernel, n=ds.shape[0], d=ds.shape[1],
-             m=qq.shape[0], k=k, mode=c["mode"], metric=c["metric"], sqrt=c.get("sqrt", False),
-             keep_mask="keep_mask" in c, max_abs_err=e, ok=True)
-    st["fused_err"], st["tc_err"] = err["fused_knn"], err["fused_knn_tc"]
+             m=qq.shape[0], k=k, mode=c["mode"], route=route, metric=c["metric"],
+             sqrt=c.get("sqrt", False), keep_mask="keep_mask" in c, max_abs_err=e, ok=True)
+    st["f32_err"] = {f32_route(2048): err["fused_knn"]}
+    st["tc_err"] = err["fused_knn_tc"]
     del x, q, xs8, qs8
+    check_f32_routes(st, g)
     check_tc_edges(st, g)
     check_split(g)
+    check_tf32_split(g)
+    check_tf32x3_gate(st)
 
     m, n = TOPK_SHAPE
     v = torch.rand(TOPK_SHAPE, generator=g, device=dev)
@@ -432,6 +491,160 @@ def check_split(g):
         assert same, f"bf16_split differs on {name}"
         emit(phase="check", kernel="bf16_split", values=name, n=t.numel(),
              bit_equal=True, ok=True)
+
+
+def check_tf32_split(g):
+    """``tf32_split`` (mode f32's 3xTF32 operand planes) against its plain
+    version, value bits compared: values at and around the tf32 rounding
+    point (ties to even), subnormals, ±0, ±inf, a length that is not a
+    multiple of four, and the main path's 1M x 128 rows."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.ops.fused_knn import tf32_split, tf32_split_plain
+
+    rng = np.random.default_rng(12)
+    base = rng.integers(0x00800000, 0x7F000000, 4096, dtype=np.uint32) & 0xFFFFE000
+    lows = np.array([0, 1, 0xFFF, 0x1000, 0x1001, 0x1FFF], np.uint32)
+    bits = (base[:, None] | lows[None, :]).ravel()
+    bits |= rng.integers(0, 2, bits.size, dtype=np.uint32) << 31
+    special = np.array([0, 0x80000000, 1, 0x80000001, 0x007FFFFF, 0x00001000, 0x00003000,
+                        0x7F7FDFFF, 0x7F800000, 0xFF800000], np.uint32)
+    edge = torch.from_numpy(np.concatenate([bits, special]).view(np.float32)).cuda()
+    dev = torch.device("cuda")
+    for name, t in (("edge values", edge), ("odd length", edge[:-3]),
+                    ("1M x 128 uniform", torch.rand((N_MAIN, D_MAIN), generator=g, device=dev)),
+                    ("normal x 1e3", torch.randn((4097, 100), generator=g, device=dev) * 1e3)):
+        hi, lo = tf32_split(t)
+        torch.cuda.synchronize()
+        ph, pl = tf32_split_plain(t)
+        same = (torch.equal(hi.view(torch.int32), ph.view(torch.int32))
+                and torch.equal(lo.view(torch.int32), pl.view(torch.int32)))
+        assert same, f"tf32_split differs on {name}"
+        emit(phase="check", kernel="tf32_split", values=name, n=t.numel(),
+             bit_equal=True, ok=True)
+
+
+def f32_route_counts():
+    from raft_tpu_torch.ops.fused_knn import fused_knn
+
+    return dict(fused_knn.launches_by_route)
+
+
+def check_f32_routes(st, g):
+    """Mode f32's routes, each named (``_fused_knn_f32``) at every m of
+    F32_ROUTE_CASES over 100,003 rows, against the plain version by
+    knn_equiv at rtol = atol = 1e-5; each call must count one launch on its
+    route alone. The
+    row-split route's |y|² is summed in the kernel, its bias and mask ride
+    as a penalty; ties come from a repeated half of the dataset."""
+    import torch
+
+    from raft_tpu_torch.ops import fused_knn as fk
+
+    dev = torch.device("cuda")
+    err = {r: 0.0 for r in fk._F32_ROUTES}
+    failed = []
+    n = 100_003
+    for d in (64, 128, 256):
+        x = torch.rand((n, d), generator=g, device=dev)
+        xt = x.clone()
+        xt[n // 2:2 * (n // 2)] = x[:n // 2]
+        q = torch.rand((300, d), generator=g, device=dev)
+        bias = torch.rand(n, generator=g, device=dev) * 0.5
+        keep = torch.zeros(n, dtype=torch.bool, device=dev)
+        keep[torch.randperm(n, generator=g, device=dev)[:5]] = True
+        for dd, m, k, metric, extra in F32_ROUTE_CASES:
+            if dd != d:
+                continue
+            kw = dict(metric=metric)
+            ds = xt if extra == "ties" else x
+            if extra == "bias":
+                kw["row_bias"] = bias
+            if extra == "sqrt":
+                kw["sqrt"] = True
+            if extra == "underfill":
+                kw.update(keep_mask=keep, row_bias=bias)
+            rd, ri = fk.fused_knn_plain(ds, q[:m], k, **kw)
+            errs = {}
+            for route in fk._F32_ROUTES:
+                before = f32_route_counts()
+                dv, di = fk._fused_knn_f32(route, ds, q[:m], k, **kw)
+                torch.cuda.synchronize()
+                assert f32_route_counts() == dict(before, **{route: before[route] + 1}), route
+                try:
+                    e = errs[route] = knn_equiv(dv, di, rd, ri, rtol=1e-5, atol=1e-5)
+                except AssertionError as exc:
+                    fin = torch.isfinite(rd)
+                    rel = ((dv - rd).abs() / rd.abs().clamp_min(1e-30))[fin].max()
+                    emit(phase="check", kernel="fused_knn", mode="f32", route=route, n=n, d=d,
+                         m=m, k=k, metric=metric, extra=extra, tolerance=1e-5, ok=False,
+                         max_rel_err=float(rel), failure=str(exc)[:200])
+                    failed.append((route, d, m, k, metric, extra))
+                    continue
+                if extra == "underfill":
+                    assert bool((di[:, 5:] == -1).all()), "underfill ids are not -1"
+                if extra == "ties":
+                    half = n // 2
+                    for r in range(m):
+                        ids = di[r].tolist()
+                        for j, i in enumerate(ids):
+                            if half <= i < 2 * half:
+                                assert i - half in ids[:j], (route, r, ids)
+                err[route] = max(err[route], e)
+            emit(phase="check", kernel="fused_knn", mode="f32", n=n, d=d, m=m, k=k,
+                 metric=metric, extra=extra, tolerance=1e-5, max_abs_err_by_route=errs,
+                 ok=len(errs) == len(fk._F32_ROUTES))
+        del x, xt, q
+    for route, e in err.items():
+        st["f32_err"][route] = max(st["f32_err"].get(route, 0.0), e)
+    emit(phase="check", kernel="fused_knn", mode="f32", max_abs_err_by_route=err,
+         failed=failed, ok=not failed, card=st["card"])
+    assert not failed, failed
+
+
+def check_tf32x3_gate(st):
+    """The 3xTF32 route's gate at the batch: 10,000 queries x 1M rows, k =
+    10, l2, at d = 64, 128 and 256 by knn_equiv at rtol = atol = 1e-5
+    against the plain version, and at d = 1,024 within tc_rounding_bound
+    (mode "tf32x3") + 1e-5. Every case prints its largest error; a case
+    that fails is printed with its shape, seed and error, then raises."""
+    import torch
+
+    from raft_tpu_torch.ops import fused_knn as fk
+
+    dev = torch.device("cuda")
+    gate = {}
+    for d, seed in ((64, 50), (128, 51), (256, 52), (1024, 53)):
+        gd = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.rand((N_MAIN, d), generator=gd, device=dev)
+        q = torch.rand((M_MAIN, d), generator=gd, device=dev)
+        dv, di = fk._fused_knn_f32("tf32x3", x, q, K_MAIN)
+        torch.cuda.synchronize()
+        rd, ri = fk.fused_knn_plain(x, q, K_MAIN)
+        case = dict(n=N_MAIN, d=d, m=M_MAIN, k=K_MAIN, metric="l2", seed=seed)
+        ad = (dv - rd).abs()
+        out = dict(max_abs_err=float(ad.max()),
+                   max_rel_err=float((ad / rd.abs().clamp_min(1e-30)).max()))
+        try:
+            if d <= 256:
+                knn_equiv(dv, di, rd, ri, rtol=1e-5, atol=1e-5)
+                out["tolerance"] = "knn_equiv 1e-5"
+            else:
+                bound = fk.tc_rounding_bound(x, q, ri, "l2", "tf32x3")
+                out["tolerance"] = f"1e-5 + tc_rounding_bound tf32x3 (max {float(bound.max()):.3g})"
+                out["err_over_bound"] = float((ad / bound.clamp_min(1e-30)).max())
+                assert bool((ad <= 1e-5 + 1e-5 * rd.abs() + bound).all()), "beyond the bound"
+                knn_equiv(dv, di, rd, ri, rtol=1e-5, atol=1e-5 + float(bound.max()))
+            out["ok"] = True
+        except AssertionError as e:
+            out.update(ok=False, failure=str(e)[:300])
+        gate[d] = out
+        emit(phase="check", kernel="fused_knn", mode="f32", route="tf32x3", gate=True,
+             card=st["card"], **case, **out)
+        del x, q, dv, di, rd, ri, ad
+    st["tf32x3_gate"] = gate
+    assert all(v["ok"] for v in gate.values()), gate
 
 
 # (d, m, n, k, metric, extra) of the tensor-core modes' edge sweep: every d
@@ -832,14 +1045,19 @@ def phase_main(st):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     batches = 3
-    fused_knn.launches = topk.launches = 0
+    reset_all_counts()
     t0 = time.perf_counter()
     for _ in range(batches):
         dist, ids = index.search(q, K_MAIN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fused_knn": fused_knn.launches, "topk": topk.launches}
-    assert launches["fused_knn"] > 0, "the main path did not launch fused_knn"
+    routes = f32_route_counts()
+    launches = {"fused_knn": fused_knn.launches, "topk": topk.launches,
+                "fused_knn_tf32x3": routes["tf32x3"],
+                "tf32_split": all_counts()["tf32_split"]}
+    # one launch a 10k-query batch, on the batch route alone
+    assert routes == dict(dict.fromkeys(routes, 0), tf32x3=batches), routes
+    assert fused_knn.launches == batches and topk.launches == 0, launches
     peak = torch.cuda.max_memory_allocated()
     assert dist.shape == (M_MAIN, K_MAIN) and ids.shape == (M_MAIN, K_MAIN)
     assert bool(torch.isfinite(dist).all()) and bool((ids >= 0).all())
@@ -866,6 +1084,24 @@ def phase_main(st):
     st["main"] = (x, q)
     st["main_ids"] = ids
 
+    # the same index at serving shapes: one row-split launch a search
+    for m in (1, SERVE_MAX_BATCH):
+        index.search(q[:m], K_MAIN)              # warm-up
+        torch.cuda.synchronize()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        d1, i1 = index.search(q[:m], K_MAIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        routes = f32_route_counts()
+        assert routes == dict(dict.fromkeys(routes, 0), rows=1), routes
+        launches["fused_knn_rows"] = launches.get("fused_knn_rows", 0) + routes["rows"]
+        with uncounted():
+            rd, ri = fused_knn_plain(x, q[:m], K_MAIN, metric="l2")
+        e = knn_equiv(d1, i1, rd, ri, rtol=1e-5, atol=1e-5)
+        emit(phase="main", path="BruteForce.search (serving shape)", n=N_MAIN, d=D_MAIN, m=m,
+             k=K_MAIN, ms=wall * 1e3, launches_by_route=routes, max_abs_err=e, card=st["card"])
+
     vals = torch.rand(TOPK_SHAPE, generator=torch.Generator(device=dev).manual_seed(2),
                       device=dev)
     select_k(vals, K_MAIN, res=res)          # warm-up
@@ -890,7 +1126,7 @@ def phase_tc_path(st):
     mode through the public entry point: ``compute="bfloat16"``,
     ``compute="float32x3"`` and int8 data under the default compute. The
     counts are set to 0 just before each batch and read just after; each
-    must launch the mode's kernel once and never the FFMA kernel. Each
+    must launch the mode's kernel once and none of mode f32's routes. Each
     batch is held against the plain version on all its queries: int8 bit
     for bit, bf16 and f32x3 by knn_equiv at rtol = atol = 1e-5. bf16's and
     f32x3's recall@10 against the float32 answer of the main path is
@@ -2600,42 +2836,137 @@ def time_pq_scan(st):
     pq_scan.launches, pq_scan_topk.launches, topk.launches = saved
 
 
-def phase_times(st):
+def time_f32_routes(st):
+    """Mode f32's routes timed in one call. The batch (10,000 x 1M x 128,
+    k=10) on its route, twice, beside its bound, the plain
+    version and ``torch.addmm`` + ``torch.topk`` per 2,500-query chunk with
+    |y|² computed once outside the timing; ``tf32_split`` of the 1M x 128
+    set beside its bytes bound; then the sweep of m in F32_SWEEP_M over
+    the same set with every route and the library timed at each m, and the
+    crossover it gives (the largest swept m up to which the row-split route
+    beats every other route at every m) beside ``M_SMALL``."""
     import torch
 
     from raft_tpu_torch.distance.pairwise import full_f32
-    from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
-    from raft_tpu_torch.ops.topk import topk, topk_plain
+    from raft_tpu_torch.ops import fused_knn as fk
 
-    x, q = st.pop("main")
-    m, n, d, k = M_MAIN, N_MAIN, D_MAIN, K_MAIN
-    saved = fused_knn.launches, topk.launches
-    ms = cuda_ms(lambda: fused_knn(x, q, k), reps=3)
-    plain_ms = cuda_ms(lambda: fused_knn_plain(x, q, k), reps=1)
+    x, q = st["main"]
+    n, d, k = N_MAIN, D_MAIN, K_MAIN
+    yn = x.square().sum(1)
 
-    def library():
+    def library(qq):
         # the same function as two PyTorch calls per chunk of queries:
-        # expanded-L2 product (torch.mm, full float32), then torch.topk
-        yn = x.square().sum(1)
-        for i in range(0, m, 2500):
-            qb = q[i:i + 2500]
+        # expanded-L2 product (torch.addmm, full float32), then torch.topk
+        for i in range(0, qq.shape[0], 2500):
             with full_f32():
-                dd = torch.addmm(yn[None, :], qb, x.T, alpha=-2.0)
+                dd = torch.addmm(yn[None, :], qq[i:i + 2500], x.T, alpha=-2.0)
             torch.topk(dd, k, dim=1, largest=False)
 
-    lib_ms = cuda_ms(library, reps=1)
-    flops = 2.0 * m * n * d
-    nbytes = (n * d + m * d + n) * 4 + m * k * 8
-    f_bound = max(flops / H100_F32_FLOPS, nbytes / H100_BYTES_S) * 1e3
-    st["fused_t"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=f_bound,
-                         bound_by="operations" if flops / H100_F32_FLOPS
-                         >= nbytes / H100_BYTES_S else "bytes")
-    emit(phase="time", kernel="fused_knn", shape=[m, n, d, k], ms=ms,
-         plain_ms=plain_ms, library_ms=lib_ms, library="torch.addmm + torch.topk "
-         "(two calls per 2,500-query chunk)", bound_ms=f_bound,
-         bound_by=st["fused_t"]["bound_by"], card=st["card"])
-    del x, q
+    with uncounted():
+        m = M_MAIN
+        plain_ms = cuda_ms(lambda: fk.fused_knn_plain(x, q, k), reps=1)
+        lib_ms = cuda_ms(lambda: library(q), reps=1)
+        route = "tf32x3"
+        runs = [cuda_ms(lambda: fk._fused_knn_f32(route, x, q, k), reps=3) for _ in range(2)]
+        st["f32_t"] = dict(ms_runs=runs, ms=min(runs), plain_ms=plain_ms, library_ms=lib_ms,
+                           **f32_bound(m, n, d, k))
+        emit(phase="time", kernel="fused_knn", mode="f32", route=route, shape=[m, n, d, k],
+             library="torch.addmm + torch.topk (two calls per 2,500-query chunk, |y|^2 "
+             "precomputed)", card=st["card"], **st["f32_t"])
+        split_bytes = n * d * (4 + 2 * 4)
+        st["tf32_split_t"] = dict(
+            ms=cuda_ms(lambda: fk.tf32_split(x), reps=5),
+            plain_ms=cuda_ms(lambda: fk.tf32_split_plain(x), reps=2),
+            library_ms=None, bound_ms=split_bytes / H100_BYTES_S * 1e3, bound_by="bytes")
+        emit(phase="time", kernel="tf32_split", shape=[n, d], bytes=split_bytes,
+             card=st["card"], **st["tf32_split_t"])
+
+        sweep = {}
+        for m in F32_SWEEP_M:
+            qm = q[:m]
+            row = {r: cuda_ms(lambda: fk._fused_knn_f32(r, x, qm, k), reps=5)
+                   for r in fk._F32_ROUTES}
+            lib = cuda_ms(lambda: library(qm), reps=5)
+            others = min(v for r, v in row.items() if r != "rows")
+            sweep[m] = dict(ms_by_route=row, library_ms=lib, rows_wins=row["rows"] < others,
+                            **f32_bound(m, n, d, k))
+            emit(phase="sweep", kernel="fused_knn", mode="f32", m=m, n=n, d=d, k=k,
+                 card=st["card"], **sweep[m])
+        crossover = None
+        for m in F32_SWEEP_M:
+            if not sweep[m]["rows_wins"]:
+                break
+            crossover = m
+        emit(phase="sweep", kernel="fused_knn", mode="f32", crossover_m=crossover,
+             m_small=fk.M_SMALL, matches_m_small=crossover == fk.M_SMALL, card=st["card"])
+        st["f32_sweep"] = sweep
+        plain_small = {m: cuda_ms(lambda: fk.fused_knn_plain(x, q[:m], k), reps=2)
+                       for m in (1, SERVE_MAX_BATCH)}
+        st["rows_t"] = dict(
+            ms=sweep[SERVE_MAX_BATCH]["ms_by_route"]["rows"], plain_ms=plain_small[SERVE_MAX_BATCH],
+            library_ms=sweep[SERVE_MAX_BATCH]["library_ms"], **f32_bound(SERVE_MAX_BATCH, n, d, k),
+            m=SERVE_MAX_BATCH,
+            at_m1=dict(ms=sweep[1]["ms_by_route"]["rows"], plain_ms=plain_small[1],
+                       library_ms=sweep[1]["library_ms"], **f32_bound(1, n, d, k)))
+
+
+def time_merges(st):
+    """warp_topk's two split merges, each on its own shapes and the
+    other's: (m = 64, 132 splits), the row-split route's at a serving
+    flush, and (m = 10,000, 5 splits), the tensor-core route's at the
+    batch; k = 10. Both must give the plain merge's lists bit for bit
+    (score descending, ties to the lower id) before they are timed."""
+    import ctypes
+
+    import torch
+
+    from raft_tpu_torch.ops._build import load
+
+    fn = load("fused_knn").fused_knn_merge_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(60)
+    k = K_MAIN
+    out = {}
+    for m, ns in ((SERVE_MAX_BATCH, 132), (M_MAIN, 5)):
+        pv = torch.rand((m, ns, k), generator=g, device=dev).sort(dim=2, descending=True).values
+        pi = torch.randint(0, 1 << 29, (m, ns, k), generator=g, device=dev, dtype=torch.int32)
+        fv, fi = pv.reshape(m, -1), pi.reshape(m, -1)
+        o = fi.argsort(dim=1, stable=True)
+        o = o.gather(1, (-fv.gather(1, o)).argsort(dim=1, stable=True))[:, :k]
+        rv, ri = fv.gather(1, o), fi.gather(1, o)
+        row = {}
+        for name, wide in (("merge_kernel", 0), ("merge_wide_kernel", 1)):
+            ov = torch.empty((m, k), dtype=torch.float32, device=dev)
+            oi = torch.empty((m, k), dtype=torch.int32, device=dev)
+
+            def run(wide=wide, ov=ov, oi=oi):
+                err = fn(wide, pv.data_ptr(), pi.data_ptr(), m, ns, k, ov.data_ptr(),
+                         oi.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                assert err == 0, f"merge launch failed: cudaError {err}"
+
+            run()
+            torch.cuda.synchronize()
+            assert torch.equal(ov, rv) and torch.equal(oi, ri), (name, m, ns)
+            row[name] = cuda_ms(run, reps=20)
+        chosen = "merge_wide_kernel" if ns >= 32 else "merge_kernel"
+        out[f"{m}x{ns}"] = dict(m=m, nsplit=ns, k=k, ms_by_kernel=row, dispatch=chosen,
+                                dispatch_is_faster=row[chosen] <= min(row.values()))
+        emit(phase="time", kernel="warp_topk_merge", card=st["card"], **out[f"{m}x{ns}"])
+    st["merge_t"] = out
+
+
+def phase_times(st):
+    import torch
+
+    from raft_tpu_torch.ops.fused_knn import fused_knn
+    from raft_tpu_torch.ops.topk import topk, topk_plain
+
+    st.pop("main")
+    k = K_MAIN
+    saved = fused_knn.launches, topk.launches
 
     vals = st.pop("select")
     mm, nn = TOPK_SHAPE
@@ -2695,29 +3026,32 @@ def topk_sweep(st):
 
 
 def all_counts():
-    """Every kernel wrapper's launch count (``fused_knn`` by mode)."""
+    """Every kernel wrapper's launch count (``fused_knn`` by mode, and mode
+    f32's by route)."""
     from raft_tpu_torch.ops.cagra_hop import cagra_hop
-    from raft_tpu_torch.ops.fused_knn import bf16_split, fused_knn
+    from raft_tpu_torch.ops.fused_knn import bf16_split, fused_knn, tf32_split
     from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_topk
     from raft_tpu_torch.ops.topk import topk
 
     return {"fused_knn": fused_knn.launches_by_mode["f32"],
+            **{f"fused_knn_{r}": v for r, v in fused_knn.launches_by_route.items()},
             "fused_knn_tc": sum(v for m, v in fused_knn.launches_by_mode.items()
                                 if m != "f32"),
-            "bf16_split": bf16_split.launches, "topk": topk.launches,
-            "pq_scan": pq_scan.launches, "pq_scan_topk": pq_scan_topk.launches,
-            "cagra_hop": cagra_hop.launches}
+            "bf16_split": bf16_split.launches, "tf32_split": tf32_split.launches,
+            "topk": topk.launches, "pq_scan": pq_scan.launches,
+            "pq_scan_topk": pq_scan_topk.launches, "cagra_hop": cagra_hop.launches}
 
 
 def reset_all_counts():
     from raft_tpu_torch.ops.cagra_hop import cagra_hop
-    from raft_tpu_torch.ops.fused_knn import bf16_split, fused_knn
+    from raft_tpu_torch.ops.fused_knn import bf16_split, fused_knn, tf32_split
     from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_topk
     from raft_tpu_torch.ops.topk import topk
 
-    for fn in (fused_knn, bf16_split, topk, pq_scan, pq_scan_topk, cagra_hop):
+    for fn in (fused_knn, bf16_split, tf32_split, topk, pq_scan, pq_scan_topk, cagra_hop):
         fn.launches = 0
     fused_knn.launches_by_mode = dict.fromkeys(fused_knn.launches_by_mode, 0)
+    fused_knn.launches_by_route = dict.fromkeys(fused_knn.launches_by_route, 0)
 
 
 def row_equiv(d, i, rd, ri, rtol=1e-5, atol=1e-5):
@@ -2764,8 +3098,11 @@ def serve_kernel_checks(st):
     yn = x.square().sum(1)
     err = 0.0
     for m in (1, 64):
+        before = f32_route_counts()
         dv, di = fused_knn(x, q[:m], K_MAIN)
         torch.cuda.synchronize()
+        # a serving flush's shape is the row-split route's
+        assert f32_route_counts() == dict(before, rows=before["rows"] + 1), before
         rd, ri = fused_knn_plain(x, q[:m], K_MAIN)
         e = knn_equiv(dv, di, rd, ri, rtol=1e-5, atol=1e-5)
         err = max(err, e)
@@ -2777,17 +3114,20 @@ def serve_kernel_checks(st):
                 dd = torch.addmm(yn[None, :], qm, x.T, alpha=-2.0)
             torch.topk(dd, K_MAIN, dim=1, largest=False)
 
-        # its time at the serving shape, beside the bound of reading the set
-        # and the library calls' time
-        t_ops = 2.0 * m * N_MAIN * D_MAIN / H100_F32_FLOPS
-        t_bytes = ((N_MAIN * D_MAIN + m * D_MAIN + N_MAIN) * 4 + m * K_MAIN * 8) / H100_BYTES_S
+        # the whole call's time at the serving shape (the row-split route:
+        # the dataset read once, |y|² summed in the kernel), beside the bound
+        # of reading the set and the library calls' time with |y|²
+        # precomputed
+        with uncounted():
+            ms = cuda_ms(lambda: fused_knn(x, q[:m], K_MAIN), reps=5)
+            lib_ms = cuda_ms(library, reps=5)
         emit(phase="check", kernel="fused_knn", n=N_MAIN, d=D_MAIN, m=m, k=K_MAIN,
-             mode="f32", max_abs_err=e, ok=True, serve=True,
-             ms=cuda_ms(lambda: fused_knn(x, q[:m], K_MAIN), reps=5),
-             library_ms=cuda_ms(library, reps=5), library="torch.addmm + torch.topk",
-             bound_ms=max(t_ops, t_bytes) * 1e3,
-             bound_by="operations" if t_ops >= t_bytes else "bytes", card=st["card"])
-    st["fused_err"] = max(st.get("fused_err", 0.0), err)
+             mode="f32", route="rows", max_abs_err=e, ok=True, serve=True, ms=ms,
+             library_ms=lib_ms, library="torch.addmm + torch.topk (|y|^2 precomputed)",
+             kernel_at_or_below_library=ms <= lib_ms, **f32_bound(m, N_MAIN, D_MAIN, K_MAIN),
+             card=st["card"])
+    errs = st.setdefault("f32_err", {})
+    errs["rows"] = max(errs.get("rows", 0.0), err)
     codes, ids, probes, lut, bias, _ = pq_topk_case(
         g, n_lists=PQ_LISTS, cap=PQ_CAP, s=64, t=64, pc=8, split=False,
         dt=torch.bfloat16, inner=False, top=300)
@@ -3010,6 +3350,12 @@ def flush_profile(st, kind, searcher, qhost, k, buckets=(1, SERVE_MAX_BATCH)):
         out[b] = dict(host_syncs=len(syncs), event_ms=e0.elapsed_time(e1),
                       dispatch_ms=dispatch_ms, wall_ms=wall_ms,
                       launches={kk: v for kk, v in all_counts().items() if v})
+        if kind in ("brute_force", "stream_ivf_pq"):
+            # a brute-force flush, and a mutable flush's delta scan at a
+            # 4,096-row bucket: one row-split launch, nothing on mode f32's
+            # other routes
+            assert f32_route_counts() == dict(dict.fromkeys(f32_route_counts(), 0), rows=1), (
+                kind, b, out[b]["launches"])
     prof = profile_batch(st, f"{kind} serve flush", f"serve_{kind}_flush_profile.txt",
                          lambda: _start_copy_to_host(searcher(qd, k))[1].synchronize(),
                          what=f"{SERVE_MAX_BATCH}-row flush")
@@ -3396,12 +3742,15 @@ def churn_window(st, svc, name, m, comp, pool, fresh, n0, steps, eval_q):
 
 
 def tally_counts(tally):
-    """A ``launch_tally`` dict under ``all_counts``' names."""
+    """A ``launch_tally`` dict under ``all_counts``' names (mode f32's
+    launches also under their route's)."""
     out = {}
-    for (name, mode), v in tally.items():
+    for (name, mode, route), v in tally.items():
+        names = [name]
         if name == "fused_knn":
-            name = "fused_knn" if mode == "f32" else "fused_knn_tc"
-        out[name] = out.get(name, 0) + v
+            names = ["fused_knn", f"fused_knn_{route}"] if mode == "f32" else ["fused_knn_tc"]
+        for nm in names:
+            out[nm] = out.get(nm, 0) + v
     return out
 
 
@@ -3439,18 +3788,19 @@ def uncounted():
     """Launches made inside (comparisons with plain versions, ground truth)
     leave every kernel's launch count as it was."""
     from raft_tpu_torch.ops.cagra_hop import cagra_hop
-    from raft_tpu_torch.ops.fused_knn import bf16_split, fused_knn
+    from raft_tpu_torch.ops.fused_knn import bf16_split, fused_knn, tf32_split
     from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_topk
     from raft_tpu_torch.ops.topk import topk
 
-    fns = (fused_knn, bf16_split, topk, pq_scan, pq_scan_topk, cagra_hop)
-    saved = [fn.launches for fn in fns], dict(fused_knn.launches_by_mode)
+    fns = (fused_knn, bf16_split, tf32_split, topk, pq_scan, pq_scan_topk, cagra_hop)
+    saved = ([fn.launches for fn in fns], dict(fused_knn.launches_by_mode),
+             dict(fused_knn.launches_by_route))
     try:
         yield
     finally:
         for fn, n in zip(fns, saved[0]):
             fn.launches = n
-        fused_knn.launches_by_mode = saved[1]
+        fused_knn.launches_by_mode, fused_knn.launches_by_route = saved[1], saved[2]
 
 
 def stream_pq_check(st, index, words, tiles, what):
@@ -3501,13 +3851,17 @@ def stream_fused_check(st, m, q):
     err = 0.0
     with uncounted():
         for mm in (1, 8, 64):
+            before = f32_route_counts()
             dv, di = fused_knn(rows, q[:mm], K_MAIN, keep_mask=dkeep)
             torch.cuda.synchronize()
+            assert f32_route_counts() == dict(before, rows=before["rows"] + 1), before
             rd, ri = fused_knn_plain(rows, q[:mm], K_MAIN, keep_mask=dkeep)
             err = max(err, knn_equiv(dv, di, rd, ri, rtol=1e-5, atol=1e-5))
     emit(phase="check", kernel="fused_knn", n=b, d=D_MAIN, m=[1, 8, 64], k=K_MAIN, mode="f32",
-         kept=int(dkeep.sum()), max_abs_err=err, tolerance=1e-5, ok=True, stream=True)
-    st["fused_err"] = max(st.get("fused_err", 0.0), err)
+         route="rows", kept=int(dkeep.sum()), max_abs_err=err, tolerance=1e-5, ok=True,
+         stream=True)
+    errs = st.setdefault("f32_err", {})
+    errs["rows"] = max(errs.get("rows", 0.0), err)
 
 
 def stream_bf_exact(st):
@@ -3766,7 +4120,12 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import raft_tpu_torch  # noqa: F401  (fails outside a checkout)
+    try:
+        import raft_tpu_torch  # noqa: F401
+    except ImportError as e:
+        # the script alone, outside a checkout: nothing to run
+        print(f"chip_smoke: raft_tpu_torch is not beside this script ({e})", file=sys.stderr)
+        return 2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3794,29 +4153,50 @@ def main(argv=None):
         phase_stream(st)
     if "3" in args.phases and "2" in args.phases:
         time_fused_modes(st)
+        time_f32_routes(st)
+        time_merges(st)
         phase_times(st)
         time_pq_scan(st)
         time_cagra_hop(st)
     if all(p in args.phases for p in "123"):
+        from raft_tpu_torch.ops import fused_knn as fk
+
         launches = st["launches"]
         serve = st.get("launches_serve", {})
         strm = st.get("launches_stream", {})
-        folds = st.get("launches_stream_folds", {})
+        folds = st.get("launches_stream_folds")
+
+        def fold(name):
+            # the folds' launches of phase 5, 0 where they made none
+            return None if folds is None else folds.get(name, 0)
+
         emit(kernels=[
-            dict(name="fused_knn", route="cuda",
+            dict(name="fused_knn_rows", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn.cu",
-                 replaces="raft_tpu/ops/fused_knn.py:150", mode="f32",
-                 launches=launches["fused_knn"], launches_serve=serve.get("fused_knn"),
-                 launches_stream=strm.get("fused_knn"),
-                 launches_stream_folds=folds.get("fused_knn"),
-                 max_abs_err=st["fused_err"], **st["fused_t"]),
+                 replaces="raft_tpu/ops/fused_knn.py:150", mode="f32", f32_route="rows",
+                 launches=launches["fused_knn_rows"],
+                 launches_on="BruteForce.search at m = 1 and 64",
+                 launches_serve=serve.get("fused_knn_rows"),
+                 launches_stream=strm.get("fused_knn_rows"),
+                 launches_stream_folds=fold("fused_knn_rows"),
+                 max_abs_err=st["f32_err"]["rows"], m_small=fk.M_SMALL, merge=st["merge_t"],
+                 **st["rows_t"]),
+            dict(name="fused_knn_tf32x3", route="cuda",
+                 source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
+                 replaces="raft_tpu/ops/fused_knn.py:150", mode="f32", f32_route="tf32x3",
+                 launches=launches["fused_knn_tf32x3"],
+                 launches_serve=serve.get("fused_knn_tf32x3"),
+                 launches_stream=strm.get("fused_knn_tf32x3"),
+                 launches_stream_folds=fold("fused_knn_tf32x3"),
+                 max_abs_err=st["f32_err"]["tf32x3"], tf32x3_gate=st["tf32x3_gate"],
+                 **st["f32_t"]),
             dict(name="fused_knn_tc", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
                  replaces="raft_tpu/ops/fused_knn.py:150", mode="bf16",
                  launches=sum(st["tc_launches"].values()),
                  launches_by_mode=st["tc_launches"],
                  launches_stream=strm.get("fused_knn_tc"),
-                 launches_stream_folds=folds.get("fused_knn_tc"), max_abs_err=st["tc_err"],
+                 launches_stream_folds=fold("fused_knn_tc"), max_abs_err=st["tc_err"],
                  **{key: st["fused_modes_t"]["bf16"][key]
                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                  modes=st["fused_modes_t"]),
@@ -3824,13 +4204,21 @@ def main(argv=None):
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
                  replaces="raft_tpu/ops/fused_knn.py:139", launches=st["split_launches"],
                  launches_stream=strm.get("bf16_split"),
-                 launches_stream_folds=folds.get("bf16_split"),
+                 launches_stream_folds=fold("bf16_split"),
                  launches_on="knn(compute='float32x3')", max_abs_err=0.0, **st["split_t"]),
+            dict(name="tf32_split", route="cuda",
+                 source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
+                 replaces="raft_tpu/ops/fused_knn.py:146", launches=launches["tf32_split"],
+                 launches_serve=serve.get("tf32_split"),
+                 launches_stream=strm.get("tf32_split"),
+                 launches_stream_folds=fold("tf32_split"),
+                 launches_on="BruteForce.search, 10,000 queries (mode f32's batch route)",
+                 max_abs_err=0.0, **st["tf32_split_t"]),
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
                  replaces="raft_tpu/ops/topk.py:91", launches=launches["topk"],
                  launches_ivf_flat=launches["topk_ivf_flat"],
                  launches_serve=serve.get("topk"), launches_stream=strm.get("topk"),
-                 launches_stream_folds=folds.get("topk"),
+                 launches_stream_folds=fold("topk"),
                  launches_ball_cover={m: launches[f"topk_ball_cover_{m}"]
                                       for m in ("sqeuclidean", "haversine")},
                  max_abs_err=st["topk_err"], **st["topk_t"]),
@@ -3838,14 +4226,14 @@ def main(argv=None):
                  replaces="raft_tpu/ops/pq_scan.py:61", launches=launches["pq_scan"],
                  launches_on="ivf_pq.search, select_impl='xla'",
                  launches_stream=strm.get("pq_scan"),
-                 launches_stream_folds=folds.get("pq_scan"),
+                 launches_stream_folds=fold("pq_scan"),
                  launches_funnel=launches["pq_scan_opq_anisotropic_4bit"],
                  max_abs_err=st["pq_err"], **st["pq_t"]),
             dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
                  replaces="raft_tpu/ops/pq_scan.py:61", launches=launches["pq_scan_topk"],
                  launches_serve=serve.get("pq_scan_topk"),
                  launches_stream=strm.get("pq_scan_topk"),
-                 launches_stream_folds=folds.get("pq_scan_topk"),
+                 launches_stream_folds=fold("pq_scan_topk"),
                  launches_filtered={str(f): launches[f"pq_scan_topk_filtered_{f}"]
                                     for f in FILTER_KEEP},
                  launches_codecs={n: launches[f"pq_scan_topk_{n}"]
@@ -3855,7 +4243,7 @@ def main(argv=None):
                  source="raft_tpu_torch/ops/csrc/cagra_hop.cu",
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
                  launches_serve=serve.get("cagra_hop"), launches_stream=strm.get("cagra_hop"),
-                 launches_stream_folds=folds.get("cagra_hop"),
+                 launches_stream_folds=fold("cagra_hop"),
                  launches_int8_rows=launches["cagra_hop_int8"],
                  max_abs_err=st["hop_err"], **st["hop_t"]),
         ])

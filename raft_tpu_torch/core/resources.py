@@ -37,8 +37,12 @@ class Resources:
         ``distance.pairwise._choose_tile`` on the GEMM + top-k path. The
         fused kernel does not read it.
       memory_budget_bytes: hard budget for long-lived device allocations
-        (``None`` = unenforced), read at ``serve`` publish through
-        ``obs.mem.gate``. The build-time gates wait for ``core/chunked.py``.
+        (``None`` = unenforced), read through ``obs.mem.gate`` at ``serve``
+        publish and at every build before it spends anything: brute force
+        prices its upload (n·d·min(itemsize, 4) bytes) and refuses with
+        ``MemoryBudgetError``; IVF-Flat, IVF-PQ and CAGRA price the index by
+        ``obs.mem.plan()``, which is not yet ported, so an armed budget
+        refuses their builds with ``RaftError("not yet ported")``.
     """
 
     device: Any = "cuda"

@@ -30,11 +30,13 @@ import math
 import numpy as np
 import torch
 
-from ..core.errors import expects
+from ..core.errors import expects, fail
 from ..core.resources import Resources, default_resources
 from ..distance.pairwise import _PRECISIONS, _choose_tile, _pad_to_tiles, _pairwise
 from ..distance.types import DistanceType, resolve_metric
 from ..matrix.select_k import select_k, select_k_impl
+from ..obs import mem as obs_mem
+from ._list_utils import is_reader
 
 __all__ = ["knn", "knn_merge_parts", "BruteForce", "from_state", "write_index",
            "read_index", "save", "load", "batched_searcher"]
@@ -168,6 +170,15 @@ def _bf_knn(dataset, queries, k: int, metric: DistanceType, metric_arg: float,
     return dists, idx
 
 
+def _shape_and_itemsize(x):
+    """(shape, bytes per element) of a tensor, an array or a nested list,
+    without moving it to a device."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.element_size()
+    a = x if hasattr(x, "shape") and hasattr(x, "dtype") else np.asarray(x)
+    return tuple(int(s) for s in a.shape), np.dtype(a.dtype).itemsize
+
+
 def _place(x, res: Resources):
     """A tensor on the handle's device, float64 and other wide types as
     float32 (as the JAX package stores them)."""
@@ -276,8 +287,19 @@ class BruteForce:
         self.tuned = None
 
     def build(self, dataset, res: Resources | None = None):
-        """Place the dataset on the handle's device."""
+        """Place the dataset on the handle's device, after the memory-budget
+        gate (``Resources.memory_budget_bytes``) has priced it at
+        n·d·min(itemsize, 4) bytes, as the JAX package does; the gate costs
+        one attribute check when no budget is armed. A chunked reader (the
+        JAX package's streamed ingest) is refused as not yet ported."""
         self.res = res or default_resources()
+        if is_reader(dataset):
+            fail("brute_force: a chunked-reader dataset (the streamed build) "
+                 "is not yet ported to raft_tpu_torch")
+        shape, itemsize = _shape_and_itemsize(dataset)
+        expects(len(shape) == 2, "dataset must be (n, d)")
+        obs_mem.gate(self.res, shape[0] * shape[1] * min(itemsize, 4), site="build",
+                     detail=f"brute_force {shape[0]}x{shape[1]}")
         self.dataset = _place(dataset, self.res)
         return self
 

@@ -54,6 +54,7 @@ from ..core.serialize import (atomic_write, check_header, deserialize_mdspan,
 from ..distance.pairwise import full_f32
 from ..distance.types import DistanceType, resolve_metric
 from ..matrix.select_k import _select_k, select_k_impl
+from ..obs import mem as obs_mem
 from . import ivf_pq as ivf_pq_mod
 from ._list_utils import is_reader
 from .ivf_pq import _L2_METRICS, _SQRT_METRICS
@@ -390,6 +391,11 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> CagraIn
         xf = x.to(torch.float32)
     else:
         x = xf = x.to(torch.float32).contiguous()
+    # memory-budget admission, before the knn-graph self-search spends
+    # anything (armed, it needs the not yet ported obs.mem.plan() and raises)
+    obs_mem.gate(res, lambda: obs_mem.plan("cagra", params, x.shape[0], x.shape[1],
+                                           dtype=kind)["index_bytes"],
+                 site="build", detail=f"cagra {x.shape[0]}x{x.shape[1]}")
     knn_graph = build_knn_graph(params, xf, res=res)
     hint = estimate_seed_pool(xf, knn_graph, seed=params.seed, res=res)
     del xf

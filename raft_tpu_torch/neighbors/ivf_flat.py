@@ -58,6 +58,7 @@ from ..core.serialize import (atomic_write, check_header, deserialize_mdspan,
 from ..distance.pairwise import _choose_tile, full_f32
 from ..distance.types import DistanceType, resolve_metric
 from ..matrix.select_k import select_k_impl
+from ..obs import mem as obs_mem
 from ._list_utils import (assign_to_lists, bound_capacity, is_reader, list_positions,
                           plan_search_tiles)
 from .brute_force import _INT_DTYPES, _as_signed, _coerce_queries, _dtype_name, _place
@@ -205,6 +206,13 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfFlat
     expects(mt in _L2_METRICS or mt == DistanceType.InnerProduct,
             "ivf_flat supports L2 / inner_product metrics, got %s", mt.name)
     kind, x, xf = _resolve_storage(params.list_dtype, x, mt)
+    # memory-budget admission, before the coarse trainer spends anything:
+    # one attribute check unarmed; armed, it needs obs.mem.plan(), which is
+    # not yet ported and raises
+    obs_mem.gate(res, lambda: obs_mem.plan(
+        "ivf_flat", params, n, d,
+        dtype=kind if kind in ("int8", "uint8", "bfloat16") else "float32"
+    )["index_bytes"], site="build", detail=f"ivf_flat {n}x{d}")
     max_train = max(int(n * params.kmeans_trainset_fraction), params.n_lists)
     kb = KMeansBalancedParams(
         n_iters=params.kmeans_n_iters,

@@ -70,6 +70,7 @@ from ..core.serialize import (check_header, deserialize_mdspan, deserialize_scal
 from ..distance.pairwise import _choose_tile, full_f32
 from ..distance.types import DistanceType, resolve_metric
 from ..matrix.select_k import _select_k, select_k_impl, wide_dispatch_ok
+from ..obs import mem as obs_mem
 from .brute_force import _as_signed, _coerce_queries, _dtype_name
 from .sample_filter import apply_id_filter, resolve_filter, validate_filter_covers
 from ._list_utils import (assign_to_lists, bound_capacity, funnel_scan_bytes_per_probe_row,
@@ -640,6 +641,10 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfPqIn
     expects(params.fast_scan in ("none", "1bit", "4bit"),
             "fast_scan must be 'none', '1bit' or '4bit', got %r", params.fast_scan)
     data_kind, x = _resolve_pq_ingest(x, mt)
+    # memory-budget admission, before the coarse trainer spends anything
+    # (armed, it needs the not yet ported obs.mem.plan() and raises)
+    obs_mem.gate(res, lambda: obs_mem.plan("ivf_pq", params, n, d)["index_bytes"],
+                 site="build", detail=f"ivf_pq {n}x{d}")
     dev = x.device
     pq_dim = params.pq_dim or _default_pq_dim(d, params.pq_bits)
     pq_len = -(-d // pq_dim)

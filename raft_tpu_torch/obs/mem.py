@@ -34,10 +34,15 @@ over the port's tensors. Three pieces:
   — an ``OverloadedError``, whole-or-nothing like every other admission
   refusal: the gate runs before any state lands.
 
+The builds gate too: brute force on its upload's bytes; IVF-Flat, IVF-PQ
+and CAGRA on :func:`plan`'s index bytes, asked for only when a budget is
+armed.
+
 Not yet ported (each raises ``RaftError("not yet ported")``): the footprint
-estimator :func:`plan`, :func:`gate_host` and the build-time gates that read
-them, which wait for ``core/chunked.py``; :func:`headroom` counts no tiered
-mirrors (``stream/tiered.py`` is not ported).
+estimator :func:`plan` (so an armed budget refuses the IVF and CAGRA builds
+until it lands) and :func:`gate_host`, which wait for ``core/chunked.py``;
+:func:`headroom` counts no tiered mirrors (``stream/tiered.py`` is not
+ported).
 
 ``obs.disable()`` reduces every ledger touch point to a single module-flag
 check (``account`` returns ``None`` and every entry point no-ops on

@@ -57,25 +57,29 @@ _count_lock = threading.Lock()  # launch counters
 _tallies = threading.local()    # this thread's open launch_tally dicts
 
 
-def count_launch(fn, mode=None) -> None:
+def count_launch(fn, mode=None, route=None) -> None:
     """Add one to the wrapper ``fn``'s ``launches`` (and to
-    ``launches_by_mode[mode]``): a read-modify-write that concurrent flushes
-    would otherwise lose. Also adds one to ``(fn.__name__, mode)`` in every
-    :func:`launch_tally` open on the calling thread."""
+    ``launches_by_mode[mode]`` and ``launches_by_route[route]``): a
+    read-modify-write that concurrent flushes would otherwise lose. Also
+    adds one to ``(fn.__name__, mode, route)`` in every :func:`launch_tally`
+    open on the calling thread."""
     with _count_lock:
         fn.launches += 1
         if mode is not None:
             fn.launches_by_mode[mode] += 1
+        if route is not None:
+            fn.launches_by_route[route] += 1
     for tally in getattr(_tallies, "open", ()):
-        key = (fn.__name__, mode)
+        key = (fn.__name__, mode, route)
         tally[key] = tally.get(key, 0) + 1
 
 
 @contextlib.contextmanager
 def launch_tally():
-    """Yield a dict that counts, by ``(wrapper name, mode)``, the launches
-    made on the calling thread while the block runs; launches of other
-    threads are left out of it (they still count in the wrappers' totals)."""
+    """Yield a dict that counts, by ``(wrapper name, mode, route)``, the
+    launches made on the calling thread while the block runs; launches of
+    other threads are left out of it (they still count in the wrappers'
+    totals)."""
     tally: dict = {}
     if not hasattr(_tallies, "open"):
         _tallies.open = []

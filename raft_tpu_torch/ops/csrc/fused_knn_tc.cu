@@ -1,6 +1,7 @@
 // Fused distance + top-k for exact brute-force kNN on Hopper's tensor cores
-// (sm_90a): modes "bf16", "f32x3" and "s8" of ops/fused_knn.py. Mode "f32"
-// runs the FFMA kernel of fused_knn.cu.
+// (sm_90a): modes "bf16", "f32x3" and "s8" of ops/fused_knn.py, and mode
+// "f32"'s batch route (m > M_SMALL queries) as 3xTF32 products ("tf32x3").
+// Mode f32 at m <= M_SMALL runs the row-split kernel of fused_knn.cu.
 //
 // Replaces the Pallas kernel of raft_tpu/ops/fused_knn.py:150 (_make_kernel,
 // called from _fused_knn_impl) in those modes. Per query it returns the k
@@ -10,7 +11,17 @@
 //   f32x3  dot = (hi_q·hi_y + hi_q·lo_y) + lo_q·hi_y, each a float32 sum over
 //          the round-to-nearest bf16 split of the float32 operands, which the
 //          wrapper makes as two bf16 planes per operand (JAX's _scores);
-//   s8     dot = Σ q·y over int8 operands, exact int32 sums, then float32.
+//   s8     dot = Σ q·y over int8 operands, exact int32 sums, then float32;
+//   tf32x3 dot = (hh_even + hh_odd) + (hi_q·lo_y + lo_q·hi_y), float32 sums
+//          of tf32 products (hi·hi over even and odd k-steps in two chains,
+//          the two small terms in a third) over the round-to-nearest-even
+//          tf32 split of the
+//          float32 operands (tf32_split: hi = tf32(x), lo = tf32(x − hi),
+//          float32 planes whose low 13 bits are zero). hi + lo holds x to
+//          about 2^-22 of |x|, so the dot is float32-accurate up to the sums'
+//          rounding: the TPU kernel's Precision.HIGHEST is a multi-pass split
+//          of the same kind. One TF32 product alone keeps 11 bits and is not
+//          mode f32.
 // yn carries |y|² (l2), the row bias and the mask penalty, padded by the
 // wrapper to whole dataset tiles with +inf (those rows score −inf and never
 // enter a list).
@@ -19,10 +30,12 @@
 // 2·m·n·d = 2.56e12 operations a product, so bf16 2.59 ms (989 TFLOP/s),
 // f32x3 7.77 ms (three bf16 products) and s8 1.29 ms (1,979 TOP/s), all
 // bound by operations (the dataset is 256 / 512 / 128 MB of device memory,
-// 0.04–0.15 ms). The next limit is L2: every query tile streams the whole
+// 0.04–0.15 ms). tf32x3 is three TF32 products, 3 x 2.56e12 / 495e12 =
+// 15.5 ms. The next limit is L2: every query tile streams the whole
 // dataset from L2 once. At QT = 256 (bf16, s8) that is 40 tiles x 256 MB =
 // 10 GB of L2 reads in bf16 and 5 GB in s8; at QT = 128 (f32x3) 79 tiles x
-// 512 MB (hi + lo) = 40 GB, the same order as its operations bound.
+// 512 MB (hi + lo) = 40 GB, the same order as its operations bound, and
+// tf32x3's float32 planes double it (79 GB).
 //
 // Design (one block: two consumer warpgroups and one producer warpgroup):
 //   * operands by TMA into 128-byte-swizzled, K-major shared memory, in
@@ -37,7 +50,11 @@
 //     warpgroup, QT = 256), m64n128k32 s8 (same tiling), and for f32x3 three
 //     m64n64k16 chains (hi·hi, hi·lo, lo·hi) into separate accumulators
 //     (one m64 tile per warpgroup, QT = 128, NB = 64: 96 registers of sums,
-//     where NB = 128 would need 192). A stage is released as soon as the
+//     where NB = 128 would need 192); tf32x3 the same tiling with three
+//     m64n64k8 tf32 chains (a 128-byte chunk is 32 float32 features, and a
+//     k-step reads 32 bytes of a row as bf16's does): hi·hi on even k-steps,
+//     hi·hi on odd ones, and hi·lo + lo·hi, so no sum runs over more than
+//     d/16 truncating steps. A stage is released as soon as the
 //     wgmma group that reads it has retired (wgmma.wait_group 1), so the
 //     next chunk's copy overlaps the current products. d is never padded to
 //     the MMA depth in memory: the TMA zero-fills the box past d, and the
@@ -55,17 +72,18 @@
 //     also after every refresh while the row's list is not yet full, so its
 //     first tile inserts about k entries, not 128. While one warpgroup gates
 //     its tile, the other's wgmma run.
-// Splits and merge as in fused_knn.cu: blockIdx.y walks a contiguous split
-// of the dataset, and merge_kernel joins the splits' lists per query. The
-// wrapper takes fewer, longer splits than the FFMA kernel (ops/fused_knn.py
-// _nsplit's warm-up term): each split pays k·(1 + ln(rows / k)) insertions
+// Splits and merge: blockIdx.y walks a contiguous split of the dataset, and
+// merge_kernel (warp_topk.cuh) joins the splits' lists per query. The
+// wrapper takes few, long splits (ops/fused_knn.py _nsplit's warm-up term): each split pays k·(1 + ln(rows / k)) insertions
 // per query, which here cost more than a tile's products.
 //
 // Rounding. wgmma sums float32 with truncation, not round-to-nearest, so
 // bf16 and f32x3 scores differ from a float32 FFMA sum by up to about
 // (d/16 + 3)·2^-23·Σ|q·y| per dot (ops/fused_knn.py tc_rounding_bound):
 // within 1e-5 relative for d <= 256 on the checks' data, 1.2e-5 at d = 1024
-// (PERF.md). s8 sums are exact.
+// (PERF.md). tf32x3 takes a k-step per 8 features, but each hi·hi chain
+// only every other one, and its split drops lo·lo and rounds lo: about
+// (d/16 + 10)·2^-23·Σ|q·y|. s8 sums are exact.
 
 #include <cuda.h>          // CUtensorMap and its enums (types only: no -lcuda)
 #include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
@@ -87,7 +105,7 @@ using warp_topk::MAXK;
 using warp_topk::NEG;
 using warp_topk::warp_insert;
 
-enum { F32X3 = 1, BF16 = 2, S8 = 3 };
+enum { F32X3 = 1, BF16 = 2, S8 = 3, TF32X3 = 4 };
 
 constexpr int CH = 128;            // bytes of a row in one chunk (TMA box, swizzle span)
 constexpr int KSTEP = 32;          // bytes of a row one wgmma k-step reads
@@ -103,12 +121,13 @@ static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536 / THREADS / 8 *
               "the warpgroups' registers must fit the block's launch allocation");
 
 template <int MODE> struct Tc {
-  static constexpr int MT = MODE == F32X3 ? 1 : 2;     // m64 tiles per consumer warpgroup
-  static constexpr int NB = MODE == F32X3 ? 64 : 128;  // dataset rows per tile (wgmma N)
+  static constexpr bool X3 = MODE == F32X3 || MODE == TF32X3;  // three chains over hi/lo planes
+  static constexpr int MT = X3 ? 1 : 2;                // m64 tiles per consumer warpgroup
+  static constexpr int NB = X3 ? 64 : 128;             // dataset rows per tile (wgmma N)
   static constexpr int QT = 2 * 64 * MT;               // queries per block
-  static constexpr int PL = MODE == F32X3 ? 2 : 1;     // operand planes (hi, lo)
-  static constexpr int NACC = MODE == F32X3 ? 3 : 1;   // accumulator chains
-  static constexpr int ELT = MODE == S8 ? 1 : 2;       // bytes per element
+  static constexpr int PL = X3 ? 2 : 1;                // operand planes (hi, lo)
+  static constexpr int NACC = X3 ? 3 : 1;              // accumulator chains
+  static constexpr int ELT = MODE == S8 ? 1 : MODE == TF32X3 ? 4 : 2;  // bytes per element
   static constexpr int NREG = NB / 2;                  // accumulator registers per chain
   static constexpr int G = NB / 8;                     // 8-column groups per tile
   static constexpr int A_CHUNK = PL * QT * CH;         // one chunk of the query tile
@@ -154,6 +173,7 @@ __device__ __forceinline__ float to_float(Acc v) {
 template <int MODE>
 __device__ __forceinline__ float dot_of(const typename Tc<MODE>::Tile& a, int r) {
   if constexpr (MODE == F32X3) return (a[0][r] + a[1][r]) + a[2][r];
+  else if constexpr (MODE == TF32X3) return (a[0][r] + a[1][r]) + a[2][r];
   else return to_float(a[0][r]);
 }
 
@@ -334,9 +354,18 @@ __device__ __forceinline__ void issue_chunk(typename Tc<MODE>::Tile (&acc)[Tc<MO
       } else {
         const uint64_t dbl = desc_sw128(b + C::NB * CH + s * KSTEP);   // dataset lo plane
         const uint64_t dal = desc_sw128(at + C::QT * CH);              // query lo plane
-        wgmma_bf16_n64(acc[u][0], da, db, scale);    // hi·hi
-        wgmma_bf16_n64(acc[u][1], da, dbl, scale);   // hi·lo
-        wgmma_bf16_n64(acc[u][2], dal, db, scale);   // lo·hi
+        if constexpr (MODE == F32X3) {
+          wgmma_bf16_n64(acc[u][0], da, db, scale);    // hi·hi
+          wgmma_bf16_n64(acc[u][1], da, dbl, scale);   // hi·lo
+          wgmma_bf16_n64(acc[u][2], dal, db, scale);   // lo·hi
+        } else {
+          // hi·hi alternates between two chains by k-step, so each
+          // truncating sum takes half the steps over half the terms; the
+          // small hi·lo and lo·hi terms share the third
+          wgmma_tf32_n64(acc[u][s & 1], da, db, (first && s < 2) ? 0 : 1);
+          wgmma_tf32_n64(acc[u][2], da, dbl, scale);
+          wgmma_tf32_n64(acc[u][2], dal, db, 1);
+        }
       }
     }
   }
@@ -540,6 +569,38 @@ __device__ __forceinline__ void split1(float x, __nv_bfloat16& h, __nv_bfloat16&
   l = __float2bfloat16_rn(flush(flush(x) - flush(__bfloat162float(h))));
 }
 
+// hi = tf32(x) and lo = tf32(x − hi), each rounded to nearest even onto the
+// top 19 bits (as cvt.rn.tf32.f32) and stored as float32 with its low 13
+// bits zero, so the tensor core reads both exactly; x − hi is exact, and
+// hi + lo rebuilds x to about 2^-22 of |x|. Mode f32's planes for the
+// 3xTF32 products (ops/fused_knn.py tf32_split_plain is its plain twin).
+__device__ __forceinline__ float tf32_rn(float x) {
+  uint32_t u = __float_as_uint(x);
+  if ((u & 0x7f800000u) != 0x7f800000u) u += 0xfffu + ((u >> 13) & 1u);  // inf / NaN kept
+  return __uint_as_float(u & 0xffffe000u);
+}
+
+__global__ void __launch_bounds__(256)
+tf32_split_kernel(const float* __restrict__ x, float* __restrict__ hi, float* __restrict__ lo,
+                  long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n / 4; i += stride) {
+    const float4 v = reinterpret_cast<const float4*>(x)[i];
+    float4 h, l;
+    h.x = tf32_rn(v.x); l.x = tf32_rn(v.x - h.x);
+    h.y = tf32_rn(v.y); l.y = tf32_rn(v.y - h.y);
+    h.z = tf32_rn(v.z); l.z = tf32_rn(v.z - h.z);
+    h.w = tf32_rn(v.w); l.w = tf32_rn(v.w - h.w);
+    reinterpret_cast<float4*>(hi)[i] = h;
+    reinterpret_cast<float4*>(lo)[i] = l;
+  }
+  if (blockIdx.x == 0 && threadIdx.x < n % 4) {
+    const long long j = n - n % 4 + threadIdx.x;
+    hi[j] = tf32_rn(x[j]);
+    lo[j] = tf32_rn(x[j] - hi[j]);
+  }
+}
+
 __global__ void __launch_bounds__(256)
 bf16_split_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ hi,
                   __nv_bfloat16* __restrict__ lo, long long n) {
@@ -562,42 +623,6 @@ bf16_split_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ hi,
 }
 
 // ---- host side ----------------------------------------------------------------
-
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    if (q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// A 2-D map over a row-major (rows, d) operand: boxes of `box_rows` rows x
-// 128 bytes, 128-byte swizzle, zeros outside the tensor.
-bool make_map(CUtensorMap* map, const void* base, int rows, int d, int elt, int box_rows) {
-  auto fn = encode_fn();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * elt};
-  const cuuint32_t box[2] = {(cuuint32_t)(CH / elt), (cuuint32_t)box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = fn(map, elt == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        2, const_cast<void*>(base), dims, strides, box, estr,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS;
-}
 
 template <int MODE>
 cudaError_t prepare(int d, int k, int resident, int stages, int* smem) {
@@ -656,7 +681,7 @@ cudaError_t launch(const void* q, const void* ql, const void* y, const void* yl,
 // The tile plan's numbers as the device sees them: queries per block (qt),
 // dataset rows per tile (nb), resident blocks on the current device (SMs x
 // blocks per SM) and the block's dynamic shared memory in bytes, for mode
-// (1 f32x3, 2 bf16, 3 s8) at feature dim d (the operands' padded row
+// (1 f32x3, 2 bf16, 3 s8, 4 tf32x3) at feature dim d (the operands' padded row
 // length), k, and the wrapper's choice of a resident query tile and ring
 // stages. Returns cudaErrorInvalidValue for a layout over the card's 227 KB.
 extern "C" int fused_knn_tc_config(int mode, int d, int k, int resident, int stages, int* qt,
@@ -666,13 +691,16 @@ extern "C" int fused_knn_tc_config(int mode, int d, int k, int resident, int sta
     case F32X3: return (int)config<F32X3>(d, k, resident, stages, qt, nb, slots, smem);
     case BF16: return (int)config<BF16>(d, k, resident, stages, qt, nb, slots, smem);
     case S8: return (int)config<S8>(d, k, resident, stages, qt, nb, slots, smem);
+    case TF32X3: return (int)config<TF32X3>(d, k, resident, stages, qt, nb, slots, smem);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // Scores and top-k of every query in mode 1 (f32x3: q/ql and y/yl the bf16
-// hi and lo planes), 2 (bf16: q, y) or 3 (s8: q, y int8). Operands are
-// row-major (rows, d) with 16-byte rows (d a multiple of 8 bf16 or 16 int8)
+// hi and lo planes), 2 (bf16: q, y), 3 (s8: q, y int8) or 4 (tf32x3, mode
+// f32's batch route: q/ql and y/yl the float32 tf32 hi and lo planes).
+// Operands are row-major (rows, d) with 16-byte rows (d a multiple of 4
+// float32, 8 bf16 or 16 int8)
 // and 16-byte aligned bases; yn is float32 padded to whole tiles of the
 // mode's nb rows. With nsplit > 1 the splits' lists go to part_v/part_i
 // (m, nsplit, k) and merge_kernel joins them into out_v/out_i (m, k); with
@@ -681,9 +709,9 @@ extern "C" int fused_knn_tc_launch(int mode, const void* q, const void* ql, cons
                                    const void* yl, const float* yn, int m, int n, int d, int k,
                                    int l2, int nsplit, int resident, int stages, float* part_v,
                                    int* part_i, float* out_v, int* out_i, void* stream) {
-  const int elt = mode == S8 ? 1 : 2;
+  const int elt = mode == S8 ? 1 : mode == TF32X3 ? 4 : 2;
   const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const bool planes_ok = mode != F32X3 || (a16(ql) && a16(yl));
+  const bool planes_ok = (mode != F32X3 && mode != TF32X3) || (a16(ql) && a16(yl));
   if (k < 1 || k > MAXK || nsplit < 1 || nsplit > 65535 || m < 1 || n < 1 || d < 1 ||
       (d * elt) % 16 != 0 || !a16(q) || !a16(y) || !planes_ok)
     return (int)cudaErrorInvalidValue;
@@ -701,10 +729,25 @@ extern "C" int fused_knn_tc_launch(int mode, const void* q, const void* ql, cons
     case S8:
       e = launch<S8>(q, ql, y, yl, yn, m, n, d, k, l2, nsplit, resident, stages, pv, pi, st);
       break;
+    case TF32X3:
+      e = launch<TF32X3>(q, ql, y, yl, yn, m, n, d, k, l2, nsplit, resident, stages, pv, pi, st);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess || nsplit == 1) return (int)e;
   return (int)warp_topk::merge(part_v, part_i, m, nsplit, k, out_v, out_i, st);
+}
+
+// Mode f32's 3xTF32 operand planes: hi and lo (n float32 each, low 13 bits
+// zero) of x (n float32), as tf32_split_kernel computes them; x, hi and lo
+// 16-byte aligned. Returns the launch's cudaError_t.
+extern "C" int tf32_split_launch(const float* x, float* hi, float* lo, long long n, void* stream) {
+  const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (n < 1 || !a16(x) || !a16(hi) || !a16(lo)) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n / 4 + 255) / 256;
+  tf32_split_kernel<<<(int)(blocks < 1 ? 1 : blocks > 4096 ? 4096 : blocks), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(x, hi, lo, n);
+  return (int)cudaGetLastError();
 }
 
 // f32x3's operand planes: hi and lo (n bf16 each) of x (n float32), as

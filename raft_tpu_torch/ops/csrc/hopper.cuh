@@ -1,16 +1,21 @@
 // PTX wrappers for Hopper's asynchronous path (sm_90a): mbarriers, TMA tile
-// loads, warpgroup register hand-over and wgmma with both operands in shared
-// memory. Used by fused_knn_tc.cu.
+// loads and their tensor maps, warpgroup register hand-over and wgmma with
+// both operands in shared memory. Used by fused_knn_tc.cu and fused_knn.cu.
 //
 // Shared-memory operand layout (what the TMA writes and the descriptors
 // read): K-major rows of exactly 128 bytes (one TMA box column: 64 bf16 or
 // 128 int8 values), rows packed at 128-byte pitch, 128-byte swizzle, every
 // tile base 1024-byte aligned. A wgmma k-step reads 32 bytes of each row
-// (k16 for bf16, k32 for int8), so step s of a 128-byte chunk starts 32·s
-// bytes into the chunk; the hardware applies the swizzle to the address.
+// (k16 for bf16, k32 for int8, k8 for tf32), so step s of a 128-byte chunk
+// starts 32·s bytes into the chunk; the hardware applies the swizzle to the
+// address. A thread reading 16-byte unit u of row r itself finds it at
+// r·128 + ((u ^ (r & 7))·16) (sw128_unit).
 
 #pragma once
 
+#include <cuda.h>          // CUtensorMap and its enums (types only: no -lcuda)
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -82,6 +87,48 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 
 __device__ __forceinline__ void tma_prefetch_map(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Byte offset of 16-byte unit u (0..7) of row r in a 128-byte-swizzled box.
+__device__ __forceinline__ int sw128_unit(int r, int u) { return r * 128 + ((u ^ (r & 7)) << 4); }
+
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A 2-D map over a row-major (rows, d) operand of `elt`-byte elements (1
+// int8, 2 bf16, 4 float32): boxes of `box_rows` rows x 128 bytes, 128-byte
+// swizzle, zeros outside the tensor.
+inline bool make_map(CUtensorMap* map, const void* base, int rows, int d, int elt, int box_rows) {
+  auto fn = encode_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * elt};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elt), (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUtensorMapDataType type = elt == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                   : elt == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
 }
 
 // ---- warpgroup registers ----------------------------------------------------
@@ -162,6 +209,24 @@ __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da, uint
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same product over tf32 operands (float32 storage, of which the tensor
+// core reads the top 19 bits: sign, exponent and 10 mantissa bits).
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),

@@ -144,7 +144,7 @@ def test_tile_plan_refuses_what_does_not_fit(monkeypatch):
 
 
 def _nsplit_before(m, n, qt, slots, nb=128):
-    """The split rule before the warm-up term (kept for the FFMA kernel)."""
+    """The split rule before the warm-up term."""
     tiles = -(-n // nb)
     mt = -(-m // qt)
     steps = [(-(-mt * s // slots)) * (-(-tiles // s))
@@ -156,13 +156,14 @@ def _nsplit_before(m, n, qt, slots, nb=128):
 @pytest.mark.parametrize("m,n", [(10_000, 1_000_000), (2048, 1_000_003), (300, 20_011),
                                  (1, 4099), (65, 9000)])
 def test_nsplit_from_shapes(m, n):
-    """With no warm-up term the rule is the FFMA kernel's as before; with
-    the tensor-core modes' term, a 10k-query batch over 1M rows takes 3 / 5
-    / 3 splits in bf16 / f32x3 / s8 at k = 10 on 132 SMs (one wave in bf16
-    and s8), and every split keeps at least 8 tiles."""
+    """With no warm-up term the rule is the tile-step rule as before; with
+    the tensor-core routes' term, a 10k-query batch over 1M rows takes 3 / 5
+    / 3 / 5 splits in bf16 / f32x3 / s8 / tf32x3 (mode f32's batch route)
+    at k = 10 on 132 SMs (one wave in bf16 and s8), and every split keeps
+    at least 8 tiles."""
     for qt, slots in ((128, 264), (256, 132)):
-        assert fk._nsplit(m, n, qt, slots) == _nsplit_before(m, n, qt, slots)
-    for mode in ("bf16", "s8", "f32x3"):
+        assert fk._nsplit(m, n, qt, slots, 128) == _nsplit_before(m, n, qt, slots)
+    for mode in ("bf16", "s8", "f32x3", "tf32x3"):
         qt, nb = fk._TC[mode][:2]
         for k in (1, 10, 64):
             s = fk._nsplit(m, n, qt, 132, nb, fk._INSERT_TILES * k)
@@ -170,8 +171,8 @@ def test_nsplit_from_shapes(m, n):
             assert 1 <= s <= max(1, tiles // 8)
             if (m, n) == (10_000, 1_000_000):
                 if k == 10:
-                    assert s == {"bf16": 3, "f32x3": 5, "s8": 3}[mode]
-                if mode != "f32x3":
+                    assert s == {"bf16": 3, "f32x3": 5, "s8": 3, "tf32x3": 5}[mode]
+                if mode in ("bf16", "s8"):
                     assert -(-m // qt) * s <= 132          # one wave
 
 

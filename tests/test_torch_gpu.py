@@ -18,7 +18,7 @@ from raft_tpu_torch.matrix.select_k import set_wide_cols_threshold
 from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
 from raft_tpu_torch.neighbors.brute_force import BruteForce
 from raft_tpu_torch.ops.cagra_hop import cagra_hop, cagra_hop_plain
-from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
+from raft_tpu_torch.ops.fused_knn import _fused_knn_f32, fused_knn, fused_knn_plain
 from raft_tpu_torch.ops.pq_scan import (pack_keep_words, pq_scan, pq_scan_plain,
                                         pq_scan_topk, pq_scan_topk_plain)
 from raft_tpu_torch.ops.topk import topk, topk_plain
@@ -74,11 +74,12 @@ def _fused_data(mode, d, m, n, g, dev):
 @pytest.mark.parametrize("mode", ["f32", "f32x3", "bf16", "s8"])
 def test_fused_knn_kernel_matches_plain(cuda, mode):
     """Each case launches the mode's kernel once (bf16, f32x3 and s8 the
-    tensor-core one, never the FFMA kernel) and agrees with the plain
-    version: s8 bit for bit; float modes by _knn_equiv at 1e-5, and at
-    d = 1024 the tensor-core modes within tc_rounding_bound (wgmma truncates
-    its float32 sums; the error and the row are printed)."""
-    from raft_tpu_torch.ops.fused_knn import tc_rounding_bound
+    tensor-core one; f32 the route its m gives, counted on that route) and
+    agrees with the plain version: s8 bit for bit; float modes by
+    _knn_equiv at 1e-5, and at d = 1024 the tensor-core routes (mode f32's
+    "tf32x3" among them) within tc_rounding_bound (wgmma truncates its
+    float32 sums; the error and the row are printed)."""
+    from raft_tpu_torch.ops.fused_knn import f32_route, tc_rounding_bound
 
     g = torch.Generator(device=cuda).manual_seed(0)
     for d, m, n, k, metric, extra in _FUSED_CASES:
@@ -94,18 +95,24 @@ def test_fused_knn_kernel_matches_plain(cuda, mode):
             kw["keep_mask"] = keep
         if extra == "sqrt":
             kw["sqrt"] = True
-        before = (fused_knn.launches, dict(fused_knn.launches_by_mode))
+        route = f32_route(m) if mode == "f32" else None
+        before = (fused_knn.launches, dict(fused_knn.launches_by_mode),
+                  dict(fused_knn.launches_by_route))
         kd, ki = fused_knn(x, q, k, **kw)
         torch.cuda.synchronize()
-        # one launch, of this mode's kernel and no other mode's
+        # one launch, of this mode's kernel and no other mode's (mode f32:
+        # on its route alone)
         assert (fused_knn.launches, fused_knn.launches_by_mode) == (
             before[0] + 1, dict(before[1], **{mode: before[1][mode] + 1}))
+        assert fused_knn.launches_by_route == (
+            before[2] if route is None else dict(before[2], **{route: before[2][route] + 1}))
         pd, pi = fused_knn_plain(x, q, k, **kw)
         case = (d, m, n, k, metric, extra)
+        tc_kind = mode if mode != "f32" else ("tf32x3" if route == "tf32x3" else None)
         if mode == "s8":
             assert torch.equal(kd, pd) and torch.equal(ki, pi), case
-        elif d > 256 and mode != "f32":
-            bound = tc_rounding_bound(x, q, pi, metric, mode)
+        elif d > 256 and tc_kind is not None:
+            bound = tc_rounding_bound(x, q, pi, metric, tc_kind)
             err = (kd - pd).abs()
             row = int(err.max(dim=1).values.argmax())
             print(f"fused_knn {mode} d={d}: max abs err {float(err.max()):.3g} at row {row}, "
@@ -123,6 +130,80 @@ def test_fused_knn_kernel_matches_plain(cuda, mode):
                 for j, i in enumerate(ids):
                     if i >= n // 2 and i - n // 2 in ids:
                         assert ids.index(i - n // 2) < j, (r, ids)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("route", ["rows", "tf32x3"])
+def test_fused_knn_f32_route_matches_plain(cuda, route, d):
+    """Mode f32 on one named route at m of 1, 7, 64, 65 and 300 (each route
+    takes any m: the row-split route walks query tiles of 64 beyond 64),
+    with a row bias, a keep mask that keeps 70% or 5 rows, sqrt and ip,
+    against the plain version by _knn_equiv at 1e-5; each call counts one
+    launch on that route alone."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    n = 20_011
+    x, q = _fused_data("f32", d, 300, n, g, cuda)
+    bias = torch.rand(n, generator=g, device=cuda) * 0.5
+    few = torch.zeros(n, dtype=torch.bool, device=cuda)
+    few[torch.randperm(n, generator=g, device=cuda)[:5]] = True
+    kws = [dict(metric="l2", k=10), dict(metric="ip", k=64, row_bias=bias),
+           dict(metric="l2", k=1, sqrt=True,
+                keep_mask=torch.rand(n, generator=g, device=cuda) < 0.7),
+           dict(metric="l2", k=10, keep_mask=few, row_bias=bias)]
+    for m in (1, 7, 64, 65, 300):
+        for kw in kws:
+            kw = dict(kw)
+            k = kw.pop("k")
+            before = dict(fused_knn.launches_by_route)
+            kd, ki = _fused_knn_f32(route, x, q[:m], k, **kw)
+            torch.cuda.synchronize()
+            assert fused_knn.launches_by_route == dict(before, **{route: before[route] + 1})
+            pd, pi = fused_knn_plain(x, q[:m], k, **kw)
+            _knn_equiv(kd, ki, pd, pi)
+            if kw.get("keep_mask") is few:
+                assert bool((ki[:, 5:] == -1).all()) and bool(torch.isinf(kd[:, 5:]).all())
+
+
+def test_fused_knn_f32_dispatch_by_m(cuda):
+    """Through ``fused_knn``, mode f32 takes the row-split route up to M_SMALL
+    queries and the batch route beyond: one launch a call, on that route."""
+    from raft_tpu_torch.ops import fused_knn as fk
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x, q = _fused_data("f32", 128, 300, 50_000, g, cuda)
+    for m, route in ((1, "rows"), (fk.M_SMALL, "rows"), (fk.M_SMALL + 1, "tf32x3"),
+                     (300, "tf32x3")):
+        before = dict(fused_knn.launches_by_route)
+        fused_knn(x, q[:m], 10)
+        torch.cuda.synchronize()
+        assert fused_knn.launches_by_route == dict(before, **{route: before[route] + 1}), m
+
+
+def test_tf32_split_kernel_bit_equal_to_plain(cuda):
+    """Mode f32's 3xTF32 planes: the kernel against tf32_split_plain on the
+    card, value bits compared, over values at and around the tf32 rounding
+    point (ties to even), subnormals, ±0, ±inf and a length that is not a
+    multiple of four."""
+    from raft_tpu_torch.ops.fused_knn import tf32_split, tf32_split_plain
+
+    rng = np.random.default_rng(12)
+    base = rng.integers(0x00800000, 0x7F000000, 512, dtype=np.uint32) & 0xFFFFE000
+    lows = np.array([0, 1, 0xFFF, 0x1000, 0x1001, 0x1FFF], np.uint32)
+    bits = (base[:, None] | lows[None, :]).ravel()
+    bits |= rng.integers(0, 2, bits.size, dtype=np.uint32) << 31
+    special = np.array([0, 0x80000000, 1, 0x80000001, 0x007FFFFF, 0x00001000, 0x00003000,
+                        0x7F7FDFFF, 0x7F800000, 0xFF800000, 0x3F801000, 0x3F803000], np.uint32)
+    vals = np.concatenate([bits, special, rng.standard_normal(1001).astype(np.float32)
+                           .view(np.uint32)]).view(np.float32)
+    x = torch.from_numpy(vals).to(cuda)
+    for t in (x, x[:-1], x.reshape(-1, 1)[3:].flatten()):
+        before = tf32_split.launches
+        hi, lo = tf32_split(t)
+        torch.cuda.synchronize()
+        assert tf32_split.launches == before + 1
+        ph, pl = tf32_split_plain(t)
+        assert torch.equal(hi.view(torch.int32), ph.view(torch.int32))
+        assert torch.equal(lo.view(torch.int32), pl.view(torch.int32))
 
 
 def test_bf16_split_kernel_bit_equal_to_plain(cuda):

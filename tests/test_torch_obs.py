@@ -288,7 +288,12 @@ def test_index_accounting_counts_tensor_bytes(tmp_path):
 
 
 @pytest.mark.mem
-def test_mem_surfaces_on_the_cpu_and_not_ported():
+def test_mem_surfaces_on_the_cpu_and_not_ported(monkeypatch):
+    # the JAX payload gains a "tiers" section once any JAX tiered store in
+    # this process has registered one (tests/test_tiered.py, in the same
+    # worker); the port has no tiered store, so compare against the JAX
+    # module as it is with no extra section registered
+    monkeypatch.setattr(jmem, "_debug_sections", {})
     assert mem.hbm_stats() == {}
     assert set(mem.debug_payload()) == set(jmem.debug_payload()) >= {
         "totals", "by_component", "top", "audit", "hbm"}
@@ -396,8 +401,10 @@ def test_launch_tally_counts_only_its_own_thread():
 
     fn.launches = 0
     fn.launches_by_mode = {"f32": 0}
+    fn.launches_by_route = {"rows": 0}
     with _build.launch_tally() as outer:
         _build.count_launch(fn, "f32")
+        _build.count_launch(fn, "f32", "rows")
         with _build.launch_tally() as inner:
             _build.count_launch(fn)
             other = threading.Thread(target=lambda: [_build.count_launch(fn)
@@ -407,9 +414,10 @@ def test_launch_tally_counts_only_its_own_thread():
             assert not other.is_alive()
         _build.count_launch(fn)
     _build.count_launch(fn)
-    assert inner == {("fn", None): 1}
-    assert outer == {("fn", "f32"): 1, ("fn", None): 2}
-    assert fn.launches == 11 and fn.launches_by_mode == {"f32": 1}
+    assert inner == {("fn", None, None): 1}
+    assert outer == {("fn", "f32", None): 1, ("fn", "f32", "rows"): 1, ("fn", None, None): 2}
+    assert fn.launches == 12 and fn.launches_by_mode == {"f32": 2}
+    assert fn.launches_by_route == {"rows": 1}
 
 
 def test_wrappers_count_through_count_launch():
