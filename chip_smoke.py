@@ -4,7 +4,7 @@ end to end.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --phases 01  # build and kernel checks only
-    python3 chip_smoke.py --phases 01245  # all but phase 3's timings
+    python3 chip_smoke.py --phases 012456  # all but phase 3's timings
     python3 chip_smoke.py --out DIR    # where the profile tables go
                                        # (default build/profiles)
 
@@ -185,11 +185,39 @@ Phases, each printing JSON lines:
      build over the same live rows (IVF-PQ and CAGRA). Prints write rows/s,
      read QPS, p50 / p99, each fold's wall time, bytes uploaded per write
      step, and a mutable flush at 8 and 64 rows (host syncs, launches,
-     device ms).
+     device ms);
+  6. the out-of-core build (after phase 5, on phase 2's corpora), each
+     corpus written from a seed into a temporary directory and read back
+     through ``core.chunked.ChunkedReader``: phase 2's IVF-PQ set and
+     params from a ``.npy`` file in 16 chunks of 65,536 rows (the streamed
+     index equals the in-core one and phase 2's bit for bit; its 10k-query
+     search equals phase 2's in ids and distances, 79 ``pq_scan_topk``
+     launches a batch); IVF-Flat over 10M x 128 uniform uint8 rows
+     (big-ann-benchmarks' BIGANN-10M shape, synthetic) from a raw
+     ``np.memmap`` in chunks of 262,144, ``IndexParams(n_lists=1024,
+     kmeans_n_iters=4, kmeans_trainset_fraction=0.02, seed=0)`` (equal to
+     the in-core build bit for bit, its ledger peak at most 1.2 x
+     ``obs.mem.plan(streamed=True)``'s build peak, printed as
+     ``ledger_over_plan``: its lists split past the bound and the build
+     holds the split within 1.2 x plan()'s price; its allocator peak below
+     the in-core build's; 1,000 queries at n_probes 8 equal through
+     ``topk``).
+     CAGRA over phase 5's
+     100k churn corpus (dataset and graph equal, the search through
+     ``cagra_hop`` equal); brute force over phase
+     2's 1M set (searches at m = 1 and 64 equal, one row-split launch
+     each); a ``MutableIndex`` over a reader whose
+     ``compact("rebuild", ooc_chunk_rows=65536)`` equals the in-core fold;
+     and an armed device and host budget refusing the 1M streamed IVF-PQ
+     build at ``build_stream`` / ``build_stream/host`` before any chunk
+     stages. One ``ooc`` line a build: streamed and in-core seconds, chunks,
+     staged bytes and GB/s over the uploads' device time, ledger and
+     allocator peaks, ``plan()``'s figures, launches per kernel.
 
 The line before the last lists the kernels (``launches_stream``: phase 5's
 windows; ``launches_stream_folds``: the part of those that the compactions'
-folds made on the writer thread, CAGRA's rebuild graph build among them);
+folds made on the writer thread, CAGRA's rebuild graph build among them;
+``launches_ooc``: phase 6's builds and searches);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line; so does a machine without CUDA (exit 2),
@@ -1242,10 +1270,11 @@ def phase_ivf(st):
     q, _ = blobs(IVF_Q, centers, 12)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    index = ivf_pq.build(ivf_pq.IndexParams(n_lists=1024, pq_bits=4, pq_dim=64, seed=0),
-                         x, res=res)
+    ivf_params = ivf_pq.IndexParams(n_lists=1024, pq_bits=4, pq_dim=64, seed=0)
+    index = ivf_pq.build(ivf_params, x, res=res)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    st["ivf_params"], st["ivf_build_s"] = ivf_params, build_s
     index_bytes = sum(t.numel() * t.element_size() for t in (
         index.centers, index.centers_rot, index.rotation, index.codebooks,
         index.list_codes, index.list_ids, index.list_sizes, index.list_consts))
@@ -4103,10 +4132,414 @@ def phase_stream(st):
          card=st["card"])
 
 
+# -- phase 6: the out-of-core build (core.chunked, the streamed builds) ----------
+
+OOC_CHUNK = 65_536                  # DEFAULT_CHUNK_ROWS: 16 chunks of the 1M sets
+OOC_FLAT_N, OOC_FLAT_CHUNK = 10_000_000, 262_144   # BIGANN-10M's shape, d 128 uint8
+OOC_FLAT_Q, OOC_PLAN_SLACK = 1_000, 1.2
+OOC_FLAT_PARAMS = dict(n_lists=1024, kmeans_n_iters=4, kmeans_trainset_fraction=0.02, seed=0)
+
+
+@contextlib.contextmanager
+def stager_stats():
+    """Collect each ChunkStager's stats as it is released (the builds own
+    their stagers)."""
+    from raft_tpu_torch.core import chunked
+
+    out = []
+    release = chunked.ChunkStager.release
+
+    def hooked(self):
+        if self._mem is not None:
+            out.append(self.stats())
+        release(self)
+
+    chunked.ChunkStager.release = hooked
+    try:
+        yield out
+    finally:
+        chunked.ChunkStager.release = release
+
+
+def ooc_chunks():
+    from raft_tpu_torch.obs import metrics
+
+    snap = metrics.snapshot().get("raft_tpu_build_ooc_chunks_total")
+    return 0 if snap is None else sum(s["value"] for s in snap["series"])
+
+
+def measured_build(fn):
+    """(result, seconds, ledger peak, allocator peak): the peaks above what
+    was live before the call."""
+    import gc
+
+    import torch
+
+    from raft_tpu_torch.obs import mem
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base_ledger = mem.totals()["device_bytes"]
+    mem.reset_peak()
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (out, secs, mem.totals()["device_peak_bytes"] - base_ledger,
+            torch.cuda.max_memory_allocated() - base_alloc)
+
+
+def assert_same_index(a, b, what):
+    import dataclasses
+
+    import torch
+
+    if not dataclasses.is_dataclass(a):
+        a, b = {"dataset": a.dataset}, {"dataset": b.dataset}
+    else:
+        a = {f.name: getattr(a, f.name) for f in dataclasses.fields(a)}
+        b = {f.name: getattr(b, f.name) for f in dataclasses.fields(b)}
+    bad = [k for k, v in a.items() if isinstance(v, torch.Tensor)
+           and not (v.shape == b[k].shape and v.dtype == b[k].dtype and torch.equal(v, b[k]))]
+    assert not bad, f"{what}: the streamed and in-core builds differ in {bad}"
+
+
+def ooc_build(st, kind, streamed_fn, incore_fn, plan, chunks):
+    """Build in-core and streamed, each measured; emit the ``ooc`` line.
+    Returns (in-core index, streamed index, the line's dict)."""
+    incore, in_s, in_ledger, in_alloc = measured_build(incore_fn)
+    c0 = ooc_chunks()
+    reset_all_counts()
+    with stager_stats() as stages:
+        streamed, s_s, s_ledger, s_alloc = measured_build(streamed_fn)
+    launches = {k: v for k, v in all_counts().items() if v}
+    staged = sum(x["staged_bytes"] for x in stages)
+    upload_s = sum(x["upload_seconds"] for x in stages)
+    line = dict(phase="ooc", kind=kind, build_seconds_streamed=s_s, build_seconds_in_core=in_s,
+                chunks=chunks, chunks_counted=ooc_chunks() - c0, stagers=len(stages),
+                staged_bytes=staged, upload_seconds=upload_s,
+                staged_gb_s=(staged / upload_s / 1e9) if upload_s else None,
+                host_copy_seconds=sum(x["host_copy_seconds"] for x in stages),
+                ledger_peak_streamed=s_ledger, ledger_peak_in_core=in_ledger,
+                alloc_peak_streamed=s_alloc, alloc_peak_in_core=in_alloc,
+                plan_build_peak_streamed=plan["streamed"]["build_peak_bytes"],
+                plan_build_peak_in_core=plan["in_core"]["build_peak_bytes"],
+                plan_host_peak_streamed=plan["streamed"]["host_peak_bytes"],
+                plan_index_bytes=plan["streamed"]["index_bytes"],
+                build_launches_streamed=launches, card=st["card"])
+    assert line["chunks_counted"] >= chunks, line
+    return incore, streamed, line
+
+
+def add_ooc_launches(st, counts):
+    for k, v in counts.items():
+        st["launches_ooc"][k] = st["launches_ooc"].get(k, 0) + v
+
+
+def time_segment_sum(st):
+    """The build path's label sum (``matrix.ops.segment_sum``: a stable sort,
+    a gather, ``segment_reduce``) against the ``index_add_`` it replaced,
+    at a k-means step of phase 2's IVF-PQ build: 1M x 128 float32 rows into
+    1,024 random lists, and at a codebook step of its encoder (262,144 rows
+    x 64 subspaces of 2 dims into 64 x 16 codes). Checks the sums agree to
+    float32 rounding and that the sort-based sum gives the same bits twice;
+    prints both times (the sort-based sum's include its host syncs)."""
+    import torch
+
+    from raft_tpu_torch.matrix.ops import segment_sum
+
+    x = st["ivf_x"]
+    g = torch.Generator(device=x.device).manual_seed(41)
+    out = {}
+    for what, vals, n_seg in (
+            ("kmeans_step", x, 1024),
+            ("codebook_step", x[:262_144].reshape(-1, 2), 64 * 16)):
+        lab = torch.randint(0, n_seg, (vals.shape[0],), generator=g, device=x.device)
+
+        def sort_sum():
+            return segment_sum(vals, lab, n_seg)
+
+        def atomic_sum():
+            return torch.zeros((n_seg, vals.shape[1]), device=x.device).index_add_(0, lab, vals)
+
+        a, b, c = sort_sum(), sort_sum(), atomic_sum()
+        assert torch.equal(a, b), what
+        err = float((a - c).abs().max() / c.abs().max().clamp_min(1e-30))
+        assert err < 1e-5, (what, err)
+        out[what] = dict(rows=int(vals.shape[0]), cols=int(vals.shape[1]), segments=n_seg,
+                         segment_sum_ms=cuda_ms(sort_sum), index_add_ms=cuda_ms(atomic_sum),
+                         max_rel_diff=err)
+    emit(phase="ooc", kind="segment_sum", shapes=out, card=st["card"])
+
+
+def time_instrument(st):
+    """Host microseconds ``@instrument`` adds to a call (the serving hooks'
+    searches pay it once a flush): a no-op wrapped by it, called 20,000
+    times with observability on and off."""
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.obs.instrument import instrument
+
+    @instrument("chip_smoke.noop", items=lambda a, kw: 1, labels=lambda a, kw: {"k": "v"})
+    def noop():
+        return None
+
+    def per_call_us(n=20_000):
+        noop()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            noop()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    on = per_call_us()
+    obs.disable()
+    try:
+        off = per_call_us()
+    finally:
+        obs.enable()
+    emit(phase="ooc", kind="instrument_overhead", us_per_call_on=on, us_per_call_off=off,
+         card=st["card"])
+
+
+def phase_ooc(st):
+    """Phase 6: the streamed builds of all four kinds against their in-core
+    builds, their searches through the kernels, the stream fold and the
+    budget gates (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import stream
+    from raft_tpu_torch.core import Resources, chunked
+    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+    from raft_tpu_torch.neighbors.brute_force import BruteForce
+    from raft_tpu_torch.obs import mem
+    from raft_tpu_torch.serve.errors import MemoryBudgetError
+
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+    st["launches_ooc"] = {}
+    t_phase = time.perf_counter()
+    reset_all_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 1. IVF-PQ, 1M x 128 float32, phase 2's corpus and params ----------
+        x_pq = st["ivf_x"]
+        path = os.path.join(tmp, "ivf_pq.npy")
+        np.save(path, x_pq.cpu().numpy())
+        reader = chunked.ChunkedReader.from_file(path, chunk_rows=OOC_CHUNK)
+        assert reader.n_chunks == 16
+        params = st["ivf_params"]
+        plan = {m: mem.plan("ivf_pq", params, N_MAIN, D_MAIN, streamed=m == "streamed",
+                            chunk_rows=OOC_CHUNK) for m in ("streamed", "in_core")}
+        incore, streamed, line = ooc_build(
+            st, "ivf_pq", lambda: ivf_pq.build(params, reader, res=res),
+            lambda: ivf_pq.build(params, x_pq, res=res), plan, 2 * reader.n_chunks)
+        add_ooc_launches(st, line["build_launches_streamed"])
+        assert_same_index(streamed, incore, "ivf_pq 1M")
+        assert_same_index(streamed, st["ivf"][0], "ivf_pq 1M against phase 2's index")
+        del incore
+        q = st["ivf"][1]
+        sp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
+        want = ivf_pq.search(sp, st["ivf"][0], q, IVF_K0, res=res)
+        reset_all_counts()
+        got = ivf_pq.search(sp, streamed, q, IVF_K0, res=res)
+        torch.cuda.synchronize()
+        counts = all_counts()
+        add_ooc_launches(st, counts)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            "the streamed IVF-PQ index searches differently"
+        tiles = -(-IVF_Q // 128)
+        assert counts["pq_scan_topk"] == tiles and counts["topk"] == 0, counts
+        line.update(search_equal=True, search_launches=counts, m=IVF_Q, n=N_MAIN, d=D_MAIN)
+        emit(**line)
+        gate_reader = reader
+        del streamed, got, want
+
+        # ---- 2. IVF-Flat, 10M x 128 uint8 (BIGANN-10M's shape), raw memmap ----
+        path = os.path.join(tmp, "bigann_shape.u8")
+        mm = np.memmap(path, dtype=np.uint8, mode="w+", shape=(OOC_FLAT_N, D_MAIN))
+        g = torch.Generator(device=dev).manual_seed(40)
+        for s0 in range(0, OOC_FLAT_N, 1_000_000):
+            n_b = min(1_000_000, OOC_FLAT_N - s0)
+            mm[s0:s0 + n_b] = torch.randint(0, 256, (n_b, D_MAIN), generator=g, device=dev,
+                                            dtype=torch.uint8).cpu().numpy()
+        mm.flush()
+        del mm
+        reader = chunked.ChunkedReader.from_file(path, dtype=np.uint8,
+                                                 shape=(OOC_FLAT_N, D_MAIN),
+                                                 chunk_rows=OOC_FLAT_CHUNK)
+        fparams = ivf_flat.IndexParams(**OOC_FLAT_PARAMS)
+        plan = {m: mem.plan("ivf_flat", fparams, OOC_FLAT_N, D_MAIN, dtype="uint8",
+                            streamed=m == "streamed", chunk_rows=OOC_FLAT_CHUNK)
+                for m in ("streamed", "in_core")}
+        incore, streamed, line = ooc_build(
+            st, "ivf_flat", lambda: ivf_flat.build(fparams, reader, res=res),
+            lambda: ivf_flat.build(fparams, reader.host_view(), res=res), plan,
+            2 * reader.n_chunks)
+        add_ooc_launches(st, line["build_launches_streamed"])
+        assert_same_index(streamed, incore, "ivf_flat 10M uint8")
+        # plan() prices n_lists lists at the capacity bound; the build's split
+        # holds within 1.2 x that price (_list_utils.priced_capacity), and
+        # the ledger peak is held to 1.2 x plan()
+        index_bytes = sum(t.numel() * t.element_size() for t in (
+            streamed.centers, streamed.list_data, streamed.list_ids, streamed.list_norms,
+            streamed.list_sizes))
+        line.update(index_bytes=index_bytes, ledger_over_plan=line["ledger_peak_streamed"]
+                    / plan["streamed"]["build_peak_bytes"])
+        assert 0 < line["ledger_peak_streamed"] <= OOC_PLAN_SLACK * plan["streamed"][
+            "build_peak_bytes"], (
+            "the 10M IVF-Flat streamed ledger peak is not within "
+            f"{OOC_PLAN_SLACK} x plan()'s", line, streamed.n_lists, streamed.capacity)
+        assert line["alloc_peak_streamed"] < line["alloc_peak_in_core"], line
+        qf = torch.from_numpy(np.array(reader.take(np.arange(0, OOC_FLAT_N, OOC_FLAT_N
+                                                             // OOC_FLAT_Q))))
+        fsp = ivf_flat.SearchParams(n_probes=8)
+        want = ivf_flat.search(fsp, incore, qf, K_MAIN, res=res)
+        reset_all_counts()
+        got = ivf_flat.search(fsp, streamed, qf, K_MAIN, res=res)
+        torch.cuda.synchronize()
+        counts = all_counts()
+        add_ooc_launches(st, counts)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            "the streamed IVF-Flat index searches differently"
+        assert counts["topk"] > 0, counts
+        line.update(search_equal=True, search_launches=counts, m=OOC_FLAT_Q, n=OOC_FLAT_N,
+                    d=D_MAIN, dtype="uint8", n_lists=streamed.n_lists,
+                    capacity=streamed.capacity)
+        emit(**line)
+        del incore, streamed, got, want, reader
+
+        # ---- 3. CAGRA, 100k x 128: phase 5's churn corpus ------------------------
+        ccent = 10.0 * torch.rand((CAGRA_CENTERS, D_MAIN), device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(23))
+        cx, _ = blobs(CAGRA_CHURN_N, ccent, 24, 0.5)
+        cq, _ = blobs(STREAM_EVAL, ccent, 25, 0.5)
+        path = os.path.join(tmp, "cagra.npy")
+        np.save(path, cx.cpu().numpy())
+        reader = chunked.ChunkedReader.from_file(path, chunk_rows=OOC_CHUNK)
+        cparams = cagra.IndexParams(seed=0)
+        plan = {m: mem.plan("cagra", cparams, CAGRA_CHURN_N, D_MAIN, streamed=m == "streamed",
+                            chunk_rows=OOC_CHUNK) for m in ("streamed", "in_core")}
+        incore, streamed, line = ooc_build(
+            st, "cagra", lambda: cagra.build(cparams, reader, res=res),
+            lambda: cagra.build(cparams, cx, res=res), plan, reader.n_chunks)
+        add_ooc_launches(st, line["build_launches_streamed"])
+        assert_same_index(streamed, incore, "cagra 100k")
+        csp = cagra.SearchParams(itopk_size=CAGRA_ITOPK)
+        want = cagra.search(csp, incore, cq, K_MAIN)
+        reset_all_counts()
+        got = cagra.search(csp, streamed, cq, K_MAIN)
+        torch.cuda.synchronize()
+        counts = all_counts()
+        add_ooc_launches(st, counts)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            "the streamed CAGRA index searches differently"
+        assert counts["cagra_hop"] > 0, counts
+        line.update(search_equal=True, search_launches=counts, m=STREAM_EVAL,
+                    n=CAGRA_CHURN_N, d=D_MAIN)
+        emit(**line)
+        fold_reader, fold_x = reader, cx
+        del incore, streamed
+
+        # ---- 4. brute force, 1M x 128: phase 2's set, searched at m = 1 and 64 ---
+        x_bf, qb = st["main"]
+        path = os.path.join(tmp, "bf.npy")
+        np.save(path, x_bf.cpu().numpy())
+        reader = chunked.ChunkedReader.from_file(path, chunk_rows=OOC_CHUNK)
+        plan = {m: mem.plan("brute_force", None, N_MAIN, D_MAIN, streamed=m == "streamed",
+                            chunk_rows=OOC_CHUNK) for m in ("streamed", "in_core")}
+        incore, streamed, line = ooc_build(
+            st, "brute_force", lambda: BruteForce("sqeuclidean").build(reader, res),
+            lambda: BruteForce("sqeuclidean").build(x_bf, res), plan, reader.n_chunks)
+        assert_same_index(streamed, incore, "brute_force 1M")
+        searches = {}
+        for m in (1, SERVE_MAX_BATCH):
+            want = incore.search(qb[:m], K_MAIN)
+            reset_all_counts()
+            got = streamed.search(qb[:m], K_MAIN)
+            torch.cuda.synchronize()
+            counts = all_counts()
+            add_ooc_launches(st, counts)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), m
+            assert counts["fused_knn_rows"] == 1, counts
+            searches[str(m)] = counts
+        line.update(search_equal=True, search_launches=searches, n=N_MAIN, d=D_MAIN)
+        emit(**line)
+        del incore, streamed
+
+        # ---- 5. the fold: a MutableIndex over a reader, rebuilt out of core ------
+        fp = ivf_flat.IndexParams(n_lists=256, seed=0)
+        sealed = ivf_flat.build(fp, fold_reader, res=res)
+        extra = blobs(2_000, ccent, 26, 0.5)[0].cpu().numpy()
+
+        def mutable(name, dataset):
+            m = stream.MutableIndex(sealed, dataset=dataset, index_params=fp, name=name,
+                                    delta_capacity=STREAM_CAP)
+            m.upsert(extra)
+            m.delete(np.arange(0, CAGRA_CHURN_N, 97))
+            return m
+
+        m_ooc = mutable("ooc_fold", fold_reader)
+        m_in = mutable("in_core_fold", fold_x.cpu().numpy())
+        assert isinstance(m_ooc._state.store, np.memmap)
+        c0 = ooc_chunks()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        rep_ooc = m_ooc.compact("rebuild", ooc_chunk_rows=OOC_CHUNK)
+        ooc_s = time.perf_counter() - t0
+        fold_counts = all_counts()
+        add_ooc_launches(st, fold_counts)
+        fold_chunks = ooc_chunks() - c0
+        t0 = time.perf_counter()
+        rep_in = m_in.compact("rebuild")
+        in_s = time.perf_counter() - t0
+        assert fold_chunks > 0
+        assert_same_index(m_ooc._state.sealed, m_in._state.sealed, "the rebuild fold")
+        fq = torch.from_numpy(extra[:256]).to(dev)
+        a, b = m_ooc.search(fq, K_MAIN), m_in.search(fq, K_MAIN)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        emit(phase="ooc", kind="stream_fold", n=int(m_ooc._state.sealed.size),
+             report_ooc=rep_ooc, report_in_core=rep_in,
+             fold_seconds_streamed=ooc_s, fold_seconds_in_core=in_s, chunks=fold_chunks,
+             search_equal=True, launches=fold_counts, card=st["card"])
+        del m_ooc, m_in, sealed
+
+        # ---- 6. the gates: both budgets refuse before any chunk stages ----------
+        refusals = {}
+        for key, site in (("memory_budget_bytes", "build_stream"),
+                          ("host_budget_bytes", "build_stream/host")):
+            used = mem.totals()["device_bytes" if key == "memory_budget_bytes"
+                                else "host_bytes"]
+            budget = Resources(device="cuda", **{key: used + 1024})
+            c0, t_dev = ooc_chunks(), mem.totals()["device_bytes"]
+            try:
+                ivf_pq.build(params, gate_reader, res=budget)
+            except MemoryBudgetError as e:
+                refusals[site] = dict(need_bytes=e.need_bytes, budget_bytes=e.budget_bytes)
+                assert e.site == site, e.site
+                pl = mem.plan("ivf_pq", params, N_MAIN, D_MAIN, streamed=True,
+                              chunk_rows=OOC_CHUNK)
+                assert e.need_bytes == pl["build_peak_bytes" if site == "build_stream"
+                                          else "host_peak_bytes"], (e.need_bytes, pl)
+            else:
+                raise AssertionError(f"an armed {key} admitted the 1M streamed build")
+            assert ooc_chunks() == c0 and mem.totals()["device_bytes"] == t_dev
+        emit(phase="ooc", kind="gates", refusals=refusals, n=N_MAIN, d=D_MAIN,
+             card=st["card"])
+    for name in ("fused_knn_rows", "topk", "pq_scan_topk", "cagra_hop"):
+        assert st["launches_ooc"].get(name, 0) > 0, (name, st["launches_ooc"])
+    time_segment_sum(st)
+    time_instrument(st)
+    emit(phase="ooc_launches", launches=st["launches_ooc"],
+         seconds=time.perf_counter() - t_phase, card=st["card"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="012345",
-                    help="phases to run, e.g. 01 (default: all); 4 and 5 need 2")
+    ap.add_argument("--phases", default="0123456",
+                    help="phases to run, e.g. 01 (default: all); 4, 5 and 6 need 2")
     ap.add_argument("--out", default=os.path.join("build", "profiles"),
                     help="directory for the IVF-PQ, CAGRA and IVF-Flat profile tables")
     args = ap.parse_args(argv)
@@ -4133,8 +4566,8 @@ def main(argv=None):
     phase_build(st)
     if "1" in args.phases:
         phase_kernels(st)
-    if any(p in args.phases for p in "45") and "2" not in args.phases:
-        print("chip_smoke: phases 4 and 5 serve phase 2's indexes; run them with 2",
+    if any(p in args.phases for p in "456") and "2" not in args.phases:
+        print("chip_smoke: phases 4, 5 and 6 use phase 2's indexes; run them with 2",
               file=sys.stderr)
         return 2
     if "2" in args.phases:
@@ -4151,6 +4584,8 @@ def main(argv=None):
         phase_serve(st)
     if "5" in args.phases:
         phase_stream(st)
+    if "6" in args.phases:
+        phase_ooc(st)
     if "3" in args.phases and "2" in args.phases:
         time_fused_modes(st)
         time_f32_routes(st)
@@ -4165,6 +4600,11 @@ def main(argv=None):
         serve = st.get("launches_serve", {})
         strm = st.get("launches_stream", {})
         folds = st.get("launches_stream_folds")
+        ooc = st.get("launches_ooc")
+
+        def in_ooc(name):
+            # phase 6's launches, 0 where it made none (None: phase 6 not run)
+            return None if ooc is None else ooc.get(name, 0)
 
         def fold(name):
             # the folds' launches of phase 5, 0 where they made none
@@ -4179,6 +4619,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_rows"),
                  launches_stream=strm.get("fused_knn_rows"),
                  launches_stream_folds=fold("fused_knn_rows"),
+                 launches_ooc=in_ooc("fused_knn_rows"),
                  max_abs_err=st["f32_err"]["rows"], m_small=fk.M_SMALL, merge=st["merge_t"],
                  **st["rows_t"]),
             dict(name="fused_knn_tf32x3", route="cuda",
@@ -4188,6 +4629,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_tf32x3"),
                  launches_stream=strm.get("fused_knn_tf32x3"),
                  launches_stream_folds=fold("fused_knn_tf32x3"),
+                 launches_ooc=in_ooc("fused_knn_tf32x3"),
                  max_abs_err=st["f32_err"]["tf32x3"], tf32x3_gate=st["tf32x3_gate"],
                  **st["f32_t"]),
             dict(name="fused_knn_tc", route="cuda",
@@ -4196,7 +4638,8 @@ def main(argv=None):
                  launches=sum(st["tc_launches"].values()),
                  launches_by_mode=st["tc_launches"],
                  launches_stream=strm.get("fused_knn_tc"),
-                 launches_stream_folds=fold("fused_knn_tc"), max_abs_err=st["tc_err"],
+                 launches_stream_folds=fold("fused_knn_tc"),
+                 launches_ooc=in_ooc("fused_knn_tc"), max_abs_err=st["tc_err"],
                  **{key: st["fused_modes_t"]["bf16"][key]
                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                  modes=st["fused_modes_t"]),
@@ -4205,6 +4648,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/fused_knn.py:139", launches=st["split_launches"],
                  launches_stream=strm.get("bf16_split"),
                  launches_stream_folds=fold("bf16_split"),
+                 launches_ooc=in_ooc("bf16_split"),
                  launches_on="knn(compute='float32x3')", max_abs_err=0.0, **st["split_t"]),
             dict(name="tf32_split", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
@@ -4212,6 +4656,7 @@ def main(argv=None):
                  launches_serve=serve.get("tf32_split"),
                  launches_stream=strm.get("tf32_split"),
                  launches_stream_folds=fold("tf32_split"),
+                 launches_ooc=in_ooc("tf32_split"),
                  launches_on="BruteForce.search, 10,000 queries (mode f32's batch route)",
                  max_abs_err=0.0, **st["tf32_split_t"]),
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
@@ -4219,6 +4664,7 @@ def main(argv=None):
                  launches_ivf_flat=launches["topk_ivf_flat"],
                  launches_serve=serve.get("topk"), launches_stream=strm.get("topk"),
                  launches_stream_folds=fold("topk"),
+                 launches_ooc=in_ooc("topk"),
                  launches_ball_cover={m: launches[f"topk_ball_cover_{m}"]
                                       for m in ("sqeuclidean", "haversine")},
                  max_abs_err=st["topk_err"], **st["topk_t"]),
@@ -4227,6 +4673,7 @@ def main(argv=None):
                  launches_on="ivf_pq.search, select_impl='xla'",
                  launches_stream=strm.get("pq_scan"),
                  launches_stream_folds=fold("pq_scan"),
+                 launches_ooc=in_ooc("pq_scan"),
                  launches_funnel=launches["pq_scan_opq_anisotropic_4bit"],
                  max_abs_err=st["pq_err"], **st["pq_t"]),
             dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
@@ -4234,6 +4681,7 @@ def main(argv=None):
                  launches_serve=serve.get("pq_scan_topk"),
                  launches_stream=strm.get("pq_scan_topk"),
                  launches_stream_folds=fold("pq_scan_topk"),
+                 launches_ooc=in_ooc("pq_scan_topk"),
                  launches_filtered={str(f): launches[f"pq_scan_topk_filtered_{f}"]
                                     for f in FILTER_KEEP},
                  launches_codecs={n: launches[f"pq_scan_topk_{n}"]
@@ -4244,6 +4692,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
                  launches_serve=serve.get("cagra_hop"), launches_stream=strm.get("cagra_hop"),
                  launches_stream_folds=fold("cagra_hop"),
+                 launches_ooc=in_ooc("cagra_hop"),
                  launches_int8_rows=launches["cagra_hop_int8"],
                  max_abs_err=st["hop_err"], **st["hop_t"]),
         ])

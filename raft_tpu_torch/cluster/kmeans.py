@@ -31,6 +31,7 @@ from ..core.errors import expects
 from ..core.resources import Resources, default_resources
 from ..distance.fused_nn import _fused_l2_nn
 from ..distance.pairwise import _choose_tile, _l2_expanded, pairwise_distance
+from ..obs.instrument import instrument, nrows
 
 __all__ = ["KMeansParams", "KMeansOutput", "fit", "predict", "fit_predict",
            "transform", "cluster_cost", "find_k", "init_plus_plus",
@@ -145,6 +146,10 @@ def _weights(sample_weights, res: Resources):
     return None if sample_weights is None else res.put(sample_weights, torch.float32)
 
 
+@instrument("cluster.kmeans.fit",
+            items=lambda a, kw: nrows(a[1] if len(a) > 1 else kw["x"]),
+            labels=lambda a, kw: {
+                "n_clusters": (a[0] if a else kw["params"]).n_clusters})
 def fit(params: KMeansParams, x, sample_weights=None, centroids=None,
         res: Resources | None = None) -> KMeansOutput:
     """Fit k-means (reference: raft::cluster::kmeans::fit) on the handle's
@@ -166,6 +171,8 @@ def fit(params: KMeansParams, x, sample_weights=None, centroids=None,
     return best
 
 
+@instrument("cluster.kmeans.predict",
+            items=lambda a, kw: nrows(a[0] if a else kw["x"]))
 def predict(x, centroids, sample_weights=None, res: Resources | None = None):
     """Nearest-centroid labels (reference: kmeans::predict). Returns (labels
     (n,) int32, inertia)."""

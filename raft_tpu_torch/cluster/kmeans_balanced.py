@@ -8,15 +8,18 @@ clusters from members of crowded ones, so inverted lists stay usable.
 
 Assignment is :func:`~raft_tpu_torch.distance.fused_nn._fused_l2_nn` (a
 full-float32 product and argmin per row tile); center sums are
-``index_add_``. ``train_mode="minibatch"`` (the default through "auto" above
+:func:`raft_tpu_torch.matrix.ops.segment_sum`, in a fixed order, so a fit
+repeats bit for bit on a card. ``train_mode="minibatch"`` (the default through "auto" above
 2 x ``batch_rows`` trainset rows) iterates over rotating mini-batches of one
 shuffle with the streaming 1/c center update (Sculley, WWW 2010), and one
 full-trainset pass closes every fit.
 
 Randomness comes from a ``torch.Generator`` seeded with ``params.seed`` on
-the data's device. It does not give the JAX package's numbers: the two fits
+the handle's device (for a chunked reader too, so a streamed build trains
+on the same rows). It does not give the JAX package's numbers: the two fits
 are compared by inertia and list balance, not bit for bit. The JAX package's
-obs metric hooks wait for the port of ``obs``.
+trainer metrics (``obs.build``'s assignment passes and sampled rows) are not
+emitted yet.
 """
 
 from __future__ import annotations
@@ -25,10 +28,12 @@ import dataclasses
 
 import torch
 
+from ..core import chunked
 from ..core.errors import expects
 from ..core.resources import Resources, default_resources
 from ..distance.fused_nn import _fused_l2_nn
 from ..distance.pairwise import _choose_tile, full_f32
+from ..matrix.ops import segment_sum
 
 __all__ = ["KMeansBalancedParams", "fit", "predict", "fit_predict",
            "build_clusters", "resolve_train_mode"]
@@ -75,9 +80,7 @@ def _assign_labels(x, centers, tile: int, inner: bool):
 
 def _sums_counts(xf, labels, k: int):
     lab = labels.to(torch.int64)
-    sums = torch.zeros((k, xf.shape[1]), dtype=torch.float32, device=xf.device)
-    sums.index_add_(0, lab, xf)
-    return sums, torch.bincount(lab, minlength=k).to(torch.float32)
+    return segment_sum(xf, lab, k), torch.bincount(lab, minlength=k).to(torch.float32)
 
 
 def _choice(g, n: int, size: int, device):
@@ -169,16 +172,28 @@ def _is_inner(metric: str) -> bool:
 def fit(params: KMeansBalancedParams, x, n_clusters: int,
         res: Resources | None = None):
     """Train balanced cluster centers (reference: kmeans_balanced::fit).
-    Returns (n_clusters, d) float32 centers on the handle's device."""
+    Returns (n_clusters, d) float32 centers on the handle's device.
+
+    ``x`` may be a chunked reader (:mod:`raft_tpu_torch.core.chunked`, the
+    streamed builds): it stays on the host until the trainset gather, whose
+    indices are drawn exactly as in-core (the same generator on the
+    handle's device, the same calls), then gathered off the reader and
+    uploaded, so the centers equal the in-core fit's bit for bit."""
     res = res or default_resources()
-    x = res.put(x)
+    dev = res.torch_device
+    stream = chunked.is_reader(x)
+    if not stream:
+        x = res.put(x)
     expects(x.ndim == 2, "X must be 2-D")
     n = int(x.shape[0])
     expects(n_clusters <= n, "n_clusters > n_samples")
-    g = torch.Generator(device=x.device).manual_seed(int(params.seed))
+    g = torch.Generator(device=dev).manual_seed(int(params.seed))
     if params.max_train_points is not None and n > params.max_train_points:
-        x = x[_choice(g, n, params.max_train_points, x.device)]
+        x = chunked.take_rows(x, _choice(g, n, params.max_train_points, dev))
         n = params.max_train_points
+    elif stream:
+        x = chunked.materialize(x, device=dev)
+    x = res.put(x)
     centers = x[_choice(g, n, n_clusters, x.device)].to(torch.float32)
     tile = _choose_tile(n, n_clusters, 1, res.workspace_bytes)
     inner = _is_inner(params.metric)

@@ -39,15 +39,23 @@ class Resources:
       memory_budget_bytes: hard budget for long-lived device allocations
         (``None`` = unenforced), read through ``obs.mem.gate`` at ``serve``
         publish and at every build before it spends anything: brute force
-        prices its upload (n·d·min(itemsize, 4) bytes) and refuses with
-        ``MemoryBudgetError``; IVF-Flat, IVF-PQ and CAGRA price the index by
-        ``obs.mem.plan()``, which is not yet ported, so an armed budget
-        refuses their builds with ``RaftError("not yet ported")``.
+        prices its upload (n·d·min(itemsize, 4) bytes), IVF-Flat, IVF-PQ and
+        CAGRA their index by ``obs.mem.plan()``, and a streamed build (a
+        ``core.chunked.ChunkedReader`` dataset) its planned build peak at
+        ``site="build_stream"``; a refusal raises ``MemoryBudgetError``.
+      host_budget_bytes: hard budget for host memory (``None`` =
+        unenforced): the streamed build's host peak (the stager's buffers
+        plus the trainset gathered off the reader, priced by
+        ``obs.mem.plan(streamed=True)``) is refused at
+        ``site="build_stream/host"`` before the coarse trainer spends
+        anything. An ``np.memmap`` corpus itself prices nothing here: its
+        pages are disk-backed.
     """
 
     device: Any = "cuda"
     workspace_bytes: int = 2 << 30
     memory_budget_bytes: Optional[int] = None
+    host_budget_bytes: Optional[int] = None
 
     @property
     def torch_device(self) -> torch.device:

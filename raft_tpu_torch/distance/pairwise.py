@@ -31,6 +31,7 @@ import torch
 
 from ..core.errors import expects, fail
 from ..core.resources import Resources, default_resources
+from ..obs.instrument import dtype_of, instrument, nrows
 from .types import DistanceType, resolve_metric
 
 __all__ = ["pairwise_distance", "distance", "full_f32"]
@@ -279,6 +280,14 @@ def _pairwise(x, y, metric: DistanceType, metric_arg: float, tile: int,
     return _tiled_rows(x, y, ew, tile)
 
 
+@instrument(
+    "distance.pairwise_distance",
+    items=lambda a, kw: nrows(a[0] if a else kw["x"]),
+    labels=lambda a, kw: {
+        "metric": str(a[2] if len(a) > 2 else kw.get("metric", "euclidean")),
+        "dtype": dtype_of(a[0] if a else kw["x"]),
+    },
+)
 def pairwise_distance(x, y=None, metric="euclidean", metric_arg: float = 2.0,
                       compute: str = "float32", res: Resources | None = None):
     """All-pairs distances between the rows of ``x`` and ``y`` on the

@@ -5,6 +5,10 @@ argmin.cuh, gather.cuh, slice.cuh, copy.cuh, init.cuh, linewise_op.cuh,
 col_wise_sort.cuh, reverse.cuh, sign_flip.cuh, triangular.cuh,
 diagonal.cuh): the same 16 names, each one or two PyTorch calls. Inputs
 may be tensors or arrays; results are tensors on the input's device.
+
+:func:`segment_sum` is the port's own and stays out of ``__all__`` (the
+JAX module's 16 names): the JAX package sums by label with
+``jax.ops.segment_sum``, and every build path here sums through it.
 """
 
 from __future__ import annotations
@@ -126,3 +130,20 @@ def set_diagonal(m, d):
     i = torch.arange(n, device=m.device)
     m[i, i] = _t(d).to(device=m.device, dtype=m.dtype)[:n]
     return m
+
+
+def segment_sum(vals, labels, n: int):
+    """The rows of ``vals`` summed by label into ``n`` segments (empty ones
+    0): what ``zeros(n, ...).index_add_(0, labels, vals)`` gives, in a fixed
+    order. On a card ``index_add_`` sums through atomics in whatever order
+    they land, and a build would differ from itself, so rows are sorted
+    stably by label and each segment is summed in row order: the same bits
+    every run. The CPU's ``index_add_`` already sums in row order, and is
+    used there."""
+    lab = labels.to(torch.int64)
+    if vals.device.type == "cpu":
+        return torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype).index_add_(
+            0, lab, vals)
+    lengths = torch.bincount(lab, minlength=n)
+    return torch.segment_reduce(vals[torch.argsort(lab, stable=True)], "sum",
+                                lengths=lengths, axis=0)

@@ -23,6 +23,7 @@ from ..core.errors import expects
 from ..core.resources import Resources, default_resources
 from ..ops.topk import (float_order_key, gather_exact, lowest_index_positions,
                         top_k_lowest_index)
+from ..obs.instrument import instrument, nrows
 
 __all__ = ["select_k", "select_k_impl", "wide_dispatch_ok",
            "set_wide_cols_threshold", "wide_cols_threshold"]
@@ -115,6 +116,9 @@ def select_k_impl(values, in_idx, k: int, select_min: bool,
     return _select_k(values, in_idx, int(k), bool(select_min))
 
 
+@instrument("matrix.select_k",
+            items=lambda a, kw: nrows(a[0] if a else kw["values"]),
+            labels=lambda a, kw: {"k": a[1] if len(a) > 1 else kw["k"]})
 def select_k(values, k: int, select_min: bool = True, indices=None,
              res: Resources | None = None):
     """Select the k smallest (or largest) entries per row, with their

@@ -11,24 +11,53 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import chunked
+from ..core.chunked import is_reader  # noqa: F401 - re-exported
 from ..distance.fused_nn import _fused_l2_nn
-from ..distance.pairwise import full_f32
+from ..distance.pairwise import _choose_tile, full_f32
 from ..distance.types import DistanceType
+from ..matrix.ops import segment_sum
+from .brute_force import _as_signed
 
-__all__ = ["round_up", "list_cap_target", "list_positions", "plan_search_tiles",
+__all__ = ["round_up", "fill_tile", "list_cap_target", "list_positions", "plan_search_tiles",
            "assign_to_lists", "split_oversized", "spatial_split_key",
-           "bound_capacity", "pq_scan_bytes_per_probe_row",
-           "funnel_scan_bytes_per_probe_row", "is_reader"]
-
-
-def is_reader(x) -> bool:
-    """A chunked reader (the JAX package's ``core.chunked.is_reader``),
-    which the streamed builds take; the port refuses it until they land."""
-    return hasattr(x, "chunks") and hasattr(x, "take") and hasattr(x, "chunk_rows")
+           "bound_capacity", "priced_capacity", "pq_scan_bytes_per_probe_row",
+           "funnel_scan_bytes_per_probe_row", "is_reader", "stream_probe",
+           "stream_ingest"]
 
 
 def round_up(x: int, mult: int) -> int:
     return -(-x // mult) * mult
+
+
+# the most rows a per-row pass of an IVF fill (assign, norms, encode) takes
+# at once: one default chunk, so a streamed pass never assembles more rows
+# on the device than a chunk holds
+FILL_TILE_MAX = 65536
+
+
+def fill_tile(n: int, n_lists: int, budget_bytes: int) -> int:
+    """The row tile of an IVF fill's per-row passes over ``n`` rows: the
+    workspace's (tile, n_lists) score block, at most ``FILL_TILE_MAX`` rows.
+    It depends on ``n`` and not on how the rows arrive, so a streamed fill
+    tiles its rows as the in-core one does."""
+    return min(_choose_tile(n, n_lists, 1, budget_bytes), FILL_TILE_MAX)
+
+
+def stream_probe(dtype, d: int):
+    """A zero-row tensor of a reader's device dtype: lets a build resolve
+    and validate its storage type without the corpus (float64 rows land as
+    float32, as in-core)."""
+    return torch.zeros((0, d), dtype=chunked.torch_dtype(dtype))
+
+
+def stream_ingest(kind: str, dtype):
+    """Raw rows of a ``kind`` index -> ``dtype`` in its domain (uint8
+    shifted by -128): the streamed twin of the in-core conversions.
+    Elementwise, so it commutes with the trainset gather."""
+    if kind in ("int8", "uint8"):
+        return lambda v: _as_signed(v).to(dtype)
+    return lambda v: v.to(dtype)
 
 
 def list_cap_target(rows: int, n_lists: int, factor: float) -> int:
@@ -99,20 +128,38 @@ def spatial_split_key(x, labels, n_lists: int, n_iters: int = 3, seed: int = 0):
     n, d = xf.shape
     lab = labels.to(torch.int64)
     dev = xf.device
-    sums = torch.zeros((n_lists, d), dtype=torch.float32, device=dev).index_add_(0, lab, xf)
+    sums = segment_sum(xf, lab, n_lists)
     counts = torch.bincount(lab, minlength=n_lists).to(torch.float32)
     xc = xf - (sums / torch.clamp_min(counts, 1.0)[:, None])[lab]
     g = torch.Generator(device=dev).manual_seed(seed)
     v = torch.randn((n_lists, d), generator=g, device=dev)
     for _ in range(n_iters):
         w = (xc * v[lab]).sum(dim=1)
-        v2 = torch.zeros((n_lists, d), dtype=torch.float32, device=dev).index_add_(
-            0, lab, w[:, None] * xc)
+        v2 = segment_sum(w[:, None] * xc, lab, n_lists)
         v = v2 / torch.clamp_min(torch.linalg.norm(v2, dim=1, keepdim=True), 1e-20)
     return (xc * v[lab]).sum(dim=1)
 
 
-def bound_capacity(labels, n_lists: int, factor: float = 1.3, x=None):
+def _slots(sizes_h, cap: int) -> int:
+    """Padded list slots of ``sizes_h`` split at capacity ``cap``."""
+    return int(np.maximum(1, -(-sizes_h // cap)).sum()) * cap
+
+
+def priced_capacity(sizes_h, cap_target: int) -> int:
+    """The capacity a build's fill splits at (``bound_capacity(priced=
+    True)``): the largest multiple of 8 up to ``cap_target`` whose split
+    holds at most 1.2x the ``len(sizes_h) x cap_target`` slots
+    ``obs.mem.plan()`` prices (its stated accuracy), or, where none does,
+    the one with the fewest slots. ``cap_target`` itself, as in the JAX
+    package, unless that split would pass 1.2x the price."""
+    limit = 1.2 * len(sizes_h) * cap_target
+    caps = range(cap_target, 7, -8)
+    return next((c for c in caps if _slots(sizes_h, c) <= limit),
+                min(caps, key=lambda c: _slots(sizes_h, c)))
+
+
+def bound_capacity(labels, n_lists: int, factor: float = 1.3, x=None,
+                   priced: bool = False):
     """The shared capacity policy of IVF fills: lists larger than ``factor``
     x the mean split into sub-lists (:func:`split_oversized`); otherwise the
     capacity is the largest list rounded up to 8. With ``x`` (n, d) given,
@@ -120,6 +167,11 @@ def bound_capacity(labels, n_lists: int, factor: float = 1.3, x=None):
     (the caller then re-centres those lists' children); milder ones split by
     input order. The 8x threshold is the JAX package's measured compromise
     (raft_tpu/neighbors/_list_utils.py:172).
+
+    ``priced=True`` (a build's fill: ``labels`` are every row, ``n_lists``
+    the lists asked) splits at :func:`priced_capacity`, which
+    differs from the JAX package only where its split would hold more
+    than 1.2x the slots ``obs.mem.plan()`` prices.
 
     Returns ``(labels, rep, n_lists, capacity, spatial)``: ``rep`` is None
     when nothing split, else the host repeat counts for per-list arrays;
@@ -132,14 +184,16 @@ def bound_capacity(labels, n_lists: int, factor: float = 1.3, x=None):
         return labels, None, n_lists, round_up(max_size, 8), None
     order_key = None
     spatial = None
-    severe_h = sizes.cpu().numpy() >= 8 * cap_target
+    sizes_h = sizes.cpu().numpy()
+    severe_h = sizes_h >= 8 * cap_target
+    split_cap = priced_capacity(sizes_h, cap_target) if priced else cap_target
     if x is not None and severe_h.any():
         proj = spatial_split_key(x, labels, n_lists)
         severe = torch.from_numpy(severe_h).to(labels.device)
         order_key = torch.where(severe[labels.to(torch.int64)], proj, 0.0)
         spatial = severe_h
-    new_labels, rep = split_oversized(labels, n_lists, cap_target, order_key)
-    return new_labels, rep, int(rep.sum()), cap_target, spatial
+    new_labels, rep = split_oversized(labels, n_lists, split_cap, order_key)
+    return new_labels, rep, int(rep.sum()), split_cap, spatial
 
 
 def pq_scan_bytes_per_probe_row(capacity: int, pq_dim: int, n_codes: int) -> int:

@@ -30,13 +30,15 @@ import math
 import numpy as np
 import torch
 
-from ..core.errors import expects, fail
+from ..core import chunked
+from ..core.chunked import is_reader
+from ..core.errors import expects
 from ..core.resources import Resources, default_resources
 from ..distance.pairwise import _PRECISIONS, _choose_tile, _pad_to_tiles, _pairwise
 from ..distance.types import DistanceType, resolve_metric
 from ..matrix.select_k import select_k, select_k_impl
 from ..obs import mem as obs_mem
-from ._list_utils import is_reader
+from ..obs.instrument import dtype_of, instrument, nrows
 
 __all__ = ["knn", "knn_merge_parts", "BruteForce", "from_state", "write_index",
            "read_index", "save", "load", "batched_searcher"]
@@ -186,6 +188,14 @@ def _place(x, res: Resources):
     return x if x.dtype in _KEPT_DTYPES else x.to(torch.float32)
 
 
+@instrument(
+    "brute_force.knn",
+    items=lambda a, kw: nrows(a[1] if len(a) > 1 else kw["queries"]),
+    labels=lambda a, kw: {
+        "dtype": dtype_of(a[0] if a else kw["dataset"]),
+        "k": a[2] if len(a) > 2 else kw["k"],
+    },
+)
 def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
         sample_filter=None, mode: str = "exact", compute: str = "float32",
         res: Resources | None = None):
@@ -290,12 +300,26 @@ class BruteForce:
         """Place the dataset on the handle's device, after the memory-budget
         gate (``Resources.memory_budget_bytes``) has priced it at
         n·d·min(itemsize, 4) bytes, as the JAX package does; the gate costs
-        one attribute check when no budget is armed. A chunked reader (the
-        JAX package's streamed ingest) is refused as not yet ported."""
+        one attribute check when no budget is armed.
+
+        A chunked reader (:mod:`raft_tpu_torch.core.chunked`) streams in:
+        the dataset still lands on the device whole (it is the scan
+        operand), through the staged chunk pipeline, after the gate has
+        priced ``obs.mem.plan(streamed=True)``'s build peak and host peak
+        at ``site="build_stream"``. It equals the in-core build's dataset
+        bit for bit."""
         self.res = res or default_resources()
         if is_reader(dataset):
-            fail("brute_force: a chunked-reader dataset (the streamed build) "
-                 "is not yet ported to raft_tpu_torch")
+            n, d = (int(s) for s in dataset.shape)
+            pl = obs_mem.plan("brute_force", None, n, d,
+                              dtype=str(chunked.device_dtype(dataset.dtype)),
+                              streamed=True, chunk_rows=dataset.chunk_rows)
+            obs_mem.gate(self.res, pl["build_peak_bytes"], site="build_stream",
+                         host_bytes=pl["host_peak_bytes"],
+                         detail=f"brute_force {n}x{d} streamed")
+            self.dataset = _place(chunked.device_materialize(
+                dataset, kind="brute_force", device=self.res.torch_device), self.res)
+            return self
         shape, itemsize = _shape_and_itemsize(dataset)
         expects(len(shape) == 2, "dataset must be (n, d)")
         obs_mem.gate(self.res, shape[0] * shape[1] * min(itemsize, 4), site="build",

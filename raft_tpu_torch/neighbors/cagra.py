@@ -32,9 +32,13 @@ device, but not the JAX package's pool.
 An int8 / uint8 dataset builds on its float32 image and is stored and
 searched as signed bytes (``cagra_hop`` reads int8 rows).
 
-Not yet ported (each raises ``RaftError("not yet ported")``): the streamed
-build from a chunked reader, the tune hook (``batched_searcher`` of a tuned index
-without params), the obs instrument and memory gates, and the distributed CAGRA.
+A chunked reader (:mod:`raft_tpu_torch.core.chunked`) builds out of core: the
+corpus streams onto the device through the staged chunks, then the graph
+builds as in-core. Armed memory budgets gate the build on ``obs.mem.plan()``.
+
+Not yet ported (each raises ``RaftError("not yet ported")``): the tune hook
+(``batched_searcher`` of a tuned index without params) and the distributed
+CAGRA.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ import math
 import numpy as np
 import torch
 
+from ..core import chunked
+from ..core.chunked import is_reader
 from ..core.errors import expects, fail
 from ..core.resources import Resources, default_resources
 from ..core.serialize import (atomic_write, check_header, deserialize_mdspan,
@@ -55,8 +61,8 @@ from ..distance.pairwise import full_f32
 from ..distance.types import DistanceType, resolve_metric
 from ..matrix.select_k import _select_k, select_k_impl
 from ..obs import mem as obs_mem
+from ..obs.instrument import dtype_of, instrument, nrows
 from . import ivf_pq as ivf_pq_mod
-from ._list_utils import is_reader
 from .ivf_pq import _L2_METRICS, _SQRT_METRICS
 from .refine import refine
 
@@ -367,15 +373,33 @@ def estimate_seed_pool(dataset, knn_graph, seed: int = 0,
     return pool
 
 
+@instrument("cagra.build",
+            items=lambda a, kw: nrows(a[1] if len(a) > 1 else kw["dataset"]),
+            labels=lambda a, kw: {
+                "dtype": dtype_of(a[1] if len(a) > 1 else kw["dataset"])})
 def build(params: IndexParams, dataset, res: Resources | None = None) -> CagraIndex:
     """Full CAGRA build (reference: cagra::build, cagra.cuh) on the
     handle's device: knn graph, seed-pool estimate, then optimize to
     ``graph_degree``. An int8 / uint8 dataset is stored as signed bytes
     (uint8 shifted by -128) and searched over them; the graph is built on
-    its float32 image, as the JAX package builds it."""
+    its float32 image, as the JAX package builds it. A chunked reader
+    (:mod:`raft_tpu_torch.core.chunked`) streams onto the device and then
+    builds as in-core, to the same dataset and graph bit for bit."""
     res = res or default_resources()
-    if is_reader(dataset):
-        _not_ported("a chunked-reader dataset (the streamed build)")
+    stream = is_reader(dataset)
+    if stream:
+        # out-of-core ingest: the streamed upload priced against both
+        # budgets, then the corpus lands on the device whole through the
+        # staged chunk pipeline (the graph build runs in-core: the dataset
+        # is CAGRA's scan operand)
+        n, d = (int(s) for s in dataset.shape)
+        dt = chunked.device_dtype(dataset.dtype)
+        pl = obs_mem.plan("cagra", params, n, d,
+                          dtype=str(dt) if dt in (np.int8, np.uint8) else "float32",
+                          streamed=True, chunk_rows=dataset.chunk_rows)
+        obs_mem.gate(res, pl["build_peak_bytes"], site="build_stream",
+                     host_bytes=pl["host_peak_bytes"], detail=f"cagra {n}x{d} streamed")
+        dataset = chunked.device_materialize(dataset, kind="cagra", device=res.torch_device)
     x = res.put(dataset)
     expects(x.ndim == 2, "dataset must be (n, d)")
     expects(params.graph_degree <= params.intermediate_graph_degree,
@@ -392,10 +416,11 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> CagraIn
     else:
         x = xf = x.to(torch.float32).contiguous()
     # memory-budget admission, before the knn-graph self-search spends
-    # anything (armed, it needs the not yet ported obs.mem.plan() and raises)
-    obs_mem.gate(res, lambda: obs_mem.plan("cagra", params, x.shape[0], x.shape[1],
-                                           dtype=kind)["index_bytes"],
-                 site="build", detail=f"cagra {x.shape[0]}x{x.shape[1]}")
+    # anything (the streamed gate above priced the chunked upload)
+    if not stream:
+        obs_mem.gate(res, lambda: obs_mem.plan("cagra", params, x.shape[0], x.shape[1],
+                                               dtype=kind)["index_bytes"],
+                     site="build", detail=f"cagra {x.shape[0]}x{x.shape[1]}")
     knn_graph = build_knn_graph(params, xf, res=res)
     hint = estimate_seed_pool(xf, knn_graph, seed=params.seed, res=res)
     del xf
@@ -600,6 +625,12 @@ def _fused_loop(index, qf, beam_ids, beam_d, visited, k, itopk, max_iter, width,
     return out_d, torch.where(torch.isinf(out_d), -1, bi[:, :k])
 
 
+@instrument(
+    "cagra.search",
+    items=lambda a, kw: nrows(a[2] if len(a) > 2 else kw["queries"]),
+    labels=lambda a, kw: {"k": a[3] if len(a) > 3 else kw["k"],
+                          "itopk": (a[0] if a else kw["params"]).itopk_size},
+)
 def search(params: SearchParams, index: CagraIndex, queries, k: int, sample_filter=None,
            res: Resources | None = None):
     """Batch beam search (reference: cagra::search, cagra_search.cuh:70).

@@ -9,7 +9,9 @@ algorithm:
   storage type (float32, bfloat16, or int8 for 8-bit data, uint8 shifted by
   -128), their ids (-1 on padding) and squared norms (+inf on padding);
   lists larger than ``split_factor`` x the mean split into sub-lists
-  (``_list_utils.bound_capacity``).
+  (``_list_utils.bound_capacity``). A build's split holds at most 1.2x
+  the list bytes ``obs.mem.plan()`` prices (``_list_utils.priced_capacity``;
+  the JAX package's can hold more, where many lists pass the bound).
 - **Build**: balanced k-means on a trainset, then the fill.
 - **Search**: the coarse product and select of the ``n_probes`` nearest
   lists, then per (query tile, probe chunk) of ``plan_search_tiles``: the
@@ -29,14 +31,15 @@ Entry points run on the handle's device ("cuda" unless the caller passes
 loaded on. Files are the JAX package's ``raft_tpu/13`` format, byte for
 byte, and :func:`from_state` takes a JAX index's arrays as numpy.
 
-Not yet ported (each raises ``RaftError("not yet ported")``): a
-``ChunkedReader`` dataset (the streamed build and extend wait for
-``core/chunked``) and ``batched_searcher`` of a tuned index without
-explicit params (``tune/``). A host array above ``_STREAM_EXTEND_BYTES``,
-which the JAX package streams through ``extend``, takes the in-memory path
-here with the streamed path's one difference: severely oversized lists split
-by input order, not spatially. The obs hooks and trace ranges wait for the
-port of ``obs`` and ``core/tracing``.
+A chunked reader (:mod:`raft_tpu_torch.core.chunked`) builds and extends
+out of core, and so does a host array above ``chunked.STREAM_EXTEND_BYTES``
+handed to ``extend``: the result equals the in-core one bit for bit, bar the spatial
+split of a severely oversized list, which needs every row on the device
+(streamed, such a list splits by input order, as in the JAX package).
+
+Not yet ported (raises ``RaftError("not yet ported")``): ``batched_searcher``
+of a tuned index without explicit params (``tune/``). The trace ranges wait
+for the port of ``core/tracing``.
 """
 
 from __future__ import annotations
@@ -50,17 +53,20 @@ import torch
 
 from ..cluster import kmeans_balanced
 from ..cluster.kmeans_balanced import KMeansBalancedParams
+from ..core import chunked
+from ..core.chunked import is_reader
 from ..core.errors import expects, fail
 from ..core.resources import Resources, default_resources
 from ..core.serialize import (atomic_write, check_header, deserialize_mdspan,
                               deserialize_scalar, deserialize_tuned, serialize_header,
                               serialize_mdspan, serialize_scalar, serialize_tuned)
-from ..distance.pairwise import _choose_tile, full_f32
+from ..distance.pairwise import full_f32
 from ..distance.types import DistanceType, resolve_metric
 from ..matrix.select_k import select_k_impl
 from ..obs import mem as obs_mem
-from ._list_utils import (assign_to_lists, bound_capacity, is_reader, list_positions,
-                          plan_search_tiles)
+from ..obs.instrument import dtype_of, instrument, nrows
+from ._list_utils import (assign_to_lists, bound_capacity, fill_tile, list_positions,
+                          plan_search_tiles, stream_ingest, stream_probe)
 from .brute_force import _INT_DTYPES, _as_signed, _coerce_queries, _dtype_name, _place
 
 __all__ = ["IndexParams", "SearchParams", "IvfFlatIndex", "build", "extend", "search",
@@ -69,9 +75,6 @@ __all__ = ["IndexParams", "SearchParams", "IvfFlatIndex", "build", "extend", "se
 _L2_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
                DistanceType.L2Unexpanded, DistanceType.L2SqrtUnexpanded)
 _SQRT_METRICS = (DistanceType.L2SqrtExpanded, DistanceType.L2SqrtUnexpanded)
-# the JAX package streams a host batch past this size through extend's
-# chunked path (raft_tpu/neighbors/ivf_flat.py:356)
-_STREAM_EXTEND_BYTES = 256 << 20
 
 
 def _not_ported(what: str):
@@ -151,20 +154,19 @@ class IvfFlatIndex:
         return int(self.list_sizes.to(torch.int64).sum())
 
 
-def _fill_lists(x, ids, labels, n_lists: int, capacity: int):
-    """Scatter vectors into padded lists, each list's rows in input order
-    (ref: ivf_flat_build.cuh:160). Returns (data, ids, norms, sizes)."""
-    pos, counts = list_positions(labels, n_lists)
-    lab, pos = labels.to(torch.int64), pos.to(torch.int64)
-    dev = x.device
-    data = torch.zeros((n_lists, capacity, x.shape[1]), dtype=x.dtype, device=dev)
+def _fill_rows(data, idbuf, norms, offsets, x, ids, labels):
+    """Scatter one tile of rows into the padded lists at each list's running
+    fill level (``offsets``, updated in place): a row's slot is its rank
+    among earlier rows of its list, so tiles scattered in order give the
+    layout one scatter of all rows gives (ref: ivf_flat_build.cuh:160)."""
+    pos, counts = list_positions(labels, offsets.shape[0])
+    lab = labels.to(torch.int64)
+    pos = pos.to(torch.int64) + offsets[lab].to(torch.int64)
     data[lab, pos] = x
-    idbuf = torch.full((n_lists, capacity), -1, dtype=torch.int32, device=dev)
     idbuf[lab, pos] = ids.to(torch.int32)
-    norms = torch.full((n_lists, capacity), math.inf, dtype=torch.float32, device=dev)
     xf = x.to(torch.float32)
     norms[lab, pos] = (xf * xf).sum(dim=1)
-    return data, idbuf, norms, counts
+    offsets += counts
 
 
 def _resolve_storage(list_dtype: str, x, mt: DistanceType):
@@ -192,27 +194,57 @@ def _resolve_storage(list_dtype: str, x, mt: DistanceType):
     return ld, x, x.to(torch.float32)
 
 
+@instrument("ivf_flat.build",
+            items=lambda a, kw: nrows(a[1] if len(a) > 1 else kw["dataset"]),
+            labels=lambda a, kw: {
+                "dtype": dtype_of(a[1] if len(a) > 1 else kw["dataset"]),
+                "n_lists": (a[0] if a else kw["params"]).n_lists,
+            })
 def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfFlatIndex:
     """Build the index on the handle's device (reference: ivf_flat::build):
-    balanced k-means centers on a trainset, then the fill."""
+    balanced k-means centers on a trainset, then the fill.
+
+    A chunked reader (:mod:`raft_tpu_torch.core.chunked`) streams: the
+    trainset is gathered off it, and the assign and fill passes run over
+    its staged chunks, so the device holds the index plus two chunks. It is
+    gated on ``obs.mem.plan(streamed=True)`` against both budgets at
+    ``site="build_stream"``, and equals the in-core build of the same rows
+    bit for bit (bar the spatial split of a severely oversized list, which
+    needs the corpus on the device: streamed, such a list splits by input
+    order)."""
     res = res or default_resources()
-    if is_reader(dataset):
-        _not_ported("a ChunkedReader dataset (the streamed build)")
-    x = _place(dataset, res)
-    expects(x.ndim == 2, "dataset must be (n, d)")
-    n, d = (int(s) for s in x.shape)
+    stream = is_reader(dataset)
+    x = None if stream else _place(dataset, res)
+    src = dataset if stream else x
+    expects(src.ndim == 2, "dataset must be (n, d)")
+    n, d = (int(s) for s in src.shape)
     expects(params.n_lists <= n, "n_lists > n_samples")
     mt = resolve_metric(params.metric)
     expects(mt in _L2_METRICS or mt == DistanceType.InnerProduct,
             "ivf_flat supports L2 / inner_product metrics, got %s", mt.name)
-    kind, x, xf = _resolve_storage(params.list_dtype, x, mt)
-    # memory-budget admission, before the coarse trainer spends anything:
-    # one attribute check unarmed; armed, it needs obs.mem.plan(), which is
-    # not yet ported and raises
-    obs_mem.gate(res, lambda: obs_mem.plan(
-        "ivf_flat", params, n, d,
-        dtype=kind if kind in ("int8", "uint8", "bfloat16") else "float32"
-    )["index_bytes"], site="build", detail=f"ivf_flat {n}x{d}")
+    if stream:
+        # dtype-only storage resolution, then the streamed admission: the
+        # chunked build's peak against both budgets, before the coarse
+        # trainer spends anything
+        kind, probe, _ = _resolve_storage(params.list_dtype,
+                                          stream_probe(dataset.dtype, d), mt)
+        plan_kw = dict(dtype=kind if kind in ("int8", "uint8", "bfloat16") else "float32",
+                       streamed=True, chunk_rows=dataset.chunk_rows)
+        obs_mem.gate(
+            res, lambda: obs_mem.plan("ivf_flat", params, n, d, **plan_kw)["build_peak_bytes"],
+            site="build_stream", detail=f"ivf_flat {n}x{d} ooc",
+            host_bytes=lambda: obs_mem.plan("ivf_flat", params, n, d,
+                                            **plan_kw)["host_peak_bytes"])
+        xf = chunked.converted(dataset, stream_ingest(kind, torch.float32), res.torch_device)
+        in_dtype = probe.dtype
+    else:
+        kind, x, xf = _resolve_storage(params.list_dtype, x, mt)
+        # memory-budget admission, before the coarse trainer spends anything
+        obs_mem.gate(res, lambda: obs_mem.plan(
+            "ivf_flat", params, n, d,
+            dtype=kind if kind in ("int8", "uint8", "bfloat16") else "float32"
+        )["index_bytes"], site="build", detail=f"ivf_flat {n}x{d}")
+        in_dtype = x.dtype
     max_train = max(int(n * params.kmeans_trainset_fraction), params.n_lists)
     kb = KMeansBalancedParams(
         n_iters=params.kmeans_n_iters,
@@ -222,34 +254,47 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfFlat
     centers = kmeans_balanced.fit(kb, xf, params.n_lists, res=res)
     del xf
     storage = {"bfloat16": torch.bfloat16, "int8": torch.int8,
-               "uint8": torch.int8}.get(kind, x.dtype)
+               "uint8": torch.int8}.get(kind, in_dtype)
+    dev = centers.device
     cap = 0 if params.add_data_on_build else 8
     index = IvfFlatIndex(
         centers=centers,
-        list_data=torch.zeros((params.n_lists, cap, d), dtype=storage, device=x.device),
-        list_ids=torch.full((params.n_lists, cap), -1, dtype=torch.int32, device=x.device),
+        list_data=torch.zeros((params.n_lists, cap, d), dtype=storage, device=dev),
+        list_ids=torch.full((params.n_lists, cap), -1, dtype=torch.int32, device=dev),
         list_norms=torch.full((params.n_lists, cap), math.inf, dtype=torch.float32,
-                              device=x.device),
-        list_sizes=torch.zeros((params.n_lists,), dtype=torch.int32, device=x.device),
+                              device=dev),
+        list_sizes=torch.zeros((params.n_lists,), dtype=torch.int32, device=dev),
         metric=mt, split_factor=params.split_factor, data_kind=kind)
     if not params.add_data_on_build:
         return index
-    return _extend_signed(index, x, torch.arange(n, dtype=torch.int32, device=x.device),
-                          res=res)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    if stream:
+        return _extend_rows(index, dataset, ids, res=res,
+                            ingest=stream_ingest(kind, storage), priced=True)
+    return _extend_rows(index, x.to(storage), ids, res=res, priced=True)
 
 
+@instrument("ivf_flat.extend",
+            items=lambda a, kw: nrows(a[1] if len(a) > 1 else kw["new_vectors"]))
 def extend(index: IvfFlatIndex, new_vectors, new_ids=None, res: Resources | None = None,
            split_factor: float | None = None) -> IvfFlatIndex:
     """Append vectors (reference: ivf_flat::extend) and re-pack the lists.
     Returns a new index on the index's device; ids default to
     ``index.size + arange``. An 8-bit index takes vectors of its original
-    dtype."""
+    dtype.
+
+    A chunked reader, or a host ndarray past ``chunked.STREAM_EXTEND_BYTES``,
+    streams: assign and fill run over staged chunks, never the whole batch
+    on the device, with the result of the in-core extend."""
+    new_vectors = chunked.maybe_reader(new_vectors)
     if is_reader(new_vectors):
-        _not_ported("a ChunkedReader batch (the streamed extend)")
-    # the JAX package streams such a batch, whose one difference from the
-    # in-memory path is the order split of severely oversized lists
-    spatial = not (isinstance(new_vectors, np.ndarray) and new_vectors.ndim == 2
-                   and new_vectors.nbytes > _STREAM_EXTEND_BYTES)
+        storage = index.list_data.dtype
+        if index.data_kind in ("int8", "uint8"):
+            expects(str(np.dtype(new_vectors.dtype)) == index.data_kind,
+                    "this index stores %s vectors; got %s", index.data_kind,
+                    new_vectors.dtype)
+        return _extend_rows(index, new_vectors, new_ids, res=res, split_factor=split_factor,
+                            ingest=stream_ingest(index.data_kind, storage))
     x = torch.as_tensor(new_vectors)
     if x.dtype == torch.float64:
         x = x.to(torch.float32)
@@ -259,42 +304,80 @@ def extend(index: IvfFlatIndex, new_vectors, new_ids=None, res: Resources | None
         expects(_dtype_name(x) == index.data_kind,
                 "this index stores %s vectors; got %s", index.data_kind, _dtype_name(x))
         x = _as_signed(x)
-    return _extend_signed(index, x, new_ids, res=res, split_factor=split_factor,
-                          spatial=spatial)
+    return _extend_rows(index, x.to(index.list_data.dtype), new_ids, res=res,
+                        split_factor=split_factor)
 
 
-def _extend_signed(index: IvfFlatIndex, x, new_ids=None, res: Resources | None = None,
-                   split_factor: float | None = None, spatial: bool = True) -> IvfFlatIndex:
-    """extend() for vectors already in the index's storage domain (s8-shifted
-    for uint8 kinds) on its device."""
+def _extend_rows(index: IvfFlatIndex, src, new_ids=None, res: Resources | None = None,
+                 split_factor: float | None = None, ingest=None,
+                 priced: bool = False) -> IvfFlatIndex:
+    """extend() over rows in the index's storage domain: a tensor on its
+    device, or a chunked reader whose staged chunks ``ingest`` converts.
+
+    Two passes over :func:`~raft_tpu_torch.core.chunked.row_tiles` (assign,
+    then fill), the same code in both modes: every per-row quantity (label,
+    slot, norm) comes from tiles of one shape at the same offsets, so a
+    streamed extend equals the in-core one bit for bit. Severely oversized
+    lists split spatially in-core and by input order streamed (the spatial
+    split needs every row on the device). ``priced`` (a build's fill, which
+    ``obs.mem.plan()`` prices) splits oversized lists at
+    ``_list_utils.priced_capacity``."""
     res = res or default_resources()
     dev = index.device
-    x = x.to(index.list_data.dtype)
-    expects(x.ndim == 2 and x.shape[1] == index.dim, "vector dim mismatch")
-    n_new = x.shape[0]
+    stream = is_reader(src)
+    n_new, d = (int(s) for s in src.shape)
+    expects(d == index.dim, "vector dim mismatch")
     if new_ids is None:
         new_ids = index.size + torch.arange(n_new, dtype=torch.int32, device=dev)
     else:
         new_ids = torch.as_tensor(new_ids).to(device=dev, dtype=torch.int32)
         expects(tuple(new_ids.shape) == (n_new,), "ids/vectors length mismatch")
-    tile = _choose_tile(n_new, index.n_lists, 1, res.workspace_bytes)
-    labels = assign_to_lists(x, index.centers, index.metric, tile)
+    tile = fill_tile(n_new, index.n_lists, res.workspace_bytes)
+    stager = (chunked.ChunkStager(src.chunk_rows, d, src.dtype, kind="ivf_flat", device=dev)
+              if stream else None)
+    tiles = dict(tile=tile, stager=stager, ingest=ingest, kind="ivf_flat")
+    try:
+        labels = torch.cat([assign_to_lists(t, index.centers, index.metric, tile)
+                            for _, t in chunked.row_tiles(src, stage="assign", **tiles)])
+        n_old = 0
+        if index.capacity > 0 and index.size > 0:
+            old = index.list_ids.reshape(-1) >= 0
+            old_x = index.list_data.reshape(-1, d)[old]
+            old_ids = index.list_ids.reshape(-1)[old]
+            n_old = int(old_ids.shape[0])
+            labels = torch.cat([torch.arange(index.n_lists, dtype=torch.int32, device=dev
+                                             ).repeat_interleave(index.capacity)[old], labels])
 
-    if index.capacity > 0 and index.size > 0:
-        old = index.list_ids.reshape(-1) >= 0
-        old_labels = torch.arange(index.n_lists, dtype=torch.int32, device=dev
-                                  ).repeat_interleave(index.capacity)[old]
-        x = torch.cat([index.list_data.reshape(-1, index.dim)[old], x])
-        new_ids = torch.cat([index.list_ids.reshape(-1)[old], new_ids])
-        labels = torch.cat([old_labels, labels])
-
-    # the capacity policy: oversized lists split into sub-lists; severely
-    # oversized ones (>= 8x the bound) split spatially and their children
-    # are re-centred on their members below
-    sf = index.split_factor if split_factor is None else split_factor
-    labels, rep, n_lists, capacity, split_sp = bound_capacity(
-        labels, index.n_lists, sf, x=x.to(torch.float32) if spatial else None)
-    data, idbuf, norms, sizes = _fill_lists(x, new_ids, labels, n_lists, capacity)
+        # the capacity policy: oversized lists split into sub-lists;
+        # severely oversized ones (>= 8x the bound) split spatially, in-core,
+        # and their children are re-centred on their members below
+        sf = index.split_factor if split_factor is None else split_factor
+        xs = None
+        if not stream:
+            xs = (torch.cat([old_x, src]) if n_old else src).to(torch.float32)
+        labels, rep, n_lists, capacity, split_sp = bound_capacity(labels, index.n_lists, sf,
+                                                                  x=xs, priced=priced)
+        del xs
+        data = torch.zeros((n_lists, capacity, d), dtype=index.list_data.dtype, device=dev)
+        idbuf = torch.full((n_lists, capacity), -1, dtype=torch.int32, device=dev)
+        norms = torch.full((n_lists, capacity), math.inf, dtype=torch.float32, device=dev)
+        offsets = torch.zeros((n_lists,), dtype=torch.int32, device=dev)
+        # the streamed build's device working set, which
+        # obs.mem.plan(streamed=True) prices; released before the caller
+        # holds the index
+        tok = (obs_mem.account("build/ooc", name="ivf_flat", device=[
+            data, idbuf, norms, offsets, labels, new_ids], owner=stager) if stream else None)
+        if n_old:
+            _fill_rows(data, idbuf, norms, offsets, old_x, old_ids, labels[:n_old])
+        for start, t in chunked.row_tiles(src, stage="fill", **tiles):
+            end = start + t.shape[0]
+            _fill_rows(data, idbuf, norms, offsets, t, new_ids[start:end],
+                       labels[n_old + start:n_old + end])
+        obs_mem.release(tok)
+    finally:
+        if stager is not None:
+            stager.release()
+    sizes = offsets
     centers = index.centers
     if rep is not None:
         centers = centers.repeat_interleave(torch.from_numpy(rep).to(dev), dim=0)
@@ -385,6 +468,12 @@ def search_plan(index: IvfFlatIndex, m: int, n_probes: int, k: int,
                              budget_bytes=res.workspace_bytes)
 
 
+@instrument(
+    "ivf_flat.search",
+    items=lambda a, kw: nrows(a[2] if len(a) > 2 else kw["queries"]),
+    labels=lambda a, kw: {"k": a[3] if len(a) > 3 else kw["k"],
+                          "n_probes": (a[0] if a else kw["params"]).n_probes},
+)
 def search(params: SearchParams, index: IvfFlatIndex, queries, k: int,
            sample_filter=None, res: Resources | None = None):
     """Search (reference: ivf_flat::search). Returns (distances (m, k)

@@ -9,8 +9,10 @@ detail/ivf_pq_search.cuh). The same index layout and the same algorithm:
   the rotated residuals of a trainset, codes stored one byte per
   (vector, subspace) in padded lists (n_lists, capacity, pq_dim); lists
   larger than ``split_factor`` x the mean split into sub-lists that share
-  their parent's center. ``pq_bits=8`` with ``pq8_split`` (the L2 default)
-  stores a two-stage 4+4-bit code whose cross term rides in ``list_consts``.
+  their parent's center, a build's split held within 1.2x the list bytes
+  ``obs.mem.plan()`` prices (``_list_utils.priced_capacity``).
+  ``pq_bits=8`` with ``pq8_split`` (the L2 default) stores a two-stage
+  4+4-bit code whose cross term rides in ``list_consts``.
 - **Search**: coarse product + select_k, then per (query tile, probe chunk)
   of :func:`~raft_tpu_torch.neighbors._list_utils.plan_search_tiles`: the
   LUT ``|c|² - 2·r·c`` per subspace (one batched product), the scan
@@ -44,9 +46,13 @@ Trained artifacts (codebooks, OPQ rotations, scales) come from torch random
 streams, so the port's builds match the JAX package's in recall, and a JAX
 index loaded from its file searches the same.
 
-Not yet ported (each raises ``RaftError("not yet ported")``): the streamed
-build (a chunked-reader dataset), the obs hooks, and ``batched_searcher`` of
-a tuned index without params.
+A chunked reader (:mod:`raft_tpu_torch.core.chunked`) builds and extends
+out of core, as does a host array past ``chunked.STREAM_EXTEND_BYTES``
+handed to ``extend``: the assign, encode and fill run per tile over staged
+chunks, to the in-core result bit for bit.
+
+Not yet ported (raises ``RaftError("not yet ported")``): ``batched_searcher``
+of a tuned index without params.
 """
 
 from __future__ import annotations
@@ -62,6 +68,8 @@ import torch
 from ..cluster import kmeans_balanced
 from ..cluster.kmeans_balanced import KMeansBalancedParams
 from ..core import serialize as core_serialize
+from ..core import chunked
+from ..core.chunked import is_reader
 from ..core.errors import expects, fail
 from ..core.resources import Resources, default_resources
 from ..core.serialize import (check_header, deserialize_mdspan, deserialize_scalar,
@@ -69,13 +77,16 @@ from ..core.serialize import (check_header, deserialize_mdspan, deserialize_scal
                               serialize_scalar, serialize_tuned, version_number)
 from ..distance.pairwise import _choose_tile, full_f32
 from ..distance.types import DistanceType, resolve_metric
+from ..matrix.ops import segment_sum
 from ..matrix.select_k import _select_k, select_k_impl, wide_dispatch_ok
 from ..obs import mem as obs_mem
+from ..obs.instrument import dtype_of, instrument, nrows
 from .brute_force import _as_signed, _coerce_queries, _dtype_name
 from .sample_filter import apply_id_filter, resolve_filter, validate_filter_covers
-from ._list_utils import (assign_to_lists, bound_capacity, funnel_scan_bytes_per_probe_row,
-                          is_reader, list_positions, plan_search_tiles, pq_scan_bytes_per_probe_row,
-                          round_up)
+from ._list_utils import (assign_to_lists, bound_capacity, fill_tile,
+                          funnel_scan_bytes_per_probe_row, list_positions, plan_search_tiles,
+                          pq_scan_bytes_per_probe_row, round_up, stream_ingest,
+                          stream_probe)
 
 __all__ = ["IndexParams", "SearchParams", "IvfPqIndex", "build", "extend", "search",
            "save", "load", "write_index", "read_index", "from_state",
@@ -281,8 +292,7 @@ def _segment_means(vals, labels, k: int, fallback):
     where a label has no member."""
     b, n, dim = vals.shape
     flat = (labels + k * torch.arange(b, device=vals.device)[:, None]).reshape(-1)
-    sums = torch.zeros((b * k, dim), dtype=torch.float32, device=vals.device)
-    sums.index_add_(0, flat, vals.reshape(-1, dim))
+    sums = segment_sum(vals.reshape(-1, dim).to(torch.float32), flat, b * k)
     counts = torch.bincount(flat, minlength=b * k).to(torch.float32).reshape(b, k, 1)
     means = sums.reshape(b, k, dim) / torch.clamp_min(counts, 1.0)
     return torch.where(counts > 0, means, fallback)
@@ -387,8 +397,7 @@ def _per_cluster_gain(resid, labels, codebooks, split: bool, g, n_iters: int,
 def _segment_sums(vals, labels, n_lists: int):
     """Per-list sums of ``vals`` (n,) and member counts, float32."""
     lab = labels.to(torch.int64)
-    sums = torch.zeros(n_lists, dtype=torch.float32, device=vals.device).index_add_(
-        0, lab, vals.to(torch.float32))
+    sums = segment_sum(vals.to(torch.float32), lab, n_lists)
     return sums, torch.bincount(lab, minlength=n_lists).to(torch.float32)
 
 
@@ -446,9 +455,8 @@ def _train_codebooks_aniso(subvecs, g, n_codes: int, n_iters: int, eta: float):
     for _ in range(n_iters):
         flat = (_nearest_aniso(sv, norm, u, c, em1) + offs).reshape(-1)
         counts = torch.bincount(flat, minlength=b * n_codes).to(torch.float32)
-        sums = torch.zeros((b * n_codes, dim), device=sv.device).index_add_(
-            0, flat, sv.reshape(-1, dim))
-        suu = torch.zeros((b * n_codes, dim * dim), device=sv.device).index_add_(0, flat, uu)
+        sums = segment_sum(sv.reshape(-1, dim), flat, b * n_codes)
+        suu = segment_sum(uu, flat, b * n_codes)
         a = (counts[:, None, None] * eye + em1 * suu.reshape(-1, dim, dim)) + 1e-6 * eye
         sol = torch.linalg.solve(a, (eta * sums)[..., None])[..., 0]
         c = torch.where(counts.reshape(b, n_codes, 1) > 0, sol.reshape(b, n_codes, dim), c)
@@ -593,40 +601,22 @@ def _encode(residuals, codebooks, labels, per_cluster: bool, tile: int,
     return torch.cat(out)
 
 
-def _fill_code_lists(codes, ids, labels, n_lists: int, capacity: int, consts=None,
-                     sig=None):
-    """Scatter codes, ids (and split L2 constants, and fast-scan signatures)
-    into padded lists, each list's rows in input order."""
-    pos, counts = list_positions(labels, n_lists)
-    lab, pos = labels.to(torch.int64), pos.to(torch.int64)
-    dev = codes.device
-    buf = torch.zeros((n_lists, capacity, codes.shape[1]), dtype=torch.uint8, device=dev)
-    buf[lab, pos] = codes
-    idbuf = torch.full((n_lists, capacity), -1, dtype=torch.int32, device=dev)
-    idbuf[lab, pos] = ids.to(torch.int32)
-    if consts is None:
-        cbuf = torch.zeros((n_lists, 0), dtype=torch.float32, device=dev)
-    else:
-        cbuf = torch.zeros((n_lists, capacity), dtype=torch.float32, device=dev)
-        cbuf[lab, pos] = consts
-    if sig is None:
-        sbuf = torch.zeros((n_lists, 0, 0), dtype=torch.uint8, device=dev)
-    else:
-        sbuf = torch.zeros((n_lists, capacity, sig.shape[1]), dtype=torch.uint8, device=dev)
-        sbuf[lab, pos] = sig
-    return buf, idbuf, counts, cbuf, sbuf
-
-
+@instrument("ivf_pq.build",
+            items=lambda a, kw: nrows(a[1] if len(a) > 1 else kw["dataset"]),
+            labels=lambda a, kw: {
+                "dtype": dtype_of(a[1] if len(a) > 1 else kw["dataset"]),
+                "n_lists": (a[0] if a else kw["params"]).n_lists,
+            })
 def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfPqIndex:
     """Build the index (reference: ivf_pq::build, ivf_pq-inl.cuh:270) on the
     handle's device. int8 / uint8 datasets are ingested as float32 in the
     signed domain (:func:`_resolve_pq_ingest`)."""
     res = res or default_resources()
-    if is_reader(dataset):
-        _not_ported("a chunked-reader dataset (the streamed build)")
-    x = res.put(dataset)
-    expects(x.ndim == 2, "dataset must be (n, d)")
-    n, d = (int(s) for s in x.shape)
+    stream = is_reader(dataset)
+    x = None if stream else res.put(dataset)
+    src = dataset if stream else x
+    expects(src.ndim == 2, "dataset must be (n, d)")
+    n, d = (int(s) for s in src.shape)
     expects(params.n_lists <= n, "n_lists > n_samples")
     expects(4 <= params.pq_bits <= 8, "pq_bits must be in [4, 8] (ref ivf_pq_types.hpp:68)")
     mt = resolve_metric(params.metric)
@@ -640,12 +630,28 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfPqIn
             "codebook_loss must be 'l2' or 'anisotropic', got %r", params.codebook_loss)
     expects(params.fast_scan in ("none", "1bit", "4bit"),
             "fast_scan must be 'none', '1bit' or '4bit', got %r", params.fast_scan)
-    data_kind, x = _resolve_pq_ingest(x, mt)
-    # memory-budget admission, before the coarse trainer spends anything
-    # (armed, it needs the not yet ported obs.mem.plan() and raises)
-    obs_mem.gate(res, lambda: obs_mem.plan("ivf_pq", params, n, d)["index_bytes"],
-                 site="build", detail=f"ivf_pq {n}x{d}")
-    dev = x.device
+    if stream:
+        # dtype-only ingest resolution, then the streamed admission: the
+        # chunked build's peak against both budgets, before the coarse
+        # trainer spends anything
+        data_kind, _ = _resolve_pq_ingest(stream_probe(dataset.dtype, d), mt)
+        plan_kw = dict(dtype=data_kind if data_kind in ("int8", "uint8") else "float32",
+                       streamed=True, chunk_rows=dataset.chunk_rows)
+        obs_mem.gate(
+            res, lambda: obs_mem.plan("ivf_pq", params, n, d, **plan_kw)["build_peak_bytes"],
+            site="build_stream", detail=f"ivf_pq {n}x{d} ooc",
+            host_bytes=lambda: obs_mem.plan("ivf_pq", params, n, d,
+                                            **plan_kw)["host_peak_bytes"])
+        # the trainer and the trainset gather see the reader through the
+        # build's working-domain conversion
+        x = chunked.converted(dataset, stream_ingest(data_kind, torch.float32),
+                              res.torch_device)
+    else:
+        data_kind, x = _resolve_pq_ingest(x, mt)
+        # memory-budget admission, before the coarse trainer spends anything
+        obs_mem.gate(res, lambda: obs_mem.plan("ivf_pq", params, n, d)["index_bytes"],
+                     site="build", detail=f"ivf_pq {n}x{d}")
+    dev = res.torch_device
     pq_dim = params.pq_dim or _default_pq_dim(d, params.pq_bits)
     pq_len = -(-d // pq_dim)
     d_rot = pq_dim * pq_len
@@ -670,7 +676,12 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfPqIn
 
     # 3. rotated residuals of a trainset
     n_train = min(max_train, n)
-    xt = x[torch.randperm(n, generator=g, device=dev)[:n_train]] if n_train < n else x
+    if n_train < n:
+        # a device gather in-core, a host gather off the reader streamed:
+        # the same indices, the same rows
+        xt = chunked.take_rows(x, torch.randperm(n, generator=g, device=dev)[:n_train])
+    else:
+        xt = chunked.materialize(x)
     tile = _choose_tile(n_train, params.n_lists, 1, res.workspace_bytes)
     labels = assign_to_lists(xt, centers, mt, tile)
     lab = labels.to(torch.int64)
@@ -768,98 +779,178 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> IvfPqIn
         fast_scan=params.fast_scan)
     if not params.add_data_on_build:
         return index
-    return _extend_f32(index, x, torch.arange(n, dtype=torch.int32, device=dev), res=res)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    if stream:
+        return _extend_rows(index, dataset, ids, res=res,
+                            ingest=stream_ingest(data_kind, torch.float32), priced=True)
+    return _extend_rows(index, x, ids, res=res, priced=True)
 
 
+@instrument("ivf_pq.extend",
+            items=lambda a, kw: nrows(a[1] if len(a) > 1 else kw["new_vectors"]))
 def extend(index: IvfPqIndex, new_vectors, new_ids=None, res: Resources | None = None,
            split_factor: float | None = None) -> IvfPqIndex:
     """Encode and append vectors (reference: ivf_pq::extend). Returns a new
     index on the index's device; ids default to ``index.size + arange``. A
-    byte index takes vectors of its original dtype only."""
+    byte index takes vectors of its original dtype only.
+
+    A chunked reader, or a host ndarray past ivf_flat's
+    ``chunked.STREAM_EXTEND_BYTES``, streams: assign, encode and fill run over
+    staged chunks, with the result of the in-core extend."""
+    new_vectors = chunked.maybe_reader(new_vectors)
     if is_reader(new_vectors):
-        _not_ported("a chunked-reader batch (the streamed extend)")
+        if index.data_kind in ("int8", "uint8"):
+            expects(str(np.dtype(new_vectors.dtype)) == index.data_kind,
+                    "this index stores %s vectors; got %s", index.data_kind,
+                    new_vectors.dtype)
+        return _extend_rows(index, new_vectors, new_ids, res=res, split_factor=split_factor,
+                            ingest=stream_ingest(index.data_kind, torch.float32))
     x = torch.as_tensor(new_vectors)
     if index.data_kind in ("int8", "uint8"):
         expects(_dtype_name(x) == index.data_kind, "this index stores %s vectors; got %s",
                 index.data_kind, _dtype_name(x))
         x = _as_signed(x)
-    return _extend_f32(index, x.to(device=index.device, dtype=torch.float32), new_ids,
-                       res=res, split_factor=split_factor)
+    return _extend_rows(index, x.to(device=index.device, dtype=torch.float32), new_ids,
+                        res=res, split_factor=split_factor)
 
 
-def _extend_f32(index: IvfPqIndex, x, new_ids=None, res: Resources | None = None,
-                split_factor: float | None = None) -> IvfPqIndex:
-    """extend() for float32 vectors in the index's working domain, already
-    on its device."""
+def _fill_code_rows(bufs, offsets, codes, ids, labels, consts=None, sig=None):
+    """Scatter one tile's codes, ids (and split L2 constants, and fast-scan
+    signatures) into the padded lists at each list's running fill level
+    (``offsets``, updated in place), so tiles scattered in order give the
+    layout one scatter of all rows gives."""
+    buf, idbuf, cbuf, sbuf = bufs
+    pos, counts = list_positions(labels, offsets.shape[0])
+    lab = labels.to(torch.int64)
+    pos = pos.to(torch.int64) + offsets[lab].to(torch.int64)
+    buf[lab, pos] = codes
+    idbuf[lab, pos] = ids.to(torch.int32)
+    if consts is not None:
+        cbuf[lab, pos] = consts
+    if sig is not None:
+        sbuf[lab, pos] = sig
+    offsets += counts
+
+
+def _extend_rows(index: IvfPqIndex, src, new_ids=None, res: Resources | None = None,
+                 split_factor: float | None = None, ingest=None,
+                 priced: bool = False) -> IvfPqIndex:
+    """extend() over float32 rows in the index's working domain: a tensor on
+    its device, or a chunked reader whose staged chunks ``ingest``
+    converts.
+
+    Two passes over :func:`~raft_tpu_torch.core.chunked.row_tiles`: assign,
+    then the residual, encode and fill of each tile against the per-list
+    arrays repeated over the split lists (bitwise the parent's values), the
+    same code in both modes, so a streamed extend equals the in-core one
+    bit for bit. ``priced`` (a build's fill, which ``obs.mem.plan()``
+    prices) splits oversized lists at ``_list_utils.priced_capacity``."""
     res = res or default_resources()
     _check_split_consts(index)
-    expects(x.ndim == 2 and x.shape[1] == index.dim, "vector dim mismatch")
+    stream = is_reader(src)
+    expects(src.ndim == 2 and int(src.shape[1]) == index.dim, "vector dim mismatch")
     dev = index.device
-    n_new = x.shape[0]
+    n_new, d = (int(s) for s in src.shape)
     if new_ids is None:
         new_ids = index.size + torch.arange(n_new, dtype=torch.int32, device=dev)
     else:
         new_ids = torch.as_tensor(new_ids).to(device=dev, dtype=torch.int32)
         expects(new_ids.shape == (n_new,), "ids/vectors length mismatch")
-
-    tile = _choose_tile(n_new, index.n_lists, 1, res.workspace_bytes)
-    labels = assign_to_lists(x, index.centers, index.metric, tile)
-    lab = labels.to(torch.int64)
-    with full_f32():
-        resid = (x - index.centers[lab]) @ index.rotation.T
-    # signatures pack the raw rotated residual
-    sig = (_encode_sig(resid, index.sig_scales[lab], index.fast_scan)
-           if index.has_fast_scan else None)
-    resid = resid.reshape(n_new, index.pq_dim, index.pq_len)
-    if index.scale_normed:
-        resid = resid / index.list_scales[lab][:, None, None]
     per_cluster = index.codebook_kind == "per_cluster"
-    # split indexes encode against the composed 256-entry codebook, whose
-    # flat index is hi*16 + lo
-    enc_cb = _composed_codebooks(index.codebooks) if index.pq_split else index.codebooks
-    n_codes = enc_cb.shape[-2]
-    enc_tile = max(min(n_new, res.workspace_bytes // max(index.pq_dim * n_codes * 4, 1)), 8)
-    codes = _encode(resid, enc_cb, labels, per_cluster, min(enc_tile, 8192),
-                    _default_aniso_eta(index.rot_dim)
-                    if index.codebook_loss == "anisotropic" else 0.0)
-    del resid
-    consts = None
-    if index.pq_split and index.metric != DistanceType.InnerProduct:
-        consts = _pq_cross_consts(codes, index.codebooks, labels, per_cluster)
+    want_consts = index.pq_split and index.metric != DistanceType.InnerProduct
+    stager = (chunked.ChunkStager(src.chunk_rows, d, src.dtype, kind="ivf_pq", device=dev)
+              if stream else None)
+    try:
+        tile = fill_tile(n_new, index.n_lists, res.workspace_bytes)
+        labels = torch.cat([assign_to_lists(t, index.centers, index.metric, tile)
+                            for _, t in chunked.row_tiles(src, tile, stager=stager,
+                                                          ingest=ingest, kind="ivf_pq",
+                                                          stage="assign")])
+        n_old = 0
+        if index.capacity > 0 and index.size > 0:
+            old = index.list_ids.reshape(-1) >= 0
+            n_old = int(old.sum())
+            labels = torch.cat([torch.arange(index.n_lists, dtype=torch.int32, device=dev
+                                             ).repeat_interleave(index.capacity)[old], labels])
+
+        # the capacity policy: oversized lists split into sub-lists that
+        # share their parent's center, rotated center, per-cluster codebook,
+        # residual scale and signature scale, so the codes stay valid
+        sf = index.split_factor if split_factor is None else split_factor
+        labels, rep, n_lists, capacity, _ = bound_capacity(labels, index.n_lists, sf,
+                                                           priced=priced)
+        per_list = {"centers": index.centers, "centers_rot": index.centers_rot}
+        if per_cluster:
+            per_list["codebooks"] = index.codebooks
         if index.scale_normed:
-            # the stored cross term enters the score raw: s² folds in here
-            consts = consts * index.list_scales[lab] ** 2
+            per_list["list_scales"] = index.list_scales
+        if index.has_fast_scan:
+            per_list["sig_scales"] = index.sig_scales
+        if rep is not None:
+            reps = torch.from_numpy(rep).to(dev)
+            per_list = {k: a.repeat_interleave(reps, dim=0) for k, a in per_list.items()}
+        centers = per_list["centers"]
+        codebooks = per_list.get("codebooks", index.codebooks)
+        list_scales = per_list.get("list_scales", index.list_scales)
+        sig_scales = per_list.get("sig_scales", index.sig_scales)
 
-    if index.capacity > 0 and index.size > 0:
-        old = index.list_ids.reshape(-1) >= 0
-        old_labels = torch.arange(index.n_lists, dtype=torch.int32, device=dev
-                                  ).repeat_interleave(index.capacity)[old]
-        codes = torch.cat([index.list_codes.reshape(-1, index.pq_dim)[old], codes])
-        new_ids = torch.cat([index.list_ids.reshape(-1)[old], new_ids])
-        labels = torch.cat([old_labels, labels])
-        if consts is not None:
-            consts = torch.cat([index.list_consts.reshape(-1)[old], consts])
-        if sig is not None:
-            sig = torch.cat([index.list_sig.reshape(-1, sig.shape[1])[old], sig])
+        sig_w = index.list_sig.shape[2] if index.has_fast_scan else 0
+        bufs = (torch.zeros((n_lists, capacity, index.pq_dim), dtype=torch.uint8, device=dev),
+                torch.full((n_lists, capacity), -1, dtype=torch.int32, device=dev),
+                torch.zeros((n_lists, capacity if want_consts else 0), dtype=torch.float32,
+                            device=dev),
+                (torch.zeros((n_lists, capacity, sig_w), dtype=torch.uint8, device=dev)
+                 if index.has_fast_scan
+                 else torch.zeros((n_lists, 0, 0), dtype=torch.uint8, device=dev)))
+        offsets = torch.zeros((n_lists,), dtype=torch.int32, device=dev)
+        # the streamed build's device working set, which
+        # obs.mem.plan(streamed=True) prices
+        tok = (obs_mem.account("build/ooc", name="ivf_pq",
+                               device=[*bufs, offsets, labels, new_ids], owner=stager)
+               if stream else None)
+        if n_old:
+            old_sig = (index.list_sig.reshape(-1, sig_w)[old] if index.has_fast_scan
+                       else None)
+            _fill_code_rows(bufs, offsets, index.list_codes.reshape(-1, index.pq_dim)[old],
+                            index.list_ids.reshape(-1)[old], labels[:n_old],
+                            index.list_consts.reshape(-1)[old] if want_consts else None,
+                            old_sig)
 
-    # the capacity policy: oversized lists split into sub-lists that share
-    # their parent's center, rotated center, per-cluster codebook, residual
-    # scale and signature scale, so the codes stay valid
-    sf = index.split_factor if split_factor is None else split_factor
-    labels, rep, n_lists, capacity, _ = bound_capacity(labels, index.n_lists, sf)
-    per_list = {"centers": index.centers, "centers_rot": index.centers_rot}
-    if per_cluster:
-        per_list["codebooks"] = index.codebooks
-    if index.scale_normed:
-        per_list["list_scales"] = index.list_scales
-    if index.has_fast_scan:
-        per_list["sig_scales"] = index.sig_scales
-    if rep is not None:
-        reps = torch.from_numpy(rep).to(dev)
-        per_list = {name: a.repeat_interleave(reps, dim=0) for name, a in per_list.items()}
-    buf, idbuf, sizes, cbuf, sbuf = _fill_code_lists(codes, new_ids, labels, n_lists,
-                                                     capacity, consts, sig)
-    return dataclasses.replace(index, list_codes=buf, list_ids=idbuf, list_sizes=sizes,
+        # split indexes encode against the composed 256-entry codebook,
+        # whose flat index is hi*16 + lo
+        enc_cb = _composed_codebooks(codebooks) if index.pq_split else codebooks
+        n_codes = enc_cb.shape[-2]
+        enc_tile = min(max(min(n_new, res.workspace_bytes
+                               // max(index.pq_dim * n_codes * 4, 1)), 8), 8192)
+        aniso_eta = (_default_aniso_eta(index.rot_dim)
+                     if index.codebook_loss == "anisotropic" else 0.0)
+        for start, t in chunked.row_tiles(src, tile, stager=stager, ingest=ingest,
+                                          kind="ivf_pq", stage="fill"):
+            end = start + t.shape[0]
+            lab_t = labels[n_old + start:n_old + end]
+            lab = lab_t.to(torch.int64)
+            with full_f32():
+                resid = (t - centers[lab]) @ index.rotation.T
+            # signatures pack the raw rotated residual
+            sig = (_encode_sig(resid, sig_scales[lab], index.fast_scan)
+                   if index.has_fast_scan else None)
+            resid = resid.reshape(-1, index.pq_dim, index.pq_len)
+            if index.scale_normed:
+                resid = resid / list_scales[lab][:, None, None]
+            codes = _encode(resid, enc_cb, lab_t, per_cluster, enc_tile, aniso_eta)
+            consts = None
+            if want_consts:
+                consts = _pq_cross_consts(codes, codebooks, lab_t, per_cluster)
+                if index.scale_normed:
+                    # the stored cross term enters the score raw: s² folds in
+                    consts = consts * list_scales[lab] ** 2
+            _fill_code_rows(bufs, offsets, codes, new_ids[start:end], lab_t, consts, sig)
+        obs_mem.release(tok)
+    finally:
+        if stager is not None:
+            stager.release()
+    buf, idbuf, cbuf, sbuf = bufs
+    return dataclasses.replace(index, list_codes=buf, list_ids=idbuf, list_sizes=offsets,
                                list_consts=cbuf, list_sig=sbuf, split_factor=sf, **per_list)
 
 
@@ -1276,6 +1367,12 @@ def _pq_search_grouped(index: IvfPqIndex, queries, n_probes: int, k: int, lut_dt
     return _finish(index, dists, idx, lambda d: ~torch.isfinite(d))
 
 
+@instrument(
+    "ivf_pq.search",
+    items=lambda a, kw: nrows(a[2] if len(a) > 2 else kw["queries"]),
+    labels=lambda a, kw: {"k": a[3] if len(a) > 3 else kw["k"],
+                          "n_probes": (a[0] if a else kw["params"]).n_probes},
+)
 def search(params: SearchParams, index: IvfPqIndex, queries, k: int,
            sample_filter=None, res: Resources | None = None):
     """Search (reference: ivf_pq::search :723, the filtered overload

@@ -13,12 +13,15 @@ Counterpart of raft_tpu/obs, holding what is ported:
 - :mod:`.mem` — the memory ledger, its retirement audit and the
   ``Resources.memory_budget_bytes`` admission gate.
 - :mod:`.events` — the process-wide operations event journal.
+- :mod:`.build` — the ``raft_tpu_build_*`` metrics of the streamed builds.
+- :mod:`.instrument` — the entry-point decorator: per-call latency, items
+  and build seconds.
 
-Not yet ported: ``instrument`` (the entry-point decorator), ``quality``,
-``slo``, ``build`` and ``http`` (which needs ``net/``). Trace annotation
+Not yet ported: ``quality``, ``slo`` and ``http`` (which needs ``net/``). Trace annotation
 lives in :mod:`raft_tpu_torch.core.tracing`.
 """
 
+from . import build
 from . import compile  # noqa: A004 - submodule named like the builtin
 from . import dispatch
 from . import events
@@ -27,6 +30,7 @@ from . import metrics
 from . import requestlog
 from .compile import CompileRecord, attribution
 from .events import EventJournal
+from .instrument import instrument
 from .metrics import (DEFAULT_BUCKETS, RATIO_BUCKETS, Registry, counter,
                       delta, disable, enable, enabled, gauge, histogram,
                       quantile, reset, snapshot, to_json, to_prometheus)
@@ -37,5 +41,5 @@ __all__ = [
     "Registry", "DEFAULT_BUCKETS", "RATIO_BUCKETS", "counter", "gauge",
     "histogram", "snapshot", "to_prometheus", "to_json", "delta", "quantile",
     "reset", "enable", "disable", "enabled", "requestlog", "mem",
-    "RequestLog", "events", "EventJournal",
+    "RequestLog", "events", "EventJournal", "build", "instrument",
 ]

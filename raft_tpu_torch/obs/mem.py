@@ -34,15 +34,18 @@ over the port's tensors. Three pieces:
   — an ``OverloadedError``, whole-or-nothing like every other admission
   refusal: the gate runs before any state lands.
 
-The builds gate too: brute force on its upload's bytes; IVF-Flat, IVF-PQ
-and CAGRA on :func:`plan`'s index bytes, asked for only when a budget is
-armed.
+- **The footprint estimator**. :func:`plan` predicts the index bytes and
+  a build peak for each index kind, in-core or streamed
+  (``core/chunked.py``), from the same sizing rules the builds use; it
+  returns the JAX package's numbers for the same arguments. The builds
+  gate on it before they spend anything: brute force on its upload's
+  bytes, IVF-Flat, IVF-PQ and CAGRA on the planned index bytes, every
+  streamed build on the planned build peak against the device budget and
+  the planned host peak against ``Resources.host_budget_bytes``.
 
-Not yet ported (each raises ``RaftError("not yet ported")``): the footprint
-estimator :func:`plan` (so an armed budget refuses the IVF and CAGRA builds
-until it lands) and :func:`gate_host`, which wait for ``core/chunked.py``;
-:func:`headroom` counts no tiered mirrors (``stream/tiered.py`` is not
-ported).
+Not yet ported (each raises ``RaftError("not yet ported")``): ``plan(tier=)``
+with a ``TierPolicy``, the gate's pressure relief and :func:`headroom`'s
+tiered mirrors, which wait for ``stream/tiered.py``.
 
 ``obs.disable()`` reduces every ledger touch point to a single module-flag
 check (``account`` returns ``None`` and every entry point no-ops on
@@ -533,27 +536,181 @@ def note_workspace(op: str, nbytes: int) -> None:
 
 # -- footprint estimator -----------------------------------------------------
 
-def plan(kind: str, params=None, rows: int = 0, dim: int = 0, **kw) -> dict:
-    """The footprint estimator of raft_tpu/obs/mem.py:552; not yet ported
-    (it waits for ``core/chunked.py`` and the streamed builds)."""
-    _not_ported("obs.mem.plan()")
+_DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1, "uint8": 1}
+
+
+def _ivf_capacity(rows: int, n_lists: int, split_factor: float) -> int:
+    """The build's list-capacity bound, ``_list_utils.list_cap_target``,
+    the expression ``bound_capacity`` caps with (so a policy change moves
+    the estimate too). On clustered data the cap binds, which makes it the
+    estimate and not only the bound; near-uniform lists can come in below."""
+    from ..neighbors._list_utils import list_cap_target
+
+    return list_cap_target(rows, n_lists, split_factor)
+
+
+def plan(kind: str, params=None, rows: int = 0, dim: int = 0, *,
+         dtype: str = "float32", storage: str = "hbm", tier=None,
+         streamed: bool = False, chunk_rows: int | None = None) -> dict:
+    """Predict the long-lived device bytes and a coarse build peak of an
+    index of ``kind`` over ``(rows, dim)`` data (raft_tpu/obs/mem.py:552,
+    whose numbers it returns for the same arguments). ``params`` is the
+    kind's ``IndexParams`` (``None`` for the defaults; brute force takes
+    none). ``index_bytes`` is within ±20% of a build's tensor bytes at 100k
+    rows: the dominant arrays are exact, the slack is IVF list padding.
+
+    ``storage="tiered"`` adds the retained raw-row store (rows x dim x B)
+    a ``MutableIndex(storage="tiered")`` keeps cold, on the host (``tier``,
+    a ``TierPolicy`` that could put it on disk, waits for
+    ``stream/tiered.py``); the device figure is unchanged.
+
+    ``streamed=True`` prices the out-of-core build (a
+    :class:`~raft_tpu_torch.core.chunked.ChunkedReader`, ``chunk_rows`` a
+    chunk, default ``DEFAULT_CHUNK_ROWS``): the whole-corpus float32
+    working copy is replaced by two staged chunks and, for the IVF kinds,
+    the label and id vectors of the chunked scatter (8 B a row).
+    ``host_peak_bytes`` turns nonzero: the stager's two host buffers plus,
+    for the IVF kinds, the trainset gathered off the reader, which the
+    ``site="build_stream"`` gate prices against
+    ``Resources.host_budget_bytes``.
+
+    Returns ``{"kind", "rows", "dim", "index_bytes", "build_peak_bytes",
+    "host_peak_bytes", "breakdown": {array: bytes}, "tiers": {"device",
+    "host", "disk"}}``."""
+    from ..core.errors import expects
+
+    if tier is not None:
+        _not_ported("obs.mem.plan(tier=) (a TierPolicy, stream/tiered.py)")
+    rows, dim = int(rows), int(dim)
+    expects(rows > 0 and dim > 0, "plan() needs rows > 0 and dim > 0")
+    item = _DTYPE_BYTES.get(str(dtype))
+    expects(item is not None, "unknown dtype %r", dtype)
+    bk: dict[str, int] = {}
+    f32_copy = rows * dim * 4  # the build's working copy / ingest view
+    train_rows = 0  # coarse-trainer subsample (IVF kinds; streamed host term)
+
+    if kind == "brute_force":
+        bk["dataset"] = rows * dim * item
+        build_peak = bk["dataset"] + (f32_copy if item != 4 else 0)
+    elif kind == "ivf_flat":
+        from ..neighbors import ivf_flat
+
+        p = params or ivf_flat.IndexParams()
+        n_lists = min(int(p.n_lists), rows)
+        # list_dtype "auto" stores bytes natively and float32 otherwise
+        store = item if p.list_dtype == "auto" else _DTYPE_BYTES.get(p.list_dtype, 4)
+        cap = _ivf_capacity(rows, n_lists, p.split_factor)
+        bk["centers"] = n_lists * dim * 4
+        bk["list_data"] = n_lists * cap * dim * store
+        bk["list_ids"] = n_lists * cap * 4
+        bk["list_norms"] = n_lists * cap * 4
+        bk["list_sizes"] = n_lists * 4
+        train_rows = min(max(int(rows * p.kmeans_trainset_fraction), n_lists), rows)
+        build_peak = sum(bk.values()) + f32_copy
+    elif kind == "ivf_pq":
+        from ..distance.types import DistanceType, resolve_metric
+        from ..neighbors import ivf_pq
+
+        p = params or ivf_pq.IndexParams()
+        n_lists = min(int(p.n_lists), rows)
+        pq_dim = p.pq_dim or ivf_pq._default_pq_dim(dim, p.pq_bits)
+        pq_len = -(-dim // pq_dim)
+        d_rot = pq_dim * pq_len
+        # the build's pq8_split rule: split 8-bit codebooks are two
+        # 16-entry stages (32 rows), and L2 split indexes carry a per-slot
+        # cross-term constant
+        ip = resolve_metric(p.metric) == DistanceType.InnerProduct
+        split = p.pq_bits == 8 and (p.pq8_split if p.pq8_split is not None else not ip)
+        n_codes = 32 if split else 1 << p.pq_bits
+        cap = _ivf_capacity(rows, n_lists, p.split_factor)
+        bk["centers"] = n_lists * dim * 4
+        bk["centers_rot"] = n_lists * d_rot * 4
+        bk["rotation"] = d_rot * dim * 4
+        if p.codebook_kind == "per_cluster":
+            bk["codebooks"] = n_lists * n_codes * pq_len * 4
+        else:  # per_subspace, and the "auto" default's common outcome
+            bk["codebooks"] = pq_dim * n_codes * pq_len * 4
+        bk["list_codes"] = n_lists * cap * pq_dim
+        bk["list_ids"] = n_lists * cap * 4
+        bk["list_sizes"] = n_lists * 4
+        if split and not ip:
+            bk["list_consts"] = n_lists * cap * 4
+        if getattr(p, "residual_scale_norm", False):
+            bk["list_scales"] = n_lists * 4
+        # the fast-scan tier: packed signatures beside the codes plus the
+        # per-list decode scales
+        fast_scan = getattr(p, "fast_scan", "none")
+        if fast_scan != "none":
+            bk["list_sig"] = n_lists * cap * ivf_pq._sig_words(d_rot, fast_scan)
+            bk["sig_scales"] = n_lists * 4
+        # build peak: the float32 working copy and the rotated-residual
+        # trainset dominate the transients
+        train_rows = min(max(int(rows * p.kmeans_trainset_fraction), n_lists), rows)
+        build_peak = sum(bk.values()) + f32_copy + train_rows * d_rot * 4
+    elif kind == "cagra":
+        from ..neighbors import cagra, ivf_pq
+
+        p = params or cagra.IndexParams()
+        bk["dataset"] = rows * dim * item
+        bk["graph"] = rows * int(p.graph_degree) * 4
+        # build peak: the knn graph's IVF-PQ index and the intermediate
+        # graph (ids and distances at the refine width)
+        _, gpu_top_k, n_lists, pq_bits = cagra.knn_build_plan(p, rows, dim)
+        pq_plan = plan("ivf_pq", ivf_pq.IndexParams(n_lists=n_lists, pq_bits=pq_bits),
+                       rows, dim)
+        build_peak = (sum(bk.values()) + f32_copy + pq_plan["index_bytes"]
+                      + rows * gpu_top_k * 8)
+    else:
+        raise RaftError(
+            f"plan(): unknown index kind {kind!r} (expected brute_force, "
+            "ivf_flat, ivf_pq or cagra)")
+    expects(storage in ("hbm", "tiered"),
+            "plan() storage must be 'hbm' or 'tiered', got %r", storage)
+    host_peak = 0
+    if streamed:
+        from ..core.chunked import DEFAULT_CHUNK_ROWS
+
+        cr = min(int(chunk_rows or DEFAULT_CHUNK_ROWS), rows)
+        expects(cr >= 1, "plan() chunk_rows must be >= 1")
+        # staged chunks land at 4 B an element at most; two are in flight
+        staged_dev = 2 * cr * dim * min(item, 4)
+        host_peak = 2 * cr * dim * item
+        if kind in ("ivf_flat", "ivf_pq"):
+            # the tiled passes remove the whole-corpus working copy; the
+            # scatter keeps the label and id vectors (int32 each)
+            build_peak = build_peak - f32_copy + staged_dev + rows * 8
+            # the trainset gathered off the reader lands in host memory
+            host_peak += train_rows * dim * item
+        else:
+            # brute force and CAGRA store the dataset: streaming removes
+            # the host-side whole-corpus copy, not a device term
+            build_peak += staged_dev
+    tiers = {"device": int(sum(bk.values())), "host": 0, "disk": 0}
+    if storage == "tiered":
+        raw = rows * dim * item
+        tiers["host"] = raw
+        bk["tier_host_rows"] = raw
+    return {"kind": kind, "rows": rows, "dim": dim, "index_bytes": tiers["device"],
+            "build_peak_bytes": int(build_peak), "host_peak_bytes": int(host_peak),
+            "breakdown": bk, "tiers": tiers}
 
 
 # -- budget gate -------------------------------------------------------------
 
-def gate(res, need_bytes, *, site: str, detail: str = "") -> None:
-    """Admission check against ``res.memory_budget_bytes``: refuse when the
-    ledger's accounted device bytes plus the projected growth would exceed
-    the armed budget. The budget defaults ``None`` = a single attribute
-    check — the gate costs nothing unless armed. ``need_bytes`` may be a
-    callable (evaluated only when armed). Raises
+def gate(res, need_bytes, *, site: str, detail: str = "", host_bytes=0) -> None:
+    """Admission check against ``res.memory_budget_bytes`` (device) and
+    ``res.host_budget_bytes`` (host): refuse when the ledger's accounted
+    bytes plus the projected growth would exceed the armed budget. Both
+    budgets default ``None``, and then the gate is an attribute check.
+    ``need_bytes`` / ``host_bytes`` may be callables (evaluated only when
+    armed: :func:`plan` is not free). Raises
     :class:`raft_tpu_torch.serve.errors.MemoryBudgetError` BEFORE the caller
     touches any state (whole-or-nothing; the error carries ``site`` /
-    ``budget_bytes`` / ``accounted_bytes`` / ``need_bytes``). An overage is
-    journalled as ``mem_pressure`` and the refusal as ``budget_refusal``,
-    as in the JAX module; the port has no pressure relief to consult
-    between them (the tiered stores' spills wait for
-    ``stream/tiered.py``), nor a host budget (``gate_host``).
+    ``budget_bytes`` / ``accounted_bytes`` / ``need_bytes``; a host refusal
+    names ``site + "/host"``). A device overage is journalled as
+    ``mem_pressure`` and the refusal as ``budget_refusal``, as in the JAX
+    module; the port has no pressure relief to consult between them (the
+    tiered stores' spills wait for ``stream/tiered.py``).
 
     An armed budget REQUIRES observability: under ``obs.disable()`` the
     ledger stops accounting, so every gate would compare against a frozen
@@ -561,42 +718,77 @@ def gate(res, need_bytes, *, site: str, detail: str = "") -> None:
     That is a configuration error and fails loudly here rather than
     enforcing a budget that does not hold."""
     budget = getattr(res, "memory_budget_bytes", None)
-    if budget is None:
+    host_budget = getattr(res, "host_budget_bytes", None)
+    if budget is None and host_budget is None:
         return
     if not metrics._enabled:
         raise RaftError(
-            f"memory_budget_bytes is set but observability is disabled: the "
-            f"ledger the budget gates against does not account under "
-            f"obs.disable(), so enforcement at {site!r} would be silently "
-            "void — obs.enable() or unset the budget")
-    need = int(need_bytes() if callable(need_bytes) else need_bytes)
-    used = _ledger.totals()["device_bytes"]
-    if used + need <= int(budget):
-        return
+            f"memory_budget_bytes/host_budget_bytes is set but observability is "
+            f"disabled: the ledger the budget gates against does not account under "
+            f"obs.disable(), so enforcement at {site!r} would be silently void — "
+            "obs.enable() or unset the budget")
     from ..serve.errors import MemoryBudgetError
 
-    obs_events.emit(
-        "mem_pressure", subject=("mem", site, None, None),
-        evidence={"site": site, "need_bytes": need, "accounted_bytes": used,
-                  "budget_bytes": int(budget),
-                  "overage_bytes": used + need - int(budget)})
-    obs_events.emit(
-        "budget_refusal", subject=("mem", site, None, None),
-        evidence={"site": site, "need_bytes": need, "accounted_bytes": used,
-                  "budget_bytes": int(budget)},
-        counter=_c_refusals, counter_labels={"site": site})
-    raise MemoryBudgetError(
-        f"memory budget exceeded at {site}: accounted {used} B + "
-        f"needed {need} B > budget {int(budget)} B"
-        + (f" ({detail})" if detail else ""),
-        site=site, budget_bytes=int(budget), accounted_bytes=used,
-        need_bytes=need)
+    if budget is not None:
+        need = int(need_bytes() if callable(need_bytes) else need_bytes)
+        used = _ledger.totals()["device_bytes"]
+        if used + need > int(budget):
+            obs_events.emit(
+                "mem_pressure", subject=("mem", site, None, None),
+                evidence={"site": site, "need_bytes": need, "accounted_bytes": used,
+                          "budget_bytes": int(budget),
+                          "overage_bytes": used + need - int(budget)})
+            obs_events.emit(
+                "budget_refusal", subject=("mem", site, None, None),
+                evidence={"site": site, "need_bytes": need, "accounted_bytes": used,
+                          "budget_bytes": int(budget)},
+                counter=_c_refusals, counter_labels={"site": site})
+            raise MemoryBudgetError(
+                f"memory budget exceeded at {site}: accounted {used} B + "
+                f"needed {need} B > budget {int(budget)} B"
+                + (f" ({detail})" if detail else ""),
+                site=site, budget_bytes=int(budget), accounted_bytes=used,
+                need_bytes=need)
+    if host_budget is not None:
+        need_h = int(host_bytes() if callable(host_bytes) else host_bytes)
+        used_h = _ledger.totals()["host_bytes"]
+        # zero host need always admits: every device-side caller comes here
+        # with host_bytes=0, and host growth the gate does not admit (delta
+        # memtables, bitsets) must not turn those into refusals. The device
+        # side refuses zero growth over budget; do not unify them.
+        if need_h and used_h + need_h > int(host_budget):
+            obs_events.emit(
+                "budget_refusal", subject=("mem", f"{site}/host", None, None),
+                evidence={"site": f"{site}/host", "need_bytes": need_h,
+                          "accounted_bytes": used_h, "budget_bytes": int(host_budget)},
+                counter=_c_refusals, counter_labels={"site": f"{site}/host"})
+            raise MemoryBudgetError(
+                f"host memory budget exceeded at {site}: accounted {used_h} B + "
+                f"needed {need_h} B > host budget {int(host_budget)} B"
+                + (f" ({detail})" if detail else ""),
+                site=f"{site}/host", budget_bytes=int(host_budget),
+                accounted_bytes=used_h, need_bytes=need_h)
 
 
 def gate_host(res, host_bytes, *, site: str, detail: str = "") -> None:
     """The host half of :func:`gate` alone (raft_tpu/obs/mem.py:861), for
-    the tiered store's cold rows; not yet ported (``stream/tiered.py``)."""
-    _not_ported("obs.mem.gate_host()")
+    admissions that add no device bytes. The device budget does not run
+    here: it refuses any growth while the ledger sits over budget, which
+    must not fail an operation that allocates no device memory."""
+    budget = getattr(res, "host_budget_bytes", None)
+    if budget is None:
+        return
+    if not metrics._enabled:
+        raise RaftError(
+            f"host_budget_bytes is set but observability is disabled: "
+            f"enforcement at {site!r} would be silently void — "
+            "obs.enable() or unset the budget")
+
+    class _HostOnly:
+        host_budget_bytes = int(budget)
+        memory_budget_bytes = None
+
+    gate(_HostOnly(), 0, site=site, detail=detail, host_bytes=host_bytes)
 
 
 def headroom(res=None) -> dict | None:

@@ -44,10 +44,14 @@ Files: :func:`save` / :func:`load` write and read the JAX package's
 ``stream`` section byte for byte, so a JAX-saved mutable index loads here
 and the port's file of the same state is the JAX file.
 
+A ``ChunkedReader`` ``dataset=`` keeps the reader's backing array (an
+``np.memmap`` stays disk-backed) as the row store, and
+``compact("rebuild", ooc_chunk_rows=)`` streams the rebuild through the
+out-of-core build.
+
 Not yet ported (each raises ``RaftError("not yet ported")``):
 ``storage="tiered"``, ``tier=`` and ``tier_residency=``
-(``stream/tiered.py``); a ``ChunkedReader`` ``dataset=`` and
-``compact(ooc_chunk_rows=)``, which wait for ``core/chunked.py``.
+(``stream/tiered.py``).
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core import chunked
 from ..core.errors import RaftError, expects, fail
 from ..core.resources import Resources, default_resources
 from ..distance.types import DistanceType, resolve_metric
@@ -524,14 +529,10 @@ class MutableIndex:
                  storage: str = "hbm", tier=None,
                  tier_residency: str | None = None,
                  clock: Callable[[], float] = time.monotonic):
-        from ..neighbors._list_utils import is_reader
-
         expects(storage in ("hbm", "tiered"),
                 "storage must be 'hbm' or 'tiered', got %r", storage)
         if storage == "tiered" or tier is not None or tier_residency is not None:
             _not_ported("storage='tiered' (tier=, tier_residency=; stream/tiered.py)")
-        if dataset is not None and is_reader(dataset):
-            _not_ported("a ChunkedReader dataset= (core/chunked.py)")
         kind, module = _resolve_kind(sealed)
         dev = (_sealed_device(kind, sealed) if device is None
                else torch.device(device))
@@ -592,7 +593,11 @@ class MutableIndex:
 
         store = None
         if dataset is not None:
-            store = _host(dataset)
+            # a chunked reader (the streamed build's corpus) gives its backing
+            # array: an np.memmap keeps the retained rows disk-backed, never
+            # copied into memory
+            store = (dataset.host_view() if chunked.is_reader(dataset)
+                     else _host(dataset))
             expects(store.shape == (n, d),
                     "dataset= must be the sealed rows (%d, %d), got %s",
                     n, d, tuple(store.shape))
@@ -1094,12 +1099,14 @@ class MutableIndex:
         every alive bit is re-read from the live state at the swap).
         Returns a report (mode, rows folded / reclaimed, wall seconds).
 
-        ``ooc_chunk_rows`` (the out-of-core rebuild) raises "not yet
-        ported": it waits for ``core/chunked.py``."""
+        ``ooc_chunk_rows`` (rebuild mode only) routes the fold through the
+        out-of-core build: the live rows reach the builder as a
+        :class:`~raft_tpu_torch.core.chunked.ChunkedReader` of that many
+        rows a chunk in place of one device tensor, so the rebuild's device
+        peak is the index plus two staged chunks. The result equals the
+        in-core fold's bit for bit."""
         expects(mode in ("auto", "extend", "rebuild"),
                 "mode must be 'auto', 'extend' or 'rebuild', got %r", mode)
-        if ooc_chunk_rows is not None:
-            _not_ported("compact(ooc_chunk_rows=) (core/chunked.py)")
         cfg = self._cfg
         res = _resolve_res(cfg, res)
         with self._compact_lock:
@@ -1108,6 +1115,9 @@ class MutableIndex:
                         else "rebuild")
             expects(mode == "rebuild" or cfg.kind in ("ivf_flat", "ivf_pq"),
                     "%s has no extend(); use mode='rebuild'", cfg.kind)
+            expects(ooc_chunk_rows is None or mode == "rebuild",
+                    "ooc_chunk_rows= streams the REBUILD fold; extend "
+                    "folds only the (small) delta — pass mode='rebuild'")
             t0 = time.perf_counter()
             with self._lock:
                 st = self._state
@@ -1143,7 +1153,12 @@ class MutableIndex:
                 new_id_map = np.concatenate([st.id_map[s_src], fold_gids])
                 new_store = live_rows
                 reclaimed = len(st.id_map) - len(s_src)
-                x = torch.from_numpy(np.ascontiguousarray(live_rows)).to(cfg.device)
+                if ooc_chunk_rows is not None:
+                    # the out-of-core fold: the builder streams the live
+                    # rows chunk by chunk (all four kinds take readers)
+                    x = chunked.ChunkedReader(live_rows, chunk_rows=int(ooc_chunk_rows))
+                else:
+                    x = torch.from_numpy(np.ascontiguousarray(live_rows)).to(cfg.device)
                 if self._builder is not None:
                     new_sealed = self._builder(x, res=res)
                     got_kind, _ = _resolve_kind(new_sealed)

@@ -2,17 +2,18 @@
 
 A chunked reader handed to a build, and an armed
 ``Resources.memory_budget_bytes``: the JAX package streams the reader in and
-gates every build before it spends anything. The port refuses a reader with
-``RaftError("not yet ported")`` in all four builds; brute force gates its
-upload on the same bytes as the JAX build and refuses with the same
-``MemoryBudgetError`` numbers; IVF-Flat, IVF-PQ and CAGRA price the index
-with ``obs.mem.plan()``, which is not yet ported, so an armed budget refuses
-them with ``RaftError("not yet ported")`` where the JAX builds raise
-``MemoryBudgetError``. An unarmed budget admits every build.
+gates every build before it spends anything, and so does the port. Each
+build streams a reader to its in-core result; brute force gates its upload
+on the same bytes as the JAX build, IVF-Flat, IVF-PQ and CAGRA the index
+``obs.mem.plan()`` prices, and each refuses with the JAX build's
+``MemoryBudgetError`` numbers. An unarmed budget admits every build.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from raft_tpu.core.chunked import ChunkedReader
 from raft_tpu.core.resources import Resources as JResources
@@ -50,19 +51,26 @@ JAX = _builds(jbf, jivf_flat, jivf_pq, jcagra)
 
 
 def test_brute_force_build_of_a_chunked_reader():
-    """100 x 8 float32, chunk_rows=32: the JAX build streams the reader in
-    whole; the port refuses it by name (it raised a bare TypeError)."""
+    """100 x 8 float32, chunk_rows=32: both builds stream the reader in
+    whole, to the same dataset."""
     x = _x(100, 8)
     got = jbf.BruteForce().build(ChunkedReader(x, chunk_rows=32), JResources())
     np.testing.assert_array_equal(np.asarray(got.dataset), x)
-    with pytest.raises(RaftError, match="not yet ported"):
-        brute_force.BruteForce().build(ChunkedReader(x, chunk_rows=32), CPU)
+    index = brute_force.BruteForce().build(ChunkedReader(x, chunk_rows=32), CPU)
+    np.testing.assert_array_equal(index.dataset.numpy(), x)
 
 
 @pytest.mark.parametrize("kind", ["ivf_flat", "ivf_pq", "cagra"])
-def test_other_builds_refuse_a_chunked_reader(kind):
-    with pytest.raises(RaftError, match="not yet ported"):
-        PORT[kind](ChunkedReader(_x(100, 8), chunk_rows=32), CPU)
+def test_other_builds_of_a_chunked_reader(kind):
+    """300 x 16 float32 in chunks of 64 (the JAX reader, duck-typed): the
+    streamed build equals the in-core build of the same rows, every field."""
+    x = _x(300, 16)
+    streamed = PORT[kind](ChunkedReader(x, chunk_rows=64), CPU)
+    incore = PORT[kind](x, CPU)
+    for f in dataclasses.fields(incore):
+        a, b = getattr(streamed, f.name), getattr(incore, f.name)
+        if isinstance(a, torch.Tensor):
+            assert a.shape == b.shape and torch.equal(a, b), f.name
 
 
 def test_armed_budget_refuses_brute_force_build_as_jax_does():
@@ -106,16 +114,18 @@ def test_brute_force_budget_prices_the_stored_bytes(dtype):
 
 @pytest.mark.parametrize("kind", ["ivf_flat", "ivf_pq", "cagra"])
 def test_armed_budget_refuses_the_other_builds(kind):
-    """The JAX builds price the index by obs.mem.plan() and refuse;
-    the port's plan() is not yet ported, so an armed budget refuses by
-    name instead of admitting silently."""
+    """The builds price the index by obs.mem.plan() and refuse at site
+    "build" with the JAX build's numbers, before they spend anything."""
     x = _x(2000, 16)
     with pytest.raises(JMemoryBudgetError) as jexc:
         JAX[kind](x, JResources(memory_budget_bytes=1000))
-    assert jexc.value.site == "build" and jexc.value.need_bytes > 1000
-    with pytest.raises(RaftError, match="not yet ported") as exc:
+    with pytest.raises(MemoryBudgetError) as exc:
         PORT[kind](x, Resources(device="cpu", memory_budget_bytes=1000))
-    assert not isinstance(exc.value, MemoryBudgetError)
+    got, want = exc.value, jexc.value
+    assert (got.site, got.need_bytes, got.budget_bytes) == \
+        (want.site, want.need_bytes, want.budget_bytes)
+    assert got.site == "build" and got.need_bytes > 1000
+    assert f"needed {got.need_bytes} B > budget 1000 B ({kind} 2000x16)" in str(got)
 
 
 def test_armed_budget_without_observability_raises():

@@ -25,6 +25,7 @@ from raft_tpu.core import serialize as jser
 from raft_tpu.neighbors import cagra as jc
 from raft_tpu.random.rng import as_key
 from raft_tpu_torch.core import RaftError, Resources
+from raft_tpu_torch.core.chunked import ChunkedReader
 from raft_tpu_torch.core.serialize import _READ_COMPATIBLE
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors import cagra as tc
@@ -398,15 +399,13 @@ def test_hop_impl_resolution_and_guard(data, port_built):
 def test_not_yet_ported_and_contract_errors(data):
     x, _, _ = data
 
-    class Reader:
-        chunks = take = None
-        chunk_rows = 1024
-
     params = tc.IndexParams(intermediate_graph_degree=16, graph_degree=8)
-    # byte datasets build (tests/test_torch_cagra_bytes.py); the streamed
-    # build waits for core/chunked.py
-    with pytest.raises(RaftError, match="not yet ported"):
-        tc.build(params, Reader(), res=CPU)
+    # byte datasets build (tests/test_torch_cagra_bytes.py); a chunked
+    # reader streams to the in-core build of its rows
+    streamed = tc.build(params, ChunkedReader(x[:600], chunk_rows=250), res=CPU)
+    incore = tc.build(params, x[:600], res=CPU)
+    assert torch.equal(streamed.dataset, incore.dataset)
+    assert torch.equal(streamed.graph, incore.graph)
     with pytest.raises(RaftError, match="L2"):
         tc.build(tc.IndexParams(metric="inner_product"), x, res=CPU)
     with pytest.raises(RaftError, match="graph_degree"):

@@ -23,7 +23,7 @@ import jax.numpy as jnp
 from raft_tpu.core.chunked import ChunkedReader
 from raft_tpu.core.resources import Resources as JResources
 from raft_tpu.neighbors import ivf_flat as jfl
-from raft_tpu_torch.core import RaftError, Resources
+from raft_tpu_torch.core import RaftError, Resources, chunked
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors import ivf_flat as tfl
 from raft_tpu_torch.neighbors.sample_filter import BitsetFilter
@@ -251,9 +251,10 @@ def test_streamed_extend_equals_in_memory_in_jax(data):
 
 def test_large_host_batch_splits_as_jax_streams(data, monkeypatch):
     """A severely oversized list: the JAX package's streamed extend (taken by
-    host batches past _STREAM_EXTEND_BYTES) splits it by input order, and so
-    does the port's extend of such a batch; here the threshold is lowered on
-    the port's side to reach that path at a small size."""
+    host batches past its threshold) splits it by input order, and so does
+    the port's extend of such a batch; here the port's threshold,
+    ``chunked.STREAM_EXTEND_BYTES``, is lowered to reach that path at a
+    small size."""
     x, _ = data["float"]
     rng = np.random.default_rng(9)
     base = jfl.build(jfl.IndexParams(n_lists=64, add_data_on_build=False), jnp.asarray(x))
@@ -262,7 +263,7 @@ def test_large_host_batch_splits_as_jax_streams(data, monkeypatch):
     j2 = jfl.extend(base, ChunkedReader(batch, chunk_rows=512))
     arrays = {a: np.asarray(getattr(base, a)) for a in tfl._STATE_ARRAYS}
     tbase = tfl.from_state(arrays, res=CPU, metric=int(base.metric))
-    monkeypatch.setattr(tfl, "_STREAM_EXTEND_BYTES", batch.nbytes - 1)
+    monkeypatch.setattr(chunked, "STREAM_EXTEND_BYTES", batch.nbytes - 1)
     t2 = tfl.extend(tbase, batch, res=CPU)
     assert t2.n_lists > 64
     for f in ("centers", "list_data", "list_ids", "list_sizes"):
@@ -281,11 +282,15 @@ def test_batched_searcher_and_guards(data, jax_files):
     td, ti = tfn(qu, 5)
     jd, ji = jfn(jnp.asarray(qu), 5)
     _compare(td, ti, jd, ji, exact=True)
-    # not yet ported: streamed builds and extends, the tuned searcher
-    with pytest.raises(RaftError, match="not yet ported"):
-        tfl.build(tfl.IndexParams(n_lists=4), ChunkedReader(xu), res=CPU)
-    with pytest.raises(RaftError, match="not yet ported"):
-        tfl.extend(tindex, ChunkedReader(xu[:10]), res=CPU)
+    # a chunked reader (duck-typed: the JAX one here) streams, to the
+    # in-core build and extend of its rows; the tuned searcher waits for tune/
+    p4 = tfl.IndexParams(n_lists=4)
+    for a, b in ((tfl.build(p4, ChunkedReader(xu, chunk_rows=300), res=CPU),
+                  tfl.build(p4, xu, res=CPU)),
+                 (tfl.extend(tindex, ChunkedReader(xu[:10], chunk_rows=4), res=CPU),
+                  tfl.extend(tindex, xu[:10], res=CPU))):
+        for f in tfl._STATE_ARRAYS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
     with pytest.raises(RaftError, match="not yet ported"):
         tfl.batched_searcher(dataclasses.replace(tindex, tuned={"n_probes": 3}))
     # contract errors

@@ -27,6 +27,7 @@ from raft_tpu.matrix.select_k import _select_k as j_select_k
 from raft_tpu.neighbors import ivf_pq as jpq
 from raft_tpu.neighbors.refine import refine as j_refine
 from raft_tpu_torch.core import RaftError, Resources
+from raft_tpu_torch.core.chunked import ChunkedReader
 from raft_tpu_torch.neighbors import ivf_pq as tpq
 from raft_tpu_torch.neighbors import refine as tref
 from raft_tpu_torch.ops.pq_scan import pq_scan
@@ -256,17 +257,17 @@ def test_extend_matches_jax(data, jax_files, name):
 def test_not_yet_ported_and_contract_errors(data, jax_files):
     x, q, _ = data
 
-    class Reader:
-        chunks = take = None
-        chunk_rows = 1024
-
-    # the streamed build and a tuned index's hook without params wait for
-    # core/chunked.py and tune/
-    with pytest.raises(RaftError, match="not yet ported"):
-        tpq.build(tpq.IndexParams(n_lists=8), Reader(), res=CPU)
+    # a chunked reader streams: the build and the extend equal the in-core
+    # ones over the same rows; a tuned index's hook without params waits
+    # for tune/
+    p8 = tpq.IndexParams(n_lists=8)
+    streamed = tpq.build(p8, ChunkedReader(x[:1000], chunk_rows=300), res=CPU)
+    incore = tpq.build(p8, x[:1000], res=CPU)
+    for f in ("centers", "rotation", "codebooks", "list_codes", "list_ids", "list_sizes"):
+        assert torch.equal(getattr(streamed, f), getattr(incore, f)), f
     index = tpq.load(jax_files["pq4"][1], res=CPU)
-    with pytest.raises(RaftError, match="not yet ported"):
-        tpq.extend(index, Reader())
+    assert torch.equal(tpq.extend(index, ChunkedReader(x[:300], chunk_rows=128)).list_codes,
+                       tpq.extend(index, x[:300]).list_codes)
     with pytest.raises(RaftError, match="not yet ported"):
         tpq.batched_searcher(dataclasses.replace(index, tuned={"n_probes": 4}))
     for kw, msg in ((dict(codebook_kind="per_tree"), "codebook_kind"),

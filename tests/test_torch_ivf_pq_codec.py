@@ -29,6 +29,7 @@ import jax.numpy as jnp
 
 from raft_tpu.neighbors import ivf_pq as jpq
 from raft_tpu_torch.core import RaftError, Resources
+from raft_tpu_torch.core.chunked import ChunkedReader
 from raft_tpu_torch.neighbors import ivf_pq as tpq
 
 CPU = Resources(device="cpu")
@@ -339,8 +340,9 @@ def test_contract_errors(built):
         tpq.build(tpq.IndexParams(n_lists=8, pq_bits=8, codebook_loss="anisotropic"),
                   x[:500], res=CPU)
 
-    class Reader:
-        chunks = take = None
-        chunk_rows = 1024
-    with pytest.raises(RaftError, match="not yet ported"):
-        tpq.build(tpq.IndexParams(n_lists=8), Reader(), res=CPU)
+    # a chunked reader streams, to the in-core build of its rows
+    p8 = tpq.IndexParams(n_lists=8, pq_bits=8, codebook_kind="per_cluster")
+    streamed = tpq.build(p8, ChunkedReader(x[:600], chunk_rows=250), res=CPU)
+    incore = tpq.build(p8, x[:600], res=CPU)
+    for f in ("codebooks", "list_codes", "list_consts", "list_ids"):
+        assert torch.equal(getattr(streamed, f), getattr(incore, f)), f

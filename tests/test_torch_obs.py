@@ -303,10 +303,18 @@ def test_mem_surfaces_on_the_cpu_and_not_ported(monkeypatch):
                          "headroom_frac", "spillable_bytes", "spillable_frac"}
     mem.note_workspace("pairwise", 1024)
     assert metrics.to_json()['raft_tpu_mem_workspace_bytes{op="pairwise"}'] == 1024
-    for fn in (lambda: mem.plan("ivf_pq", None, 1000, 16),
-               lambda: mem.gate_host(CPU, 1, site="x")):
-        with pytest.raises(RaftError, match="not yet ported"):
-            fn()
+    # plan() gives the JAX plan's numbers; gate_host admits unarmed and
+    # refuses as the JAX gate does armed; plan(tier=) waits for tiered stores
+    for kw in (dict(), dict(streamed=True, chunk_rows=256), dict(storage="tiered")):
+        assert mem.plan("ivf_pq", None, 1000, 16, **kw) == jmem.plan("ivf_pq", None, 1000, 16,
+                                                                     **kw)
+    mem.gate_host(CPU, 1, site="x")
+    used = mem.totals()["host_bytes"]
+    with pytest.raises(errors.MemoryBudgetError) as exc:
+        mem.gate_host(Resources(device="cpu", host_budget_bytes=used), 1, site="x")
+    assert (exc.value.site, exc.value.need_bytes) == ("x/host", 1)
+    with pytest.raises(RaftError, match="not yet ported"):
+        mem.plan("ivf_pq", None, 1000, 16, tier=object())
 
 
 # -- kernel builds and launch counters --------------------------------------------

@@ -733,11 +733,17 @@ def test_left_out_pieces_raise_not_yet_ported(data, sealed, tmp_path):
     _, _, load = sealed["ivf_flat"]
     ix = load(sealed["ivf_flat"][1], res=CPU)
     # a reader duck-typed as the chunked readers are (the JAX one here)
-    with pytest.raises(RaftError, match="not yet ported"):
-        stream.MutableIndex(ix, dataset=ChunkedReader(x, chunk_rows=100))
-    m = stream.MutableIndex(ix, dataset=x)
-    with pytest.raises(RaftError, match="not yet ported"):
-        m.compact("rebuild", ooc_chunk_rows=100)
+    # gives its backing array as the row store, and the out-of-core rebuild
+    # fold answers as the in-core one
+    reader = ChunkedReader(x, chunk_rows=100)
+    params = ivf_flat.IndexParams(n_lists=8, seed=1)
+    m = stream.MutableIndex(ix, dataset=reader, index_params=params, name="ooc_ported")
+    assert m._state.store is reader.host_view()
+    twin = stream.MutableIndex(ix, dataset=x, index_params=params, name="ooc_twin")
+    m.compact("rebuild", ooc_chunk_rows=100)
+    twin.compact("rebuild")
+    for f in ivf_flat._STATE_ARRAYS:
+        assert torch.equal(getattr(m._state.sealed, f), getattr(twin._state.sealed, f)), f
     with pytest.raises(RaftError, match="not yet ported"):
         stream.Compactor(m, drift=object())
     p = str(tmp_path / "m.stream")
