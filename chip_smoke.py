@@ -4,7 +4,7 @@ end to end.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --phases 01  # build and kernel checks only
-    python3 chip_smoke.py --phases 012456  # all but phase 3's timings
+    python3 chip_smoke.py --phases 0124567  # all but phase 3's timings
     python3 chip_smoke.py --out DIR    # where the profile tables go
                                        # (default build/profiles)
 
@@ -212,12 +212,50 @@ Phases, each printing JSON lines:
      build at ``build_stream`` / ``build_stream/host`` before any chunk
      stages. One ``ooc`` line a build: streamed and in-core seconds, chunks,
      staged bytes and GB/s over the uploads' device time, ledger and
-     allocator peaks, ``plan()``'s figures, launches per kernel.
+     allocator peaks, ``plan()``'s figures, launches per kernel;
+  7. beyond-HBM tiered storage (``stream/tiered.py``, after phase 6, on
+     phase 2's IVF-PQ index) and the quality observers, at two shapes. (a)
+     1M x 128 float32: phase 2's index (``ivf_pq_1m_lid_pq4x64_r4``,
+     refine_ratio 4, k=10) wrapped as ``MutableIndex(storage="hbm")`` and
+     ``storage="tiered"`` (host RAM, no budget, so cold): ``search_refined``
+     bit for bit on the 10k-query batch and a 64-row flush; 20 batches with
+     the slot ring's accounted device bytes constant, m x 40 x 512 B
+     uploaded a batch and one host sync (the slot read-back) a batch; a
+     refined flush's host syncs (``torch.cuda.set_sync_debug_mode``, each
+     printed with its site): the tiered flush reads its slot ids back once
+     and syncs no more than one time beyond the all-HBM one; ``exact_search``
+     of 1,000 queries through 123 oracle chunks of 8,192 rows (one
+     ``fused_knn`` launch on mode f32's batch route a chunk), ids and
+     distances bit for bit against the all-HBM scan; both twins served
+     through ``SearchService`` (phase 4's 8 threads x 400 one-row requests,
+     served rows equal to the direct search at their bucket's shape) with a
+     ``RecallCanary`` (every query sampled, drained through the chunked
+     oracle at buckets up to 256) whose Wilson interval must hold the
+     recall of the served ids against ``exact_search`` and an
+     ``SLOTracker`` that must not fail, and a forced failing SLO writing
+     one flight-recorder bundle; a spill under an armed
+     ``memory_budget_bytes`` (an upsert spills the promoted mirror instead
+     of being refused) and a promote back, answers bit for bit, no upload
+     while the mirror is resident. (b) BIGANN-10M's shape: 10M x 128 uint8
+     rows around 10,000 centers (clustered, from a seed) in a temporary
+     ``.npy`` file, IVF-PQ streamed through ``ChunkedReader``
+     (``n_lists=1024, pq_dim=64, pq_bits=4, kmeans_trainset_fraction=
+     0.02``), wrapped with ``MutableIndex(dataset=reader, storage=
+     "tiered")``, which adopts the memmap (residency "disk", 0 host bytes,
+     1.28 GB on the disk tier) while an armed device budget (the ledger's
+     bytes plus the slots) keeps the mirror off the card: ``search_refined``
+     of 10k queries bit for bit against an all-HBM twin, recall@10 (floor
+     0.5) against the chunked oracle (1,221 chunks, one s8 launch each,
+     equal to the all-HBM scan), and ``plan(storage="tiered",
+     tier=TierPolicy(disk_path=...))`` against the ledger within 20%. Each
+     prints QPS of both twins, the hit ratio, the host gather and fetch
+     walls, and one profiled batch (``tier_*_profile.txt``).
 
 The line before the last lists the kernels (``launches_stream``: phase 5's
 windows; ``launches_stream_folds``: the part of those that the compactions'
 folds made on the writer thread, CAGRA's rebuild graph build among them;
-``launches_ooc``: phase 6's builds and searches);
+``launches_ooc``: phase 6's builds and searches; ``launches_tier``: phase
+7's);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line; so does a machine without CUDA (exit 2),
@@ -4536,10 +4574,523 @@ def phase_ooc(st):
          seconds=time.perf_counter() - t_phase, card=st["card"])
 
 
+# -- phase 7: beyond-HBM tiered storage and the quality observers -----------------
+
+TIER_M_ORACLE = 1_000            # exact_search queries: the oracle's chunked walk
+TIER_FLUSH = 64                  # the refined flush whose host syncs are counted
+TIER_BATCHES = 20                # 10k-query batches over which the slot bytes hold
+TIER_HBM_BATCHES = 5
+TIER_CHUNK = 8_192               # TierPolicy's default oracle chunk
+BIG_N, BIG_CHUNK, BIG_CENTERS, BIG_SIGMA = 10_000_000, 262_144, 10_000, 12.0
+BIG_LO, BIG_HI = 86.0, 170.0     # centers uniform in [86, 170): 2x sigma of spread a dim
+BIG_PARAMS = dict(n_lists=1024, pq_dim=64, pq_bits=4, kmeans_trainset_fraction=0.02, seed=0)
+BIG_RECALL_FLOOR = 0.5           # recall@10 after refine against the chunked oracle
+TIER_PLAN_SLACK = 0.2            # plan()'s tiers against the ledger
+
+
+def count_syncs(fn):
+    """(fn's result, the host syncs torch.cuda.set_sync_debug_mode("warn")
+    reported while it ran, each as the ``file:line`` that made it)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+
+
+def tier_reset(st):
+    """Add the launches since the last reset to phase 7's total, then reset:
+    every launch of the phase counts once, whatever the per-step counts in
+    between."""
+    total = st.setdefault("launches_tier", {})
+    for kk, v in all_counts().items():
+        total[kk] = total.get(kk, 0) + v
+    reset_all_counts()
+
+
+def bit_equal(a, b):
+    import torch
+
+    return bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+
+
+def timed(fn, reps):
+    """Seconds a call of ``fn`` over ``reps`` synchronised calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def tier_serve(st, svc, name, hook, pool, truth_fn, log):
+    """Publish ``hook`` under ``name`` and serve phase 4's load (8 threads x
+    400 one-row requests); served rows are held against the hook's direct
+    search at their bucket's shape. Returns the line's numbers."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.obs import compile as obs_compile
+
+    svc.publish(name, hook, k=K_MAIN)
+    with obs_compile.attribution() as rec:
+        lats, results, failures, load_s, _ = serve_load(
+            svc, name, pool, SERVE_THREADS, SERVE_PER_THREAD, K_MAIN, SERVE_CHECK)
+    torch.cuda.synchronize()
+    n_req = SERVE_THREADS * SERVE_PER_THREAD
+    rows, ok, got_i = served_rows_equal(results, log, (hook,), pool, K_MAIN)
+    assert not failures, failures[:5]
+    assert rec.programs == 0 and rec.cache_misses == 0, rec.summary()
+    assert bool(ok.all()), f"{int((~ok).sum())} served rows of {name} differ"
+    lat = np.sort(np.array(lats)) * 1e3
+    return dict(qps=n_req / load_s, p50_ms=float(lat[len(lat) // 2]),
+                p99_ms=float(lat[int(len(lat) * 0.99) - 1]), requests=n_req,
+                checked_rows=len(rows), rows_equal_direct_search=int(ok.sum()),
+                recall_at_10=recall(got_i, truth_fn(rows)))
+
+
+def tier_quality(st, tiered, canary, sampled, tracker, log, tmp):
+    """The canary over the tiered index's chunked oracle, fed by the served
+    flushes; its Wilson interval must hold the recall of the sampled
+    queries' served ids measured against ``exact_search``; then a forced
+    failing SLO writes one flight-recorder bundle."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.obs import events, slo
+
+    t0 = time.perf_counter()
+    drained = canary.drain()
+    drain_s = time.perf_counter() - t0
+    est = canary.estimate()
+    # the recall of every sampled query's served ids against exact_search,
+    # measured apart from the canary (one batch: another route than the
+    # drains' buckets, the same answers up to ties)
+    qs = np.stack([row for row, _ in sampled])
+    ids = torch.from_numpy(np.stack([got for _, got in sampled])).cuda()
+    truth = tiered.exact_search(qs, K_MAIN)[1]
+    measured = recall(ids, truth)
+    status = tracker.status()
+    code, body = tracker.healthz()
+    # a forced failing verdict: one bundle, written by the armed recorder
+    rec_dir = os.path.join(tmp, "incidents")
+    events.arm_flight_recorder(rec_dir, request_log=log, min_interval_s=300.0)
+    forced = slo.SLOTracker(slo.SLOPolicy(failing_burn=5.0), name="tier_forced")
+    for _ in range(50):
+        forced.record_admission(False)
+    forced_status = forced.status()
+    bundles = sorted(os.listdir(rec_dir))
+    files = sorted(os.listdir(os.path.join(rec_dir, bundles[0]))) if bundles else []
+    events.disarm_flight_recorder()
+    line = dict(phase="tier_quality", canary=est, drained=drained, drain_seconds=drain_s,
+                measured_recall=measured, in_interval=canary.in_interval(measured),
+                slo_status=status, healthz_code=code,
+                slo_burn=body["objectives"], forced_status=forced_status,
+                flight_recorder_bundles=bundles, bundle_files=files, card=st["card"])
+    emit(**line)
+    assert drained == len(sampled) > 0 and est["reranked"] == drained, est
+    assert canary.in_interval(measured), (measured, est)
+    assert status != "failing" and code == 200, body
+    assert forced_status == "failing" and len(bundles) == 1, bundles
+    assert files == ["events.json", "mem.json", "meta.json", "metrics.json",
+                     "requests.json"], files
+
+
+def phase_tier_1m(st, tmp):
+    """Phase 7 (a): phase 2's 1M x 128 IVF-PQ index wrapped twice, all-HBM and
+    tiered (host RAM, no budget, so cold)."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import stream
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.obs import RequestLog, SLOPolicy, SLOTracker, mem, quality
+    from raft_tpu_torch.ops.fused_knn import fused_knn
+    from raft_tpu_torch.serve import SearchService
+
+    index, q = st["ivf"]
+    xh = st["ivf_x"].cpu().numpy()
+    sp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
+    hbm = stream.MutableIndex(index, search_params=sp, dataset=xh, name="tier_hbm")
+    tiered = stream.MutableIndex(index, search_params=sp, dataset=xh, storage="tiered",
+                                 name="tier_1m")
+    ts = tiered.tiered_store
+    assert ts.residency == "host" and not ts.mirror_resident
+    assert ts.tier_bytes() == {"device": 0, "host": xh.nbytes, "disk": 0}
+    r = 4
+    kr = K_MAIN * r
+
+    # ---- search_refined bit for bit: a 10k batch and a 64-row flush --------------
+    ha, ta = hbm.search_refined(q, K_MAIN, r), tiered.search_refined(q, K_MAIN, r)
+    hf, tf = (hbm.search_refined(q[:TIER_FLUSH], K_MAIN, r),
+              tiered.search_refined(q[:TIER_FLUSH], K_MAIN, r))
+    torch.cuda.synchronize()
+    refined_equal = bit_equal(ha, ta) and bit_equal(hf, tf)
+    ref_rec = recall(ta[1][:IVF_CHECK], st["ivf_truth"])
+
+    # ---- the slot ring: 20 batches, constant accounted bytes; H2D a batch --------
+    tiered.search_refined(q, K_MAIN, r)           # the ring's second slot
+    torch.cuda.synchronize()
+    ring0, dev0 = ts.tier_bytes()["device"], mem.totals()["device_bytes"]
+    s0 = ts.stats()
+    tier_reset(st)
+    tier_s = timed(lambda: tiered.search_refined(q, K_MAIN, r), TIER_BATCHES)
+    counts = all_counts()
+    s1 = ts.stats()
+    ring_const = (ts.tier_bytes()["device"] == ring0
+                  and mem.totals()["device_bytes"] == dev0)
+    h2d_batch = (s1["h2d_bytes"] - s0["h2d_bytes"]) / TIER_BATCHES
+    syncs_batch = (s1["host_syncs"] - s0["host_syncs"]) / TIER_BATCHES
+    fetch_ms = (s1["fetch_wall_s"] - s0["fetch_wall_s"]) / TIER_BATCHES * 1e3
+    gather_ms = (s1["gather_wall_s"] - s0["gather_wall_s"]) / TIER_BATCHES * 1e3
+    hbm.search_refined(q, K_MAIN, r)
+    hbm_s = timed(lambda: hbm.search_refined(q, K_MAIN, r), TIER_HBM_BATCHES)
+    prof = profile_batch(st, "MutableIndex.search_refined (tiered, cold)",
+                         "tier_refined_profile.txt",
+                         lambda: tiered.search_refined(q, K_MAIN, r))
+    prof_hbm = profile_batch(st, "MutableIndex.search_refined (all-HBM)",
+                             "tier_refined_hbm_profile.txt",
+                             lambda: hbm.search_refined(q, K_MAIN, r))
+
+    # ---- the host syncs of one refined flush ----------------------------------------
+    qd = q[:TIER_FLUSH].contiguous()
+    hooks = {"hbm": hbm.refined_searcher(r), "tiered": tiered.refined_searcher(r)}
+    syncs, sync_sites = {}, {}
+    for key, hook in hooks.items():
+        hook(qd, K_MAIN)
+        hook(qd, K_MAIN)
+        torch.cuda.synchronize()
+        c0 = ts.stats()["host_syncs"]
+        sync_sites[key] = count_syncs(lambda: hook(qd, K_MAIN))[1]
+        syncs[key] = len(sync_sites[key])
+        torch.cuda.synchronize()
+        if key == "tiered":
+            store_reads = ts.stats()["host_syncs"] - c0
+
+    # ---- the chunked oracle: 1,000 queries, 123 chunks ---------------------------------
+    qo = q[:TIER_M_ORACLE]
+    ho = hbm.exact_search(qo, K_MAIN)
+    tiered.exact_search(qo[:8], K_MAIN)           # the oracle ring's slots
+    torch.cuda.synchronize()
+    tier_reset(st)
+    t0 = time.perf_counter()
+    to = tiered.exact_search(qo, K_MAIN)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    oracle_counts = all_counts()
+    n_chunks = ts.n_oracle_chunks()
+    t0 = time.perf_counter()
+    hbm.exact_search(qo, K_MAIN)
+    torch.cuda.synchronize()
+    oracle_hbm_s = time.perf_counter() - t0
+    oracle_ids = bool(torch.equal(ho[1], to[1]))
+    oracle_dist = bool(torch.equal(ho[0], to[0]))
+    oracle_err = float((ho[0] - to[0]).abs().max())
+
+    line = dict(phase="tier", shape="1M x 128 f32 (phase 2's IVF-PQ, ivf_pq_1m_lid_pq4x64_r4)",
+                n=N_MAIN, d=D_MAIN, m=IVF_Q, k=K_MAIN, refine_ratio=r, kr=kr,
+                residency=ts.residency, refined_bit_equal=refined_equal,
+                recall_at_10=ref_rec,
+                qps_batch_tiered=IVF_Q / tier_s, qps_batch_hbm=IVF_Q / hbm_s,
+                seconds_per_batch_tiered=tier_s, seconds_per_batch_hbm=hbm_s,
+                h2d_bytes_per_batch=h2d_batch, h2d_expected=IVF_Q * kr * D_MAIN * 4,
+                host_syncs_per_batch=syncs_batch, fetch_wall_ms_per_batch=fetch_ms,
+                host_gather_ms_per_batch=gather_ms,
+                slot_ring_device_bytes=ring0, slot_ring_constant=ring_const,
+                batches=TIER_BATCHES, launches_per_batch={
+                    kk: v / TIER_BATCHES for kk, v in counts.items() if v},
+                flush_host_syncs=syncs, flush_sync_sites=sync_sites,
+                flush_slot_reads=store_reads,
+                device_busy_ms_tiered=prof["device_busy_ms"],
+                idle_share_tiered=prof["idle_share"],
+                device_busy_ms_hbm=prof_hbm["device_busy_ms"],
+                idle_share_hbm=prof_hbm["idle_share"],
+                oracle_m=TIER_M_ORACLE, oracle_chunks=n_chunks, oracle_seconds=oracle_s,
+                oracle_seconds_hbm=oracle_hbm_s, oracle_ids_equal=oracle_ids,
+                oracle_distances_bit_equal=oracle_dist, oracle_max_abs_diff=oracle_err,
+                oracle_launches={kk: v for kk, v in oracle_counts.items() if v},
+                stats=ts.stats(), card=st["card"])
+    emit(**line)
+    assert refined_equal, "tiered search_refined differs from the all-HBM twin"
+    assert ring_const, "the slot ring's accounted bytes moved over 20 batches"
+    assert h2d_batch == IVF_Q * kr * D_MAIN * 4, h2d_batch
+    assert syncs_batch == 1, syncs_batch
+    # the cold fetch reads the slot ids back once a flush and adds no other
+    # sync (where the all-HBM flush syncs, the read may stand in for it)
+    assert store_reads == 1 and syncs["tiered"] <= syncs["hbm"] + 1, sync_sites
+    assert counts["pq_scan_topk"] == TIER_BATCHES * -(-IVF_Q // 128), counts
+    assert n_chunks == -(-N_MAIN // TIER_CHUNK) == 123
+    # a 1,000-query chunk is mode f32's batch route: one launch a chunk
+    assert oracle_counts["fused_knn_tf32x3"] == n_chunks, oracle_counts
+    assert oracle_ids and oracle_dist, (oracle_ids, oracle_err)
+    assert fused_knn.launches_by_route["tf32x3"] >= n_chunks
+
+    # ---- served through SearchService with a RecallCanary and an SLOTracker ----------
+    pool = q.cpu().numpy()
+    log = RequestLog(capacity=8192)
+    tracker = SLOTracker(SLOPolicy(), name="tier_1m")
+    canary = quality.RecallCanary(quality.exact_oracle(tiered), k=K_MAIN, sample_rate=1.0,
+                                  reservoir=SERVE_THREADS * SERVE_PER_THREAD,
+                                  buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
+                                  name="tier_tiered", seed=0, slo=tracker)
+    svc = SearchService(max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US,
+                        max_queue_rows=4 * SERVE_MAX_BATCH * SERVE_THREADS,
+                        request_log=log, canary=canary, slo=tracker)
+    sampled = []
+    offer = canary.offer
+
+    def keep(queries, ids):
+        # every offered (query, served ids) pair (sample_rate 1.0: each is
+        # sampled), for the recall measured apart from the canary
+        sampled.extend(zip(np.array(queries), np.array(ids)))
+        return offer(queries, ids)
+
+    canary.offer = keep
+
+    def truth_fn(rows):
+        return st["ivf_truth"][torch.tensor(rows, device=st["ivf_truth"].device)]
+
+    h0 = ts.stats()
+    tier_reset(st)
+    serve = {"tiered": tier_serve(st, svc, "tier_tiered", hooks["tiered"], pool, truth_fn,
+                                  log),
+             "hbm": tier_serve(st, svc, "tier_hbm", hooks["hbm"], pool, truth_fn, log)}
+    serve_counts = {kk: v for kk, v in all_counts().items() if v}
+    h1 = ts.stats()
+    serve["tiered"].update(hit_ratio=h1["hit_ratio"],
+                           fetch_wall_ms=(h1["fetch_wall_s"] - h0["fetch_wall_s"]) * 1e3,
+                           h2d_bytes=h1["h2d_bytes"] - h0["h2d_bytes"])
+    emit(phase="tier_serve", shape="1M x 128 f32", per_twin=serve, launches=serve_counts,
+         card=st["card"])
+    tier_quality(st, tiered, canary, sampled, tracker, log, tmp)
+    svc.shutdown()
+
+    # ---- spill / promote under an armed budget -------------------------------------------
+    rows = np.asarray(st["ivf_x"][:16].cpu().numpy()) + 0.25
+    ids = np.arange(2_000_000, 2_000_016)
+    assert ts.promote(force=True) and ts.mirror_resident
+    torch.cuda.synchronize()
+    with_mirror = mem.totals()["device_bytes"]
+    tiered.upsert(rows, ids=ids, res=Resources(device="cuda", memory_budget_bytes=with_mirror + 1))
+    hbm.upsert(rows, ids=ids)
+    spilled = not ts.mirror_resident
+    after_spill = mem.totals()["device_bytes"]
+    cold_equal = bit_equal(hbm.search_refined(q, K_MAIN, r), tiered.search_refined(q, K_MAIN, r))
+    refused = not ts.promote(res=Resources(device="cuda", memory_budget_bytes=(
+        mem.totals()["device_bytes"] + ts.row_bytes // 2)))
+    promoted = ts.promote(res=Resources(device="cuda", memory_budget_bytes=(
+        mem.totals()["device_bytes"] + 2 * ts.row_bytes)))
+    s0 = ts.stats()
+    hot_s = timed(lambda: tiered.search_refined(q, K_MAIN, r), TIER_HBM_BATCHES)
+    hot_equal = bit_equal(hbm.search_refined(q, K_MAIN, r), tiered.search_refined(q, K_MAIN, r))
+    s1 = ts.stats()
+    events = [(e["event"], e["reason"]) for e in s1["events"]]
+    emit(phase="tier_residency", shape="1M x 128 f32", spilled_by_pressure=spilled,
+         device_bytes_with_mirror=with_mirror, device_bytes_after_spill=after_spill,
+         cold_equal=cold_equal, promote_refused_tight=refused, promoted=promoted,
+         qps_batch_promoted=IVF_Q / hot_s, hot_equal=hot_equal,
+         h2d_bytes_while_resident=s1["h2d_bytes"] - s0["h2d_bytes"],
+         hit_ratio=s1["hit_ratio"], events=events, spills=s1["spills"],
+         promotes=s1["promotes"], card=st["card"])
+    assert spilled and events[-2] == ("spill", "pressure"), events
+    assert after_spill <= with_mirror - ts.row_bytes + (1 << 24), (with_mirror, after_spill)
+    assert cold_equal and hot_equal and refused and promoted
+    assert s1["h2d_bytes"] == s0["h2d_bytes"]
+    ts.spill()
+    del hbm, tiered, ts, hooks
+    torch.cuda.synchronize()
+
+
+def big_corpus(path):
+    """BIGANN-10M's shape: 10M x 128 uint8 rows around BIG_CENTERS centers
+    (uniform in [BIG_LO, BIG_HI) a dimension, so the centers' spread is twice
+    the noise's, as in phase 2's blobs) with N(0, BIG_SIGMA^2) noise,
+    rounded and clipped into [0, 255], written to a ``.npy`` file from a
+    seed; and 10k queries of the same law. Returns the queries (uint8,
+    host)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(70)
+    centers = BIG_LO + (BIG_HI - BIG_LO) * torch.rand((BIG_CENTERS, D_MAIN), generator=g,
+                                                      device=dev)
+
+    def draw(n):
+        lab = torch.randint(0, BIG_CENTERS, (n,), generator=g, device=dev)
+        x = centers[lab] + BIG_SIGMA * torch.randn((n, D_MAIN), generator=g, device=dev)
+        return x.round().clamp(0, 255).to(torch.uint8)
+
+    mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.uint8, shape=(BIG_N, D_MAIN))
+    for s0 in range(0, BIG_N, 1_000_000):
+        mm[s0:s0 + 1_000_000] = draw(min(1_000_000, BIG_N - s0)).cpu().numpy()
+    mm.flush()
+    del mm
+    return draw(IVF_Q).cpu().numpy()
+
+
+def phase_tier_10m(st, tmp):
+    """Phase 7 (b): BIGANN-10M's shape streamed into IVF-PQ and wrapped
+    tiered over the reader's memmap (adopted: residency "disk", 0 host
+    bytes), an armed device budget keeping the mirror off the card."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import stream
+    from raft_tpu_torch.core import Resources, chunked, default_resources, set_default_resources
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.obs import mem
+    from raft_tpu_torch.stream import TierPolicy
+
+    res = Resources(device="cuda")
+    path = os.path.join(tmp, "bigann_shape.npy")
+    t0 = time.perf_counter()
+    qb = big_corpus(path)
+    gen_s = time.perf_counter() - t0
+    reader = chunked.ChunkedReader.from_file(path, chunk_rows=BIG_CHUNK)
+    params = ivf_pq.IndexParams(**BIG_PARAMS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = ivf_pq.build(params, reader, res=res)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
+    plan = mem.plan("ivf_pq", params, BIG_N, D_MAIN, dtype="uint8", storage="tiered",
+                    tier=TierPolicy(disk_path=os.path.join(tmp, "cold")))
+    index_bytes = sum(t.numel() * t.element_size() for t in (
+        index.centers, index.centers_rot, index.rotation, index.codebooks,
+        index.list_codes, index.list_ids, index.list_sizes, index.list_consts,
+        index.list_scales, index.list_sig, index.sig_scales) if t is not None)
+
+    # the budget: what the ledger holds now (this index included) plus the
+    # slots of a 10k refine batch and of the oracle, short of the mirror
+    slots = 2 * (IVF_Q * K_MAIN * 4 * D_MAIN + TIER_CHUNK * D_MAIN)
+    prev = default_resources()
+    budget = mem.totals()["device_bytes"] + mem.unaccounted_index_bytes(index) + slots
+    set_default_resources(Resources(device="cuda", memory_budget_bytes=budget))
+    try:
+        tiered = stream.MutableIndex(index, search_params=sp, dataset=reader,
+                                     storage="tiered", name="tier_10m")
+        ts = tiered.tiered_store
+        tb0 = ts.tier_bytes()
+        tier_entry = [e for e in mem.breakdown() if e["component"] == "tier"
+                      and e["name"] == "tier_10m"][0]
+        index_entry = [e for e in mem.breakdown() if e["component"] == "index/ivf_pq"
+                       and e["name"] == "tier_10m"][0]
+        adopted = ts.host_view() is reader.host_view()
+        hbm = stream.MutableIndex(index, search_params=sp, dataset=reader, name="tier_10m_hbm")
+        r = 4
+        ta = tiered.search_refined(qb, K_MAIN, r)
+        ha = hbm.search_refined(qb, K_MAIN, r)
+        torch.cuda.synchronize()
+        refined_equal = bit_equal(ha, ta)
+        s0 = ts.stats()
+        tier_reset(st)
+        tier_s = timed(lambda: tiered.search_refined(qb, K_MAIN, r), 3)
+        counts = all_counts()
+        s1 = ts.stats()
+        hbm_s = timed(lambda: hbm.search_refined(qb, K_MAIN, r), 3)
+        prof = profile_batch(st, "MutableIndex.search_refined (tiered 10M u8, disk tier)",
+                             "tier_10m_refined_profile.txt",
+                             lambda: tiered.search_refined(qb, K_MAIN, r))
+        mirror_kept_off = not ts.mirror_resident
+        # the chunked oracle over the 10M rows: recall@10 of the refined search
+        qo = qb[:TIER_M_ORACLE]
+        tiered.exact_search(qo[:8], K_MAIN)
+        torch.cuda.synchronize()
+        tier_reset(st)
+        t0 = time.perf_counter()
+        to = tiered.exact_search(qo, K_MAIN)
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t0
+        oracle_counts = all_counts()
+        ho = hbm.exact_search(qo, K_MAIN)
+        torch.cuda.synchronize()
+        rec = recall(ta[1][:TIER_M_ORACLE], to[1])
+        oracle_equal = bit_equal(ho, to)
+        stats = ts.stats()
+        still_off = not ts.mirror_resident
+    finally:
+        set_default_resources(prev)
+    ledger_index = index_entry["device_bytes"]
+    line = dict(phase="tier", shape="BIGANN-10M's shape, 10M x 128 uint8, clustered",
+                n=BIG_N, d=D_MAIN, centers=BIG_CENTERS, sigma=BIG_SIGMA, m=IVF_Q, k=K_MAIN,
+                refine_ratio=r, params=BIG_PARAMS, corpus_seconds=gen_s,
+                build_seconds_streamed=build_s, n_lists=index.n_lists,
+                capacity=index.capacity, index_bytes=index_bytes,
+                residency=stats["residency"], adopted_memmap=adopted, tier_bytes=tb0,
+                tier_ledger_host_bytes=tier_entry["host_bytes"],
+                tier_ledger_device_bytes=tier_entry["device_bytes"],
+                device_budget_bytes=budget, mirror_kept_off=mirror_kept_off and still_off,
+                plan_tiers=plan["tiers"], ledger_index_bytes=ledger_index,
+                plan_over_ledger=plan["tiers"]["device"] / ledger_index,
+                refined_bit_equal=refined_equal,
+                qps_batch_tiered=IVF_Q / tier_s, qps_batch_hbm=IVF_Q / hbm_s,
+                h2d_bytes_per_batch=(s1["h2d_bytes"] - s0["h2d_bytes"]) / 3,
+                fetch_wall_ms_per_batch=(s1["fetch_wall_s"] - s0["fetch_wall_s"]) / 3 * 1e3,
+                host_gather_ms_per_batch=(s1["gather_wall_s"] - s0["gather_wall_s"]) / 3 * 1e3,
+                launches_per_batch={kk: v / 3 for kk, v in counts.items() if v},
+                device_busy_ms_tiered=prof["device_busy_ms"],
+                idle_share_tiered=prof["idle_share"],
+                oracle_m=TIER_M_ORACLE, oracle_chunks=ts.n_oracle_chunks(),
+                oracle_seconds=oracle_s, oracle_equal_hbm=oracle_equal,
+                oracle_launches={kk: v for kk, v in oracle_counts.items() if v},
+                recall_at_10=rec, recall_floor=BIG_RECALL_FLOOR, stats=stats,
+                card=st["card"])
+    emit(**line)
+    assert adopted and stats["residency"] == "disk", stats
+    assert tb0 == {"device": 0, "host": 0, "disk": BIG_N * D_MAIN}, tb0
+    assert tier_entry["host_bytes"] == 0
+    assert mirror_kept_off and still_off
+    assert refined_equal, "10M tiered search_refined differs from the all-HBM twin"
+    assert ts.n_oracle_chunks() == -(-BIG_N // TIER_CHUNK) == 1221
+    assert oracle_counts["fused_knn_tc"] == 1221, oracle_counts
+    assert oracle_equal
+    assert rec >= BIG_RECALL_FLOOR, rec
+    assert abs(plan["tiers"]["device"] / ledger_index - 1) <= TIER_PLAN_SLACK, line
+    assert plan["tiers"]["disk"] == tb0["disk"] and plan["tiers"]["host"] == 0
+    del tiered, hbm, ts, index, reader
+    torch.cuda.synchronize()
+
+
+def phase_tier(st):
+    """Phase 7: ``MutableIndex(storage="tiered")`` against its all-HBM twin at
+    1M x 128 f32 and at BIGANN-10M's shape, the quality observers on the
+    served tiered index (see the module docstring)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    reset_all_counts()
+    st["launches_tier"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_tier_1m(st, tmp)
+        tier_reset(st)
+        phase_tier_10m(st, tmp)
+        tier_reset(st)
+    total = st["launches_tier"]
+    for name in ("fused_knn_rows", "fused_knn_tf32x3", "fused_knn_tc", "tf32_split",
+                 "pq_scan_topk"):
+        assert total.get(name, 0) > 0, (name, total)
+    emit(phase="tier_launches", launches=total, seconds=time.perf_counter() - t_phase,
+         card=st["card"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0123456",
-                    help="phases to run, e.g. 01 (default: all); 4, 5 and 6 need 2")
+    ap.add_argument("--phases", default="01234567",
+                    help="phases to run, e.g. 01 (default: all); 4, 5, 6 and 7 need 2")
     ap.add_argument("--out", default=os.path.join("build", "profiles"),
                     help="directory for the IVF-PQ, CAGRA and IVF-Flat profile tables")
     args = ap.parse_args(argv)
@@ -4566,8 +5117,8 @@ def main(argv=None):
     phase_build(st)
     if "1" in args.phases:
         phase_kernels(st)
-    if any(p in args.phases for p in "456") and "2" not in args.phases:
-        print("chip_smoke: phases 4, 5 and 6 use phase 2's indexes; run them with 2",
+    if any(p in args.phases for p in "4567") and "2" not in args.phases:
+        print("chip_smoke: phases 4, 5, 6 and 7 use phase 2's indexes; run them with 2",
               file=sys.stderr)
         return 2
     if "2" in args.phases:
@@ -4586,6 +5137,8 @@ def main(argv=None):
         phase_stream(st)
     if "6" in args.phases:
         phase_ooc(st)
+    if "7" in args.phases:
+        phase_tier(st)
     if "3" in args.phases and "2" in args.phases:
         time_fused_modes(st)
         time_f32_routes(st)
@@ -4601,6 +5154,11 @@ def main(argv=None):
         strm = st.get("launches_stream", {})
         folds = st.get("launches_stream_folds")
         ooc = st.get("launches_ooc")
+        tier = st.get("launches_tier")
+
+        def in_tier(name):
+            # phase 7's launches, 0 where it made none (None: phase 7 not run)
+            return None if tier is None else tier.get(name, 0)
 
         def in_ooc(name):
             # phase 6's launches, 0 where it made none (None: phase 6 not run)
@@ -4619,7 +5177,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_rows"),
                  launches_stream=strm.get("fused_knn_rows"),
                  launches_stream_folds=fold("fused_knn_rows"),
-                 launches_ooc=in_ooc("fused_knn_rows"),
+                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"),
                  max_abs_err=st["f32_err"]["rows"], m_small=fk.M_SMALL, merge=st["merge_t"],
                  **st["rows_t"]),
             dict(name="fused_knn_tf32x3", route="cuda",
@@ -4629,7 +5187,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_tf32x3"),
                  launches_stream=strm.get("fused_knn_tf32x3"),
                  launches_stream_folds=fold("fused_knn_tf32x3"),
-                 launches_ooc=in_ooc("fused_knn_tf32x3"),
+                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"),
                  max_abs_err=st["f32_err"]["tf32x3"], tf32x3_gate=st["tf32x3_gate"],
                  **st["f32_t"]),
             dict(name="fused_knn_tc", route="cuda",
@@ -4639,7 +5197,8 @@ def main(argv=None):
                  launches_by_mode=st["tc_launches"],
                  launches_stream=strm.get("fused_knn_tc"),
                  launches_stream_folds=fold("fused_knn_tc"),
-                 launches_ooc=in_ooc("fused_knn_tc"), max_abs_err=st["tc_err"],
+                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"),
+                 max_abs_err=st["tc_err"],
                  **{key: st["fused_modes_t"]["bf16"][key]
                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                  modes=st["fused_modes_t"]),
@@ -4648,7 +5207,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/fused_knn.py:139", launches=st["split_launches"],
                  launches_stream=strm.get("bf16_split"),
                  launches_stream_folds=fold("bf16_split"),
-                 launches_ooc=in_ooc("bf16_split"),
+                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"),
                  launches_on="knn(compute='float32x3')", max_abs_err=0.0, **st["split_t"]),
             dict(name="tf32_split", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
@@ -4656,7 +5215,7 @@ def main(argv=None):
                  launches_serve=serve.get("tf32_split"),
                  launches_stream=strm.get("tf32_split"),
                  launches_stream_folds=fold("tf32_split"),
-                 launches_ooc=in_ooc("tf32_split"),
+                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"),
                  launches_on="BruteForce.search, 10,000 queries (mode f32's batch route)",
                  max_abs_err=0.0, **st["tf32_split_t"]),
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
@@ -4664,7 +5223,7 @@ def main(argv=None):
                  launches_ivf_flat=launches["topk_ivf_flat"],
                  launches_serve=serve.get("topk"), launches_stream=strm.get("topk"),
                  launches_stream_folds=fold("topk"),
-                 launches_ooc=in_ooc("topk"),
+                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"),
                  launches_ball_cover={m: launches[f"topk_ball_cover_{m}"]
                                       for m in ("sqeuclidean", "haversine")},
                  max_abs_err=st["topk_err"], **st["topk_t"]),
@@ -4673,7 +5232,7 @@ def main(argv=None):
                  launches_on="ivf_pq.search, select_impl='xla'",
                  launches_stream=strm.get("pq_scan"),
                  launches_stream_folds=fold("pq_scan"),
-                 launches_ooc=in_ooc("pq_scan"),
+                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"),
                  launches_funnel=launches["pq_scan_opq_anisotropic_4bit"],
                  max_abs_err=st["pq_err"], **st["pq_t"]),
             dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
@@ -4681,7 +5240,7 @@ def main(argv=None):
                  launches_serve=serve.get("pq_scan_topk"),
                  launches_stream=strm.get("pq_scan_topk"),
                  launches_stream_folds=fold("pq_scan_topk"),
-                 launches_ooc=in_ooc("pq_scan_topk"),
+                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"),
                  launches_filtered={str(f): launches[f"pq_scan_topk_filtered_{f}"]
                                     for f in FILTER_KEEP},
                  launches_codecs={n: launches[f"pq_scan_topk_{n}"]
@@ -4692,7 +5251,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
                  launches_serve=serve.get("cagra_hop"), launches_stream=strm.get("cagra_hop"),
                  launches_stream_folds=fold("cagra_hop"),
-                 launches_ooc=in_ooc("cagra_hop"),
+                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"),
                  launches_int8_rows=launches["cagra_hop_int8"],
                  max_abs_err=st["hop_err"], **st["hop_t"]),
         ])

@@ -19,16 +19,19 @@ Ported so far:
   neighbors  brute-force kNN (the ``fused_knn`` kernel), IVF-Flat, IVF-PQ
              (the ``pq_scan`` kernel), CAGRA (the ``cagra_hop`` kernel),
              exact refine, the epsilon neighbourhood, sample filters
-  obs        metrics, kernel-build attribution, the event journal, request
-             traces, the memory ledger and its budget gate
+  obs        metrics, kernel-build attribution, the event journal and its
+             flight recorder, request traces, the memory ledger and its
+             budget gate, the recall canary and drift detector, SLO tracking
   ops        the kernels and their build
   serve      micro-batched serving with warm hot-swap (SearchService,
              IndexRegistry, MicroBatcher, StagingBuffers)
   spatial    the legacy spatial::knn entry points
   stats      dispersion
   stream     the mutable index: delta memtable, tombstones, write-ahead log,
-             compaction with a warm hot-swap (serve's write path)
+             compaction with a warm hot-swap (serve's write path), tiered
+             (beyond-HBM) row storage
   testing    the fault-injection registry
+  tune       the decision log and the family classifiers
 """
 
 import importlib
@@ -37,7 +40,7 @@ from .core import RaftError, Resources, default_resources, set_default_resources
 from .version import __version__
 
 _SUBMODULES = {"cluster", "core", "distance", "matrix", "neighbors", "obs", "ops", "serve",
-               "spatial", "stats", "stream", "testing"}
+               "spatial", "stats", "stream", "testing", "tune"}
 
 
 def __getattr__(name):

@@ -712,7 +712,7 @@ def batched_searcher(index: CagraIndex, params: SearchParams | None = None):
     (distances, ids)`` with ``kind``, ``dim``, ``query_dtype`` and
     ``device``. The serving ``k`` must satisfy ``k <= itopk_size``. An index
     with a tune decision and no ``params`` would take its pinned operating
-    point from ``tune/``, which is not yet ported."""
+    point from ``tune/apply.py``, which is not yet ported."""
     from ._hooks import make_hook
 
     if params is None and index.tuned is not None:

@@ -577,7 +577,7 @@ def batched_searcher(index: IvfFlatIndex, params: SearchParams | None = None):
     """The serving hook (contract in :mod:`._hooks`): ``fn(queries, k) ->
     (distances, ids)`` with ``kind``, ``dim`` and ``query_dtype``. An index
     with a tune decision and no ``params`` would take its pinned operating
-    point from ``tune/``, which is not yet ported."""
+    point from ``tune/apply.py``, which is not yet ported."""
     from ._hooks import make_hook
 
     if params is None and index.tuned is not None:

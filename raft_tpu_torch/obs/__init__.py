@@ -10,14 +10,21 @@ Counterpart of raft_tpu/obs, holding what is ported:
 - :mod:`.dispatch` — per-flush dispatch counting at the serve sites.
 - :mod:`.requestlog` — request ids minted at admission and span timings
   through batcher → flush → lease → index search.
-- :mod:`.mem` — the memory ledger, its retirement audit and the
-  ``Resources.memory_budget_bytes`` admission gate.
-- :mod:`.events` — the process-wide operations event journal.
+- :mod:`.mem` — the memory ledger, its retirement audit, the
+  ``Resources.memory_budget_bytes`` admission gate and its pressure relief.
+- :mod:`.events` — the process-wide operations event journal and its flight
+  recorder.
+- :mod:`.quality` — the live recall canary (:class:`RecallCanary`, a Wilson
+  interval over shadow-reranked samples) and family drift detection
+  (:class:`DriftDetector`).
+- :mod:`.slo` — availability / latency / quality objectives with
+  multi-window burn rates and a healthz verdict (:class:`SLOTracker`).
 - :mod:`.build` — the ``raft_tpu_build_*`` metrics of the streamed builds.
 - :mod:`.instrument` — the entry-point decorator: per-call latency, items
   and build seconds.
 
-Not yet ported: ``quality``, ``slo`` and ``http`` (which needs ``net/``). Trace annotation
+Not yet ported: ``http`` (the ``/metrics``, ``/healthz``, ``/debug/*``
+exporter, which needs ``net/``). Trace annotation
 lives in :mod:`raft_tpu_torch.core.tracing`.
 """
 
@@ -27,14 +34,18 @@ from . import dispatch
 from . import events
 from . import mem
 from . import metrics
+from . import quality
 from . import requestlog
+from . import slo
 from .compile import CompileRecord, attribution
 from .events import EventJournal
 from .instrument import instrument
 from .metrics import (DEFAULT_BUCKETS, RATIO_BUCKETS, Registry, counter,
                       delta, disable, enable, enabled, gauge, histogram,
                       quantile, reset, snapshot, to_json, to_prometheus)
+from .quality import DriftDetector, RecallCanary, exact_oracle, wilson_interval
 from .requestlog import RequestLog
+from .slo import SLOPolicy, SLOTracker
 
 __all__ = [
     "metrics", "compile", "dispatch", "attribution", "CompileRecord",
@@ -42,4 +53,6 @@ __all__ = [
     "histogram", "snapshot", "to_prometheus", "to_json", "delta", "quantile",
     "reset", "enable", "disable", "enabled", "requestlog", "mem",
     "RequestLog", "events", "EventJournal", "build", "instrument",
+    "quality", "slo", "RecallCanary", "DriftDetector", "exact_oracle",
+    "wilson_interval", "SLOPolicy", "SLOTracker",
 ]

@@ -47,9 +47,11 @@ Semantics worth knowing:
   fsync, the ``core/serialize.atomic_write`` rename discipline), and
   :func:`load_jsonl` tolerates a torn tail exactly like WAL replay — a
   crash mid-append loses at most the unacknowledged last line.
-- **Not yet ported: the flight recorder** (``arm_flight_recorder`` /
-  ``snapshot``), whose trigger is the SLO verdict of ``obs/slo.py``; its
-  ``flight_recorder`` kind stays in the catalogue.
+- **The flight recorder** (:func:`arm_flight_recorder`): an SLO
+  ``failing`` verdict event (``obs/slo.py``) writes one incident bundle
+  (the last events, the memory ledger's payload, the slowest requests,
+  the metrics), rate-limited on the journal clock; :func:`snapshot` writes
+  one on demand.
 
 Kind catalogue: :data:`KINDS` below is the single source of truth
 (``emit`` rejects unknown kinds); docs/observability.md mirrors it and
@@ -73,6 +75,7 @@ __all__ = [
     "unsubscribe", "transition", "transition_payload", "query", "tail",
     "last_seq", "counts_by_kind", "attach_sink", "detach_sink",
     "load_jsonl", "clear", "default_journal", "configure",
+    "arm_flight_recorder", "disarm_flight_recorder", "snapshot",
 ]
 
 SEVERITIES = ("info", "warning", "error")
@@ -189,6 +192,12 @@ class EventJournal:
         self._sink_f = None
         self._sink_bytes = 0
         self._sink_rotate = 0
+        # flight recorder (arm_flight_recorder)
+        self._rec_dir: str | None = None
+        self._rec_request_log = None
+        self._rec_interval = 300.0
+        self._rec_window = 256
+        self._rec_last_at: float | None = None
 
     # -- emit ----------------------------------------------------------------
     def emit(self, kind: str, severity: str | None = None, *,
@@ -237,6 +246,9 @@ class EventJournal:
                     pass
             if self._sink_f is not None:
                 self._sink_write(ev)
+            if (self._rec_dir is not None and kind == "slo_verdict"
+                    and ev["evidence"].get("status") == "failing"):
+                self._snapshot_locked(reason="slo_failing", force=False)
         return ev
 
     # -- taps ----------------------------------------------------------------
@@ -358,6 +370,83 @@ class EventJournal:
             # carry the event
             self._sink_close_locked()
 
+    # -- flight recorder -----------------------------------------------------
+    def arm_flight_recorder(self, dir_: str, *, request_log=None,
+                            min_interval_s: float = 300.0,
+                            window: int = 256) -> None:
+        """Arm automatic incident bundles: an SLO ``failing`` verdict
+        event triggers :meth:`snapshot` into ``dir_``, rate-limited to
+        one bundle per ``min_interval_s`` on the journal clock.
+        ``request_log`` (an :class:`~raft_tpu_torch.obs.requestlog.
+        RequestLog`) contributes the slowest-request traces."""
+        os.makedirs(dir_, exist_ok=True)
+        with self._lock:
+            self._rec_dir = str(dir_)
+            self._rec_request_log = request_log
+            self._rec_interval = float(min_interval_s)
+            self._rec_window = int(window)
+
+    def disarm_flight_recorder(self) -> None:
+        with self._lock:
+            self._rec_dir = None
+            self._rec_request_log = None
+            self._rec_last_at = None
+
+    def snapshot(self, reason: str = "manual", *, dir_: str | None = None,
+                 force: bool = True) -> str | None:
+        """Write one incident bundle now (bypasses the rate limit unless
+        ``force=False``). Returns the bundle directory, or None when
+        skipped (rate-limited, or no directory armed and none passed)."""
+        with self._lock:
+            return self._snapshot_locked(reason=reason, dir_=dir_,
+                                         force=force)
+
+    def _snapshot_locked(self, *, reason: str, dir_: str | None = None,
+                         force: bool) -> str | None:
+        base = dir_ if dir_ is not None else self._rec_dir
+        if base is None:
+            return None
+        now = self._clock()
+        if (not force and self._rec_last_at is not None
+                and now - self._rec_last_at < self._rec_interval):
+            return None
+        self._rec_last_at = now
+        bundle = os.path.join(base, f"incident-{self._seq:08d}-{reason}")
+        os.makedirs(bundle, exist_ok=True)
+        window = [dict(e) for e in list(self._ring)[-self._rec_window:]]
+        self._write_bundle(bundle, reason, now, window)
+        self.emit("flight_recorder", subject=("obs", reason),
+                  evidence={"dir": bundle, "events": len(window)})
+        return bundle
+
+    def _write_bundle(self, bundle: str, reason: str, now: float,
+                      window: list) -> None:
+        from ..core import serialize
+
+        def dump(fname: str, payload) -> None:
+            with serialize.atomic_write(os.path.join(bundle, fname)) as f:
+                f.write(json.dumps(payload, default=float, indent=1).encode())
+
+        dump("events.json", window)
+        try:
+            from . import mem as obs_mem
+
+            dump("mem.json", obs_mem.debug_payload())
+        except Exception:  # the recorder must never take the process down
+            pass
+        rlog = self._rec_request_log
+        try:
+            dump("requests.json",
+                 None if rlog is None else rlog.to_json(recent=50, slowest=10))
+        except Exception:
+            pass
+        try:
+            dump("metrics.json", metrics.snapshot())
+        except Exception:
+            pass
+        dump("meta.json", {"reason": reason, "at": round(now, 6),
+                           "last_seq": self._seq, "window_events": len(window)})
+
     # -- lifecycle -----------------------------------------------------------
     def clear(self) -> None:
         """Drop ring contents, counts and transition state (tests).
@@ -440,6 +529,23 @@ def attach_sink(path: str, *, rotate_bytes: int = 4_000_000) -> None:
 
 def detach_sink() -> None:
     _journal.detach_sink()
+
+
+def arm_flight_recorder(dir_: str, *, request_log=None,
+                        min_interval_s: float = 300.0,
+                        window: int = 256) -> None:
+    _journal.arm_flight_recorder(dir_, request_log=request_log,
+                                 min_interval_s=min_interval_s,
+                                 window=window)
+
+
+def disarm_flight_recorder() -> None:
+    _journal.disarm_flight_recorder()
+
+
+def snapshot(reason: str = "manual", *, dir_: str | None = None,
+             force: bool = True) -> str | None:
+    return _journal.snapshot(reason, dir_=dir_, force=force)
 
 
 def clear() -> None:

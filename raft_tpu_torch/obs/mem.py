@@ -43,9 +43,13 @@ over the port's tensors. Three pieces:
   streamed build on the planned build peak against the device budget and
   the planned host peak against ``Resources.host_budget_bytes``.
 
-Not yet ported (each raises ``RaftError("not yet ported")``): ``plan(tier=)``
-with a ``TierPolicy``, the gate's pressure relief and :func:`headroom`'s
-tiered mirrors, which wait for ``stream/tiered.py``.
+- **Pressure relief and the tiers**. A device overage consults the
+  registered pressure handlers (:func:`register_pressure_handler`: the
+  tiered stores of ``stream/tiered.py`` drop their device mirrors) once
+  before the gate refuses; :func:`headroom` counts those mirrors as
+  spillable, :func:`plan` prices a tiered store's cold rows on the host or
+  disk tier, and :func:`debug_payload` carries every registered section
+  (``tiers``).
 
 ``obs.disable()`` reduces every ledger touch point to a single module-flag
 check (``account`` returns ``None`` and every entry point no-ops on
@@ -62,7 +66,7 @@ import weakref
 
 import torch
 
-from ..core.errors import RaftError, fail
+from ..core.errors import RaftError
 from . import events as obs_events
 from . import metrics
 
@@ -70,13 +74,9 @@ __all__ = [
     "MemLedger", "ledger", "account", "account_index", "release", "retire",
     "reaccount", "totals", "reset_peak", "breakdown", "audit", "plan",
     "gate", "unaccounted_index_bytes", "hbm_stats", "note_workspace",
-    "debug_payload", "gate_host", "headroom",
+    "debug_payload", "gate_host", "headroom", "register_pressure_handler",
+    "register_debug_section",
 ]
-
-
-def _not_ported(what: str):
-    fail("%s is not yet ported to raft_tpu_torch", what)
-
 
 # -- metrics (catalogue: docs/observability.md) ------------------------------
 
@@ -560,9 +560,9 @@ def plan(kind: str, params=None, rows: int = 0, dim: int = 0, *,
     rows: the dominant arrays are exact, the slack is IVF list padding.
 
     ``storage="tiered"`` adds the retained raw-row store (rows x dim x B)
-    a ``MutableIndex(storage="tiered")`` keeps cold, on the host (``tier``,
-    a ``TierPolicy`` that could put it on disk, waits for
-    ``stream/tiered.py``); the device figure is unchanged.
+    a ``MutableIndex(storage="tiered")`` keeps cold: on the host, or on the
+    disk tier when ``tier`` (a ``TierPolicy``) sets ``disk_path``; the
+    device figure is unchanged.
 
     ``streamed=True`` prices the out-of-core build (a
     :class:`~raft_tpu_torch.core.chunked.ChunkedReader`, ``chunk_rows`` a
@@ -579,8 +579,6 @@ def plan(kind: str, params=None, rows: int = 0, dim: int = 0, *,
     "host", "disk"}}``."""
     from ..core.errors import expects
 
-    if tier is not None:
-        _not_ported("obs.mem.plan(tier=) (a TierPolicy, stream/tiered.py)")
     rows, dim = int(rows), int(dim)
     expects(rows > 0 and dim > 0, "plan() needs rows > 0 and dim > 0")
     item = _DTYPE_BYTES.get(str(dtype))
@@ -688,14 +686,44 @@ def plan(kind: str, params=None, rows: int = 0, dim: int = 0, *,
     tiers = {"device": int(sum(bk.values())), "host": 0, "disk": 0}
     if storage == "tiered":
         raw = rows * dim * item
-        tiers["host"] = raw
-        bk["tier_host_rows"] = raw
+        cold = "disk" if getattr(tier, "disk_path", None) is not None else "host"
+        tiers[cold] = raw
+        bk[f"tier_{cold}_rows"] = raw
     return {"kind": kind, "rows": rows, "dim": dim, "index_bytes": tiers["device"],
             "build_peak_bytes": int(build_peak), "host_peak_bytes": int(host_peak),
             "breakdown": bk, "tiers": tiers}
 
 
 # -- budget gate -------------------------------------------------------------
+
+# budget-pressure relief: callables ``fn(need_bytes) -> freed_bytes`` the gate
+# consults once before it refuses a device admission (the tiered stores drop
+# their device mirrors). Handlers drop only rebuildable state (caches).
+_pressure_handlers: list = []
+
+# extra debug_payload sections: key -> zero-argument payload callable (the
+# tiered stores' registry contributes "tiers"); a failing one is skipped
+_debug_sections: dict = {}
+
+
+def register_pressure_handler(fn) -> None:
+    """Register a budget-pressure relief hook (once per callable)."""
+    if fn not in _pressure_handlers:
+        _pressure_handlers.append(fn)
+
+
+def register_debug_section(key: str, fn) -> None:
+    """Register an extra :func:`debug_payload` section under ``key``."""
+    _debug_sections[str(key)] = fn
+
+
+def _relieve(need_bytes: int) -> None:
+    for fn in list(_pressure_handlers):
+        try:
+            fn(int(need_bytes))
+        except Exception:  # relief is best effort; the re-check decides
+            pass
+
 
 def gate(res, need_bytes, *, site: str, detail: str = "", host_bytes=0) -> None:
     """Admission check against ``res.memory_budget_bytes`` (device) and
@@ -708,9 +736,10 @@ def gate(res, need_bytes, *, site: str, detail: str = "", host_bytes=0) -> None:
     touches any state (whole-or-nothing; the error carries ``site`` /
     ``budget_bytes`` / ``accounted_bytes`` / ``need_bytes``; a host refusal
     names ``site + "/host"``). A device overage is journalled as
-    ``mem_pressure`` and the refusal as ``budget_refusal``, as in the JAX
-    module; the port has no pressure relief to consult between them (the
-    tiered stores' spills wait for ``stream/tiered.py``).
+    ``mem_pressure`` and consults the registered pressure handlers once (a
+    tiered store's mirror is a cache: spilling it beats shedding the
+    admission); only if the re-check still exceeds the budget is the
+    refusal journalled as ``budget_refusal`` and raised.
 
     An armed budget REQUIRES observability: under ``obs.disable()`` the
     ledger stops accounting, so every gate would compare against a frozen
@@ -738,6 +767,9 @@ def gate(res, need_bytes, *, site: str, detail: str = "", host_bytes=0) -> None:
                 evidence={"site": site, "need_bytes": need, "accounted_bytes": used,
                           "budget_bytes": int(budget),
                           "overage_bytes": used + need - int(budget)})
+            _relieve(used + need - int(budget))
+            used = _ledger.totals()["device_bytes"]
+        if used + need > int(budget):
             obs_events.emit(
                 "budget_refusal", subject=("mem", site, None, None),
                 evidence={"site": site, "need_bytes": need, "accounted_bytes": used,
@@ -798,8 +830,8 @@ def headroom(res=None) -> dict | None:
     a topology doubling is a double-buffered migration, so it is refused
     unless enough of the budget is free OR reclaimable by a pressure
     spill. ``spillable_bytes``/``spillable_frac`` count the tiered
-    stores' device mirrors, which the port does not have yet
-    (``stream/tiered.py`` is not ported): both are 0. Fractions are of
+    stores' device mirrors (caches the gate's pressure handlers drop on
+    demand); both are 0 when no tiered store is live. Fractions are of
     the budget, so ``headroom_frac + spillable_frac`` is the admission
     quantity — and the dict inlines as journal evidence verbatim, so a
     control decision and its admission check can never disagree."""
@@ -813,6 +845,12 @@ def headroom(res=None) -> dict | None:
     budget = int(budget)
     used = _ledger.totals()["device_bytes"]
     spillable = 0
+    try:
+        from ..stream.tiered import spillable_bytes
+
+        spillable = int(spillable_bytes())
+    except Exception:  # headroom is a sensor, never the failure itself
+        pass
     return {
         "budget_bytes": budget,
         "device_bytes": int(used),
@@ -829,8 +867,9 @@ def headroom(res=None) -> dict | None:
 def debug_payload(top: int = 20) -> dict:
     """The ``/debug/mem`` JSON: totals + peaks, per-component aggregates,
     the ``top`` largest allocations (component/name/shard/epoch), audit
-    status and per-device memory stats where a CUDA device is present
-    (the JAX module's extra ``tiers`` section waits for ``stream/tiered.py``)."""
+    status, per-device memory stats where a CUDA device is present, and
+    every registered extra section (``tiers``: per-store residency, tier
+    bytes and spill / promote events, once a tiered store is live)."""
     rows = _ledger.breakdown()
     by_comp: dict[str, dict] = {}
     for r in rows:
@@ -843,5 +882,11 @@ def debug_payload(top: int = 20) -> dict:
         hbm = hbm_stats()
     except Exception:  # a debug endpoint must never take the process down
         hbm = {}
-    return {"totals": _ledger.totals(), "by_component": by_comp,
-            "top": rows[:int(top)], "audit": _ledger.audit(), "hbm": hbm}
+    out = {"totals": _ledger.totals(), "by_component": by_comp,
+           "top": rows[:int(top)], "audit": _ledger.audit(), "hbm": hbm}
+    for key, fn in list(_debug_sections.items()):
+        try:
+            out[key] = fn()
+        except Exception:  # a debug endpoint must never take the process down
+            pass
+    return out

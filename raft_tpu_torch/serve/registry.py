@@ -26,7 +26,7 @@ drawn in the index's own query dtype.
 
 A :class:`raft_tpu_torch.stream.MutableIndex` publishes through its own
 current-epoch searcher. Not yet ported (raises ``RaftError("not yet
-ported")``): ``tuned=`` (``tune/``).
+ported")``): ``tuned=`` (``tune/apply.py``).
 """
 
 from __future__ import annotations
@@ -155,7 +155,7 @@ class IndexRegistry:
         warm-time walls in the report
         (:func:`raft_tpu_torch._warmup.warm_buckets`).
 
-        ``tuned`` (a tune decision) raises "not yet ported": ``tune/``
+        ``tuned`` (a tune decision) raises "not yet ported": ``tune/apply.py``
         waits for a later slice.
 
         ``res`` (a :class:`raft_tpu_torch.core.Resources`, default the process

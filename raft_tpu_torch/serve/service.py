@@ -31,9 +31,15 @@ The write path: publishing a :class:`raft_tpu_torch.stream.MutableIndex`
 after each swap) under a name opens :meth:`upsert` / :meth:`delete` for
 it; publishing anything else under that name closes them again.
 
+The online-quality hooks: ``canary=`` (a
+:class:`raft_tpu_torch.obs.quality.RecallCanary`) samples the flushes of its
+published name, ``slo=`` (a :class:`raft_tpu_torch.obs.slo.SLOTracker`) gets
+every admission and every served request's latency, ``request_log=`` (a
+:class:`raft_tpu_torch.obs.requestlog.RequestLog`) the request traces. A
+tiered mutable index publishes its ``refined_searcher()`` like any hook.
+
 Not yet ported (raises ``RaftError("not yet ported")``): ``tuned=``
-publishes (``tune/``). ``canary=``, ``slo=`` and ``request_log=`` are
-duck-typed hooks, as in the JAX package.
+publishes (``tune/apply.py``).
 
 Determinism for tests: pass ``start_workers=False`` plus an injected
 ``clock`` and drive the queues with :meth:`pump`.
@@ -133,11 +139,11 @@ class SearchService:
     ``default_timeout_s`` applies to requests submitted without an explicit
     timeout (``None`` = no deadline).
 
-    The online-quality hooks (all optional, duck-typed): ``canary``
-    (``offer()`` / ``name`` / ``k``, the JAX package's RecallCanary) taps
-    every flush of the canary's published name; ``slo`` (``record_admission``
-    / ``record_request``) receives every admission outcome and every served
-    request's queue-wait/flush split; ``request_log`` (an
+    The online-quality hooks (all optional): ``canary`` (a
+    :class:`raft_tpu_torch.obs.quality.RecallCanary`: ``offer()`` / ``name``
+    / ``k``) taps every flush of the canary's published name at its own k;
+    ``slo`` (a :class:`raft_tpu_torch.obs.slo.SLOTracker`) receives every
+    admission outcome and every served request's queue-wait/flush split; ``request_log`` (an
     :class:`raft_tpu_torch.obs.requestlog.RequestLog`) mints a request id at
     admission and collects span timings through queue → flush → registry
     lease → index search.
@@ -217,7 +223,7 @@ class SearchService:
         :func:`raft_tpu_torch._warmup.warm_buckets`. Publishing a
         ``stream.MutableIndex`` (or its own ``searcher()`` hook) opens the
         write path for ``name``; anything else closes it. ``tuned`` raises
-        "not yet ported" (``tune/``).
+        "not yet ported" (``tune/apply.py``).
         ``res`` carries ``memory_budget_bytes`` for the publish admission
         gate (:meth:`IndexRegistry.publish`); over budget raises
         :class:`~raft_tpu_torch.serve.errors.MemoryBudgetError` with zero

@@ -17,20 +17,24 @@ Counterpart of raft_tpu/stream, with the names that are ported:
   it covers; ``load(wal=)`` replays the acknowledged writes past it.
 - :class:`~.wal.WriteAheadLog` — the append-only checksummed log of every
   write, in the JAX package's record format.
+- :class:`TieredStore` / :class:`TierPolicy` — beyond-HBM storage of the
+  refine rows (host RAM, an mmap file or an adopted memmap, a device mirror
+  placed by the budget), behind ``MutableIndex(storage="tiered")``.
 
 Not yet ported: ``ShardedMutableIndex`` / ``shard_of`` (``sharded.py``) and
 ``ReplicatedShard`` / ``FencingPolicy`` (``replicated.py``), which wait for
-``comms/``; ``TieredStore`` / ``TierPolicy`` (``tiered.py``).
+``comms/``, and with them the sharded and replicated tiered stores.
 """
 
-from . import compactor, mutable, wal
+from . import compactor, mutable, tiered, wal
 from .compactor import CompactionPolicy, Compactor
 from .mutable import (DELTA_MIN_BUCKET, DeltaFullError, MutableIndex,
                       delta_buckets, load, save)
+from .tiered import TieredStore, TierPolicy
 from .wal import WalCorruptError, WriteAheadLog
 
 __all__ = [
-    "mutable", "compactor", "wal",
+    "mutable", "compactor", "wal", "tiered", "TieredStore", "TierPolicy",
     "MutableIndex", "DeltaFullError", "DELTA_MIN_BUCKET", "delta_buckets",
     "WriteAheadLog", "WalCorruptError",
     "Compactor", "CompactionPolicy",

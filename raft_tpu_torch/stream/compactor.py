@@ -23,8 +23,9 @@ The worker thread is a thin poll loop around :meth:`Compactor.run_once`,
 which tests and ``chip_smoke.py``'s churn phase drive directly.
 
 The reshard advisory (``last_advice``) is None: only a sharded index can
-reshard, and ``stream/sharded.py`` is not ported. ``drift=`` raises "not yet ported"
-until ``obs/quality.py`` is.
+reshard, and ``stream/sharded.py`` is not ported. ``drift=`` (an
+:class:`raft_tpu_torch.obs.quality.DriftDetector`) gets the corpus-side feed
+of each fold.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable
 
-from ..core.errors import expects, fail
+from ..core.errors import expects
 from ..obs import events as obs_events
 from ..obs import metrics
 from .mutable import MutableIndex
@@ -113,8 +114,11 @@ class Compactor:
     build swap). Without one, the swap still happens atomically and direct
     ``MutableIndex.search`` callers pay their own first calls.
 
-    ``drift`` (the JAX package's ``obs.quality.DriftDetector``) raises "not
-    yet ported": ``obs/quality.py`` waits for a later slice.
+    ``drift`` (an :class:`raft_tpu_torch.obs.quality.DriftDetector`) re-runs
+    the tune family classifier on compaction-time corpus stats: each fold
+    that leaves a retained row store feeds a corpus subsample plus the live
+    row count into :meth:`DriftDetector.check` (the corpus-side half of the
+    drift -> retune loop; the query-side half rides the recall canary).
 
     ``clock`` is injected for the age watermark and the tests; the
     background worker (``start()``) polls ``run_once`` on the real wall
@@ -139,9 +143,9 @@ class Compactor:
         self._ks = (ks,) if isinstance(ks, int) else tuple(ks)
         self.policy = policy
         self._warm_data = warm_data
-        if drift is not None:
-            fail("stream: Compactor(drift=) is not yet ported to "
-                 "raft_tpu_torch (obs/quality.py)")
+        expects(drift is None or hasattr(drift, "check"),
+                "drift must be an obs.quality.DriftDetector (check())")
+        self._drift = drift
         # external pacing hint (zero-arg callable -> truthy = defer):
         # wired by a controller feeding its SLO-burn signal so a due fold
         # waits out a latency burn (run_once; force= overrides). Default
@@ -251,6 +255,16 @@ class Compactor:
         wall = time.perf_counter() - t0
         report["wall_s"] = round(wall, 3)
         report["compile_s"] = round(rec.compile_s, 3)
+        if self._drift is not None:
+            # compaction-time corpus stats: the retained store is the live
+            # corpus' raw rows (the classifier subsamples them; a few
+            # tombstoned rows not yet reclaimed are noise at its margins).
+            # No store: the query-side canary feed still covers the pin
+            store = self._mutable._drift_store()
+            if store is not None:
+                report["drift"] = self._drift.check(
+                    rows=store, n_rows=max(self._mutable.size, 1),
+                    dim=self._mutable.dim, source="compaction")
         if metrics._enabled:
             _c_compactions().inc(1, name=name, trigger=trigger,
                                  mode=report["mode"])

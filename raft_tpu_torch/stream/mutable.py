@@ -35,7 +35,9 @@ first and the delta second; readers read the delta first and the sealed
 mask second, so one result row never holds both copies of an upserted id.
 All device work runs on the device's current stream, and host rows reach
 the device by blocking copies, so no host buffer is rewritten under an
-upload in flight.
+upload in flight; a tiered store's side-stream uploads keep the same rule
+with an event a pinned buffer and a fresh device tensor an upload
+(``stream/tiered.py``).
 
 Entry points run on the sealed index's device (``device=`` moves it); a
 ``res`` that names another device raises, as the indexes do.
@@ -49,9 +51,16 @@ A ``ChunkedReader`` ``dataset=`` keeps the reader's backing array (an
 ``compact("rebuild", ooc_chunk_rows=)`` streams the rebuild through the
 out-of-core build.
 
-Not yet ported (each raises ``RaftError("not yet ported")``):
-``storage="tiered"``, ``tier=`` and ``tier_residency=``
-(``stream/tiered.py``).
+``storage="tiered"`` keeps the retained rows cold behind a
+:class:`~raft_tpu_torch.stream.tiered.TieredStore` (host RAM, an mmap file
+per ``tier.disk_path``, or an adopted memmap): ``search_refined`` gathers
+its candidates through :meth:`TieredStore.fetch` instead of a full device
+copy, ``exact_search`` scans the cold rows in fixed-shape chunks
+(:meth:`MutableIndex._chunked_store_scan`), folds carry the residency over
+and files save it. The answers are the all-HBM twin's: ``search`` and
+``search_refined`` bit for bit; the chunked oracle's ids, and its distances
+where a chunk takes the fused route (on the GEMM route a float32 sum can
+depend on how many rows one product holds).
 """
 
 from __future__ import annotations
@@ -67,7 +76,7 @@ import numpy as np
 import torch
 
 from ..core import chunked
-from ..core.errors import RaftError, expects, fail
+from ..core.errors import RaftError, expects
 from ..core.resources import Resources, default_resources
 from ..distance.types import DistanceType, resolve_metric
 from ..neighbors.sample_filter import BitsetFilter
@@ -76,6 +85,7 @@ from ..obs import mem as obs_mem
 from ..obs import metrics
 from ..serve.errors import OverloadedError
 from ..testing import faults
+from .tiered import TieredStore, TierPolicy, mirror_gather, shift_slots
 
 __all__ = ["MutableIndex", "DeltaFullError", "DELTA_MIN_BUCKET",
            "delta_buckets", "check_upsert_ids", "save", "load"]
@@ -83,10 +93,6 @@ __all__ = ["MutableIndex", "DeltaFullError", "DELTA_MIN_BUCKET",
 # floor of the delta bucket ladder: an empty delta still scans one fully
 # masked bucket of this size, so "delta empty" and "delta tiny" share a path
 DELTA_MIN_BUCKET = 8
-
-
-def _not_ported(what: str):
-    fail("stream: %s is not yet ported to raft_tpu_torch", what)
 
 
 class DeltaFullError(OverloadedError):
@@ -231,6 +237,15 @@ def _sealed_meta(kind, sealed):
             dk = "float32"
         return n, d, resolve_metric(sealed.metric), float(sealed.metric_arg), dk
     return (sealed.size, sealed.dim, sealed.metric, 2.0, sealed.data_kind)
+
+
+def _store_rows(store) -> np.ndarray | None:
+    """The raw rows of a retained store as a host array: an ``hbm`` store is
+    the array, a :class:`TieredStore` gives its cold copy (folds, drift
+    sampling and files read rows through this one seam)."""
+    if store is None:
+        return None
+    return store.host_view() if isinstance(store, TieredStore) else store
 
 
 def _recover_store(kind, sealed, data_kind):
@@ -513,12 +528,14 @@ class MutableIndex:
     the sealed index's device. ``wal`` (a path or a
     :class:`~raft_tpu_torch.stream.wal.WriteAheadLog`) logs every write
     before the memtable sees it; ``snapshot_path`` makes each compaction
-    save the state there and truncate the log. ``clock`` is injected for
-    deterministic tests (the age watermark's time base).
-
-    ``storage="tiered"``, ``tier=`` and ``tier_residency=`` raise "not yet
-    ported" (``stream/tiered.py``), as does a ``ChunkedReader``
-    ``dataset=`` (``core/chunked.py``).
+    save the state there and truncate the log. ``storage`` picks where the
+    retained rows live: ``"hbm"`` (a host array with a lazy device copy for
+    the oracle and the refine gather) or ``"tiered"`` (a
+    :class:`~raft_tpu_torch.stream.tiered.TieredStore` configured by
+    ``tier``, a :class:`~raft_tpu_torch.stream.tiered.TierPolicy`;
+    ``tier_residency`` restores a saved placement without deciding again).
+    ``clock`` is injected for deterministic tests (the age watermark's time
+    base).
     """
 
     def __init__(self, sealed, *, search_params=None, index_params=None,
@@ -526,13 +543,9 @@ class MutableIndex:
                  dataset=None, builder: Callable | None = None,
                  device=None, name: str = "default", wal=None,
                  snapshot_path: str | None = None,
-                 storage: str = "hbm", tier=None,
+                 storage: str = "hbm", tier: TierPolicy | None = None,
                  tier_residency: str | None = None,
                  clock: Callable[[], float] = time.monotonic):
-        expects(storage in ("hbm", "tiered"),
-                "storage must be 'hbm' or 'tiered', got %r", storage)
-        if storage == "tiered" or tier is not None or tier_residency is not None:
-            _not_ported("storage='tiered' (tier=, tier_residency=; stream/tiered.py)")
         kind, module = _resolve_kind(sealed)
         dev = (_sealed_device(kind, sealed) if device is None
                else torch.device(device))
@@ -614,12 +627,29 @@ class MutableIndex:
             expects(store is not None,
                     "retain_vectors=True needs dataset= for %s (stored codes "
                     "cannot reconstruct raw rows)", kind)
+        # "tiered" keeps the full-precision rows cold (host RAM / an mmap):
+        # the refine gather and the exact oracle cross to the device a batch
+        # at a time instead of holding a second full copy there
+        expects(storage in ("hbm", "tiered"),
+                "storage must be 'hbm' or 'tiered', got %r", storage)
+        expects(tier is None or storage == "tiered",
+                "tier= (a TierPolicy) applies to storage='tiered' only")
+        expects(tier_residency is None or storage == "tiered",
+                "tier_residency= applies to storage='tiered' only")
+        if storage == "tiered":
+            expects(store is not None,
+                    "storage='tiered' stores the raw refine rows cold — "
+                    "pass dataset= (IVF kinds) or retain_vectors=True")
+        self._storage = storage
+        self._tier = tier
 
         st = _StreamState(cfg)
         st.sealed = sealed
         st.id_map = id_map
         st.sealed_alive = np.ones(n, bool)
-        st.store = store
+        # tier_residency (load's layout restore) skips the placement
+        # decision: deciding again would upload a cold-saved store for nothing
+        st.store = self._make_store(store, epoch=0, residency=tier_residency)
         dt = _np_dtype(query_dtype)
         st.delta = np.zeros((self.delta_capacity, d), dt)
         st.delta_ids = np.zeros(self.delta_capacity, np.int32)
@@ -682,6 +712,34 @@ class MutableIndex:
             return int(len(st.sealed_alive) - st.sealed_dead_n
                        + st.delta_alive[:st.delta_n].sum())
 
+    def _make_store(self, rows, epoch: int, residency: str | None = None):
+        """The retained row store of one state epoch: the raw array under
+        ``storage="hbm"``, a :class:`TieredStore` under ``"tiered"`` (a
+        compaction successor's store is placed with the predecessor's
+        residency, which is how residency carries through a fold)."""
+        if rows is None or self._storage == "hbm":
+            return rows
+        # rows pass raw: the store adopts an np.memmap in place
+        return TieredStore(rows, name=self._cfg.name, epoch=epoch,
+                           policy=self._tier, device=self._cfg.device,
+                           residency=residency, clock=self._clock)
+
+    @property
+    def storage(self) -> str:
+        """The storage policy ("hbm" or "tiered")."""
+        return self._storage
+
+    @property
+    def tiered_store(self) -> TieredStore | None:
+        """The live epoch's :class:`TieredStore` (None under "hbm")."""
+        st = self._state.store
+        return st if isinstance(st, TieredStore) else None
+
+    def _drift_store(self):
+        """The retained raw-row store (or None): what a
+        :class:`~raft_tpu_torch.stream.Compactor` feeds its drift detector."""
+        return _store_rows(self._state.store)
+
     def stats(self) -> dict:
         with self._lock:
             st = self._state
@@ -724,7 +782,9 @@ class MutableIndex:
             dev.append(st.store_dev)
         host = [st.delta, st.delta_ids, st.delta_alive, st.sealed_alive,
                 st.id_map]
-        if st.store is not None:
+        # a TieredStore carries its own "tier" entry (rows, mirror, slots):
+        # one attribution, not a second copy here
+        if st.store is not None and not isinstance(st.store, TieredStore):
             host.append(st.store)
         if st.mem is None:
             st.mem = obs_mem.account(
@@ -884,11 +944,24 @@ class MutableIndex:
         skeep, imap = st.sealed_keep_dev, st.id_map_dev
         queries = _queries(cfg, queries)
         k = int(k)
-        store_dev = self._store_device(st)
-        ks = min(k, store_dev.shape[0])
-        sd, si = brute_force.knn(store_dev, queries, ks, cfg.metric,
-                                 cfg.metric_arg, sample_filter=skeep.mask,
-                                 res=res)
+        ts = st.store if isinstance(st.store, TieredStore) else None
+        # one read of the mirror decides the branch and supplies the tensor,
+        # so a concurrent pressure spill cannot tear this call
+        mirror = ts.mirror if ts is not None else None
+        if ts is not None and mirror is None:
+            # a cold store: the chunked scan through the store's upload ring
+            # (no device copy of the rows). The alive bits are copied once,
+            # after the delta view, which keeps the kill-then-reveal pairing
+            # as the resident path's frozen device mask does
+            alive = st.sealed_alive.copy()
+            sd, si = self._chunked_store_scan(st, ts, queries, k,
+                                              alive=alive, res=res)
+        else:
+            store_dev = mirror if mirror is not None else self._store_device(st)
+            ks = min(k, store_dev.shape[0])
+            sd, si = brute_force.knn(store_dev, queries, ks, cfg.metric,
+                                     cfg.metric_arg, sample_filter=skeep.mask,
+                                     res=res)
         si = _map_ids(si, imap)
         kd = min(k, delta.shape[0])
         dd, di = brute_force.knn(delta, queries, kd, cfg.metric,
@@ -897,6 +970,43 @@ class MutableIndex:
         obs_dispatch.note(4)
         return sd, si, dd, di
 
+    def _chunked_store_scan(self, st: _StreamState, ts: TieredStore,
+                            queries, k: int, *, alive=None, res=None,
+                            max_chunks: int | None = None):
+        """Exact scan of a cold tiered store: fixed-shape chunks come through
+        the store's upload ring (chunk N+1's upload overlaps chunk N's
+        search) and fold into a running top-k through :func:`_merge`. The
+        tombstone mask crosses once, padded to whole chunks, and each chunk
+        reads its slice of it. Returns ``(sd, si)`` in store-slot ids (the
+        caller maps them to global ids). ``max_chunks`` bounds the walk (the
+        warm path runs two chunks, not the whole store)."""
+        from ..neighbors import brute_force
+
+        cfg = st.cfg
+        res = _resolve_res(cfg, res)
+        chunk = ts.oracle_chunk
+        kc = min(int(k), chunk)
+        total = ts.n_oracle_chunks()
+        n_chunks = total if max_chunks is None else min(total, int(max_chunks))
+        if alive is None:   # the warm path; real scans pass the caller's copy
+            alive = st.sealed_alive.copy()
+        keep = np.zeros(total * chunk, bool)
+        keep[:alive.shape[0]] = alive
+        keep_dev = _dev_put(cfg, keep)
+        acc_d = acc_i = None
+        for ci in range(n_chunks):
+            rows_dev, base, _ = ts.oracle_chunk_dev(ci)
+            cd, cidx = brute_force.knn(
+                rows_dev, queries, kc, cfg.metric, cfg.metric_arg,
+                sample_filter=keep_dev[base:base + chunk], res=res)
+            cidx = shift_slots(cidx, base)
+            if acc_d is None:
+                acc_d, acc_i = cd, cidx
+            else:
+                acc_d, acc_i = _merge(acc_d, acc_i, cd, cidx, kc,
+                                      cfg.select_min)
+        return acc_d, acc_i
+
     def _store_device(self, st: _StreamState):
         """The epoch-frozen device copy of the retained row store (made on
         first use; a race uploads at most twice, and the store itself never
@@ -904,6 +1014,9 @@ class MutableIndex:
         expects(st.store is not None,
                 "exact_search needs the retained row store "
                 "(retain_vectors=True / dataset= at wrap time)")
+        expects(not isinstance(st.store, TieredStore),
+                "tiered stores never materialize a second full device "
+                "copy — use the mirror or the chunked scan")
         dev = st.store_dev
         if dev is None:
             dev = _dev_put(st.cfg, st.store)
@@ -955,6 +1068,8 @@ class MutableIndex:
                 "retain_vectors=True at wrap time)")
         r = int(refine_ratio)
         expects(r >= 1, "refine_ratio must be >= 1, got %d", r)
+        # the caller's handle (or the default one) prices a hit-rate promote
+        budget_res = res
         res = _resolve_res(cfg, res)
         requestlog.annotate("stream_epoch", st.epoch)
         delta, dkeep, dids, _ = st.delta_view
@@ -967,8 +1082,11 @@ class MutableIndex:
         _, slots = cfg.module.search(cfg.search_params, st.sealed, queries,
                                      kr, sample_filter=skeep, res=res)
         t1 = time.perf_counter()
-        store_dev = self._store_device(st)
-        cand = store_dev[slots.clamp_min(0).to(torch.int64)]
+        ts = st.store if isinstance(st.store, TieredStore) else None
+        if ts is not None:
+            cand = ts.fetch(slots, res=budget_res)
+        else:
+            cand = mirror_gather(self._store_device(st), slots)
         ks = min(k, kr)
         rd, rslots = refine_gathered(cand, queries, slots, ks,
                                      metric=cfg.metric, res=res)
@@ -1002,8 +1120,11 @@ class MutableIndex:
     def warm_refined(self, buckets, ks=(10,), refine_ratio: int = 4,
                      sample=None) -> dict:
         """Run the refined serving path once per (query bucket, k), which
-        builds its kernels and makes the store's device copy. Returns
-        per-(k, bucket) build attribution like :meth:`warm`."""
+        builds its kernels and makes the store's device copy (a tiered
+        store's upload ring instead). Under tiered storage two chunks of the
+        chunked oracle run too, whatever the residency: a promoted store can
+        be spilled later. Returns per-(k, bucket) build attribution like
+        :meth:`warm`."""
         from ..obs import compile as obs_compile
 
         cfg = self._cfg
@@ -1016,6 +1137,11 @@ class MutableIndex:
                 t0 = time.perf_counter()
                 with obs_compile.attribution() as rec:
                     self.search_refined(q, kk, refine_ratio)
+                    ts = self.tiered_store
+                    if ts is not None:
+                        self._chunked_store_scan(self._state, ts,
+                                                 _queries(cfg, q), kk,
+                                                 max_chunks=2)
                     _wait(cfg)
                 out[kk][b] = {"wall_s": round(time.perf_counter() - t0, 3),
                               **rec.summary()}
@@ -1143,11 +1269,12 @@ class MutableIndex:
                 else:
                     new_sealed = st.sealed
                 new_id_map = np.concatenate([st.id_map, fold_gids])
-                new_store = (np.concatenate([st.store, fold_rows])
+                new_store = (np.concatenate([_store_rows(st.store), fold_rows])
                              if st.store is not None else None)
                 reclaimed = 0
             else:
-                live_rows = np.concatenate([st.store[s_src], fold_rows])
+                live_rows = np.concatenate([_store_rows(st.store)[s_src],
+                                            fold_rows])
                 expects(live_rows.shape[0] > 0,
                         "compaction would leave an empty index")
                 new_id_map = np.concatenate([st.id_map[s_src], fold_gids])
@@ -1189,7 +1316,13 @@ class MutableIndex:
                 nd = _StreamState(cfg)
                 nd.sealed = new_sealed
                 nd.id_map = new_id_map
-                nd.store = new_store
+                # residency carries through the fold: the successor's store
+                # is placed with the predecessor's (its promote still honours
+                # the budget: a squeezed successor comes up cold)
+                nd.store = self._make_store(
+                    new_store, epoch=st.epoch + 1,
+                    residency=(st.store.residency
+                               if isinstance(st.store, TieredStore) else None))
                 # alive bits re-read from the LIVE state: deletes that
                 # landed mid-fold are kept across the swap
                 if mode == "extend":
@@ -1220,6 +1353,8 @@ class MutableIndex:
                 # retirement audit: the pre-compaction epoch (and a replaced
                 # sealed index) should free once draining leases drop it
                 obs_mem.retire(old_state.mem)
+                if isinstance(old_state.store, TieredStore):
+                    old_state.store.retire()
                 if nd.sealed is not old_state.sealed:
                     old_sealed_mem = self._sealed_mem
                     self._sealed_mem = obs_mem.account_index(
@@ -1273,16 +1408,19 @@ def save(mutable: MutableIndex, path: str) -> None:
             serialize_scalar(f, st.store is not None)
             if serialize.version_number(serialize.SERIALIZATION_VERSION) >= 12:
                 # the tier layout (raft_tpu/12): storage policy and the
-                # store's residency ("device" for the untiered store)
-                serialize_scalar(f, "hbm")
-                serialize_scalar(f, "device")
+                # store's residency ("device" for the untiered store), so
+                # load restores the placement without deciding again
+                serialize_scalar(f, mutable._storage)
+                serialize_scalar(f, (st.store.residency
+                                     if isinstance(st.store, TieredStore)
+                                     else "device"))
             serialize_mdspan(f, st.id_map)
             serialize_mdspan(f, st.sealed_alive)
             serialize_mdspan(f, st.delta[:st.delta_n])
             serialize_mdspan(f, st.delta_ids[:st.delta_n])
             serialize_mdspan(f, st.delta_alive[:st.delta_n])
             if st.store is not None:
-                serialize_mdspan(f, st.store)
+                serialize_mdspan(f, _store_rows(st.store))
             cfg.module.write_index(f, st.sealed)
         if mutable._wal is not None:
             mutable._wal.reset()
@@ -1291,7 +1429,7 @@ def save(mutable: MutableIndex, path: str) -> None:
 def load(path: str, *, search_params=None, index_params=None,
          builder: Callable | None = None, name: str | None = None,
          device=None, res=None, wal=None, snapshot_path: str | None = None,
-         tier=None,
+         tier: TierPolicy | None = None,
          clock: Callable[[], float] = time.monotonic) -> MutableIndex:
     """Load a :func:`save`\\ d mutable index (the port's or the JAX
     package's) onto ``device`` (or ``res``'s device; ``cuda`` by default).
@@ -1304,13 +1442,14 @@ def load(path: str, *, search_params=None, index_params=None,
     then the log re-attaches for new writes; ``m.last_recovery`` reports
     ``{replayed, skipped, torn, wal_seq}``. ``snapshot_path`` re-arms the
     compaction-coupled snapshot (defaults to ``path`` whenever a WAL is
-    given). A file saved with ``storage="tiered"`` raises "not yet ported",
-    as does ``tier=``."""
+    given). A file saved with ``storage="tiered"`` comes back tiered (``tier``
+    is its fresh :class:`TierPolicy`) with its saved residency, restored
+    without deciding again; a saved device residency that no longer fits the
+    budget comes up cold. Files of ``raft_tpu/11`` and before load as
+    ``storage="hbm"``."""
     from ..core.serialize import (check_header, deserialize_mdspan,
                                   deserialize_scalar, version_number)
 
-    if tier is not None:
-        _not_ported("load(tier=) (stream/tiered.py)")
     if device is None:
         device = (res or default_resources()).torch_device
     device = torch.device(device)
@@ -1325,12 +1464,10 @@ def load(path: str, *, search_params=None, index_params=None,
                    if version_number(ver) >= 10 else 0)
         delta_n = int(deserialize_scalar(f))
         has_store = bool(deserialize_scalar(f))
-        storage = "hbm"
+        storage, residency = "hbm", None
         if version_number(ver) >= 12:
             storage = deserialize_scalar(f)
-            deserialize_scalar(f)              # residency
-        if storage == "tiered":
-            _not_ported("loading a storage='tiered' snapshot (stream/tiered.py)")
+            residency = deserialize_scalar(f)
         id_map = deserialize_mdspan(f).numpy()
         sealed_alive = deserialize_mdspan(f).numpy().astype(bool)
         delta = deserialize_mdspan(f).numpy()
@@ -1345,6 +1482,8 @@ def load(path: str, *, search_params=None, index_params=None,
                      index_params=index_params, delta_capacity=capacity,
                      retain_vectors=has_store, dataset=store, builder=builder,
                      device=device, snapshot_path=snapshot_path,
+                     storage=storage, tier=tier,
+                     tier_residency=residency if storage == "tiered" else None,
                      name=saved_name if name is None else name, clock=clock)
     with m._lock:
         st = m._state

@@ -853,3 +853,84 @@ def test_streamed_build_equals_in_core_on_card(cuda, kind):
         ta, tb = getattr(a, f.name), getattr(b, f.name)
         if isinstance(ta, torch.Tensor):
             assert ta.shape == tb.shape and torch.equal(ta, tb), f.name
+
+
+# -- tiered storage ------------------------------------------------------------------
+
+def test_tiered_fetch_on_card_equals_host_gather(cuda):
+    """A cold TieredStore on the card: every fetch (one slot read-back, a
+    pinned gather, a side-stream upload) equals the host gather, also when
+    eight threads fetch at once through a two-slot ring and each result is
+    read after the others' later uploads; the accounted slot bytes stay
+    those of one ring."""
+    import threading
+
+    from raft_tpu_torch.stream import TieredStore, TierPolicy
+
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((50_000, 96)).astype(np.float32)
+    ts = TieredStore(x, name="gpu_fetch", device="cuda",
+                     policy=TierPolicy(auto_promote=False))
+    slots = [torch.from_numpy(rng.integers(-1, 50_000, (64, 40)).astype(np.int32)).to(cuda)
+             for _ in range(24)]
+    want = [torch.from_numpy(x[np.clip(s.cpu().numpy(), 0, None)]) for s in slots]
+    got = [ts.fetch(s) for s in slots[:4]]
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+    ring_bytes = ts.tier_bytes()["device"]
+    assert ring_bytes == 2 * 64 * 40 * 96 * 4
+    out = [None] * len(slots)
+
+    def worker(t):
+        for j in range(t, len(slots), 8):
+            out[j] = ts.fetch(slots[j])
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    torch.cuda.synchronize()
+    for g, w in zip(out, want):
+        assert torch.equal(g.cpu(), w)
+    assert ts.tier_bytes()["device"] == ring_bytes
+    assert ts.stats()["host_syncs"] == 4 + len(slots)
+    for ci in range(ts.n_oracle_chunks()):
+        dv, base, valid = ts.oracle_chunk_dev(ci)
+        assert torch.equal(dv[:valid].cpu(), torch.from_numpy(x[base:base + valid]))
+        assert not dv[valid:].any()
+
+
+def test_tiered_mutable_on_card_equals_cpu(cuda, tmp_path):
+    """A tiered IVF-PQ MutableIndex on the card answers as the all-HBM one
+    on the card bit for bit, and as the CPU port's within the card tests'
+    tolerance, before and after writes and an extend fold."""
+    from raft_tpu_torch import stream
+
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((30_000, 64)).astype(np.float32)
+    q = rng.standard_normal((200, 64)).astype(np.float32)
+    cpu = Resources(device="cpu")
+    path = str(tmp_path / "index.bin")
+    p = ivf_pq.IndexParams(n_lists=64, pq_dim=32, seed=0)
+    ivf_pq.save(ivf_pq.build(p, x, res=cpu), path)
+    sp = ivf_pq.SearchParams(n_probes=8)
+    kw = dict(search_params=sp, index_params=p, dataset=x)
+    tier = stream.TierPolicy(oracle_chunk=4096, auto_promote=False)
+    mt = stream.MutableIndex(ivf_pq.load(path, res=cpu), device="cuda", storage="tiered",
+                             tier=tier, **kw)
+    mh = stream.MutableIndex(ivf_pq.load(path, res=cpu), device="cuda", **kw)
+    mc = stream.MutableIndex(ivf_pq.load(path, res=cpu), storage="tiered", tier=tier, **kw)
+    for step in range(2):
+        for m in (mt, mh, mc):
+            m.upsert(x[:50] + 0.25, ids=np.arange(100_000 + 50 * step, 100_050 + 50 * step))
+            m.delete(np.arange(step * 7, 30_000, 997))
+            if step:
+                m.compact()
+        a, b = mt.search_refined(q, 10, 4), mh.search_refined(q, 10, 4)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        ea, eb = mt.exact_search(q, 10), mh.exact_search(q, 10)
+        assert torch.equal(ea[1], eb[1]) and torch.equal(ea[0], eb[0])
+        c = mc.search_refined(q, 10, 4)
+        _knn_equiv(a[0].cpu(), a[1].cpu(), c[0], c[1], rtol=1e-5, atol=1e-4)
+    assert mt.tiered_store.residency == "host" and mt.tiered_store._epoch == 1

@@ -4,6 +4,8 @@ which drives it on the card) imports JAX or the JAX package."""
 import ast
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "raft_tpu")
 
@@ -34,3 +36,18 @@ def test_port_keeps_kernel_sources_beside_wrappers():
     stems = {p.stem for p in csrc.glob("*.cu")}
     assert stems == {"fused_knn", "fused_knn_tc", "topk", "pq_scan", "cagra_hop"}
     assert stems == set(_build.SOURCES)
+
+
+# the modules of the tiered-storage and quality slice, each named so that a
+# move or a rename shows here
+SLICE_MODULES = ("stream/tiered.py", "stream/mutable.py", "stream/compactor.py",
+                 "obs/quality.py", "obs/slo.py", "obs/events.py", "obs/mem.py",
+                 "tune/__init__.py", "tune/decisions.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_slice_modules_import_neither_jax_nor_raft_tpu(rel):
+    path = ROOT / "raft_tpu_torch" / rel
+    assert path.is_file(), rel
+    names = list(_imports(path))
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names

@@ -289,11 +289,12 @@ def test_index_accounting_counts_tensor_bytes(tmp_path):
 
 @pytest.mark.mem
 def test_mem_surfaces_on_the_cpu_and_not_ported(monkeypatch):
-    # the JAX payload gains a "tiers" section once any JAX tiered store in
-    # this process has registered one (tests/test_tiered.py, in the same
-    # worker); the port has no tiered store, so compare against the JAX
-    # module as it is with no extra section registered
+    # each payload gains a "tiers" section once a tiered store of its package
+    # has registered one in this process (the tiered tests, in the same
+    # worker): compare the two with no extra section registered, then with
+    # each package's own
     monkeypatch.setattr(jmem, "_debug_sections", {})
+    monkeypatch.setattr(mem, "_debug_sections", {})
     assert mem.hbm_stats() == {}
     assert set(mem.debug_payload()) == set(jmem.debug_payload()) >= {
         "totals", "by_component", "top", "audit", "hbm"}
@@ -303,9 +304,14 @@ def test_mem_surfaces_on_the_cpu_and_not_ported(monkeypatch):
                          "headroom_frac", "spillable_bytes", "spillable_frac"}
     mem.note_workspace("pairwise", 1024)
     assert metrics.to_json()['raft_tpu_mem_workspace_bytes{op="pairwise"}'] == 1024
-    # plan() gives the JAX plan's numbers; gate_host admits unarmed and
-    # refuses as the JAX gate does armed; plan(tier=) waits for tiered stores
-    for kw in (dict(), dict(streamed=True, chunk_rows=256), dict(storage="tiered")):
+    # plan() gives the JAX plan's numbers (plan(tier=) too: a duck-typed
+    # policy with a disk_path moves the rows to the disk tier); gate_host
+    # admits unarmed and refuses as the JAX gate does armed
+    class Disk:
+        disk_path = "/nonexistent/cold"
+
+    for kw in (dict(), dict(streamed=True, chunk_rows=256), dict(storage="tiered"),
+               dict(storage="tiered", tier=object()), dict(storage="tiered", tier=Disk())):
         assert mem.plan("ivf_pq", None, 1000, 16, **kw) == jmem.plan("ivf_pq", None, 1000, 16,
                                                                      **kw)
     mem.gate_host(CPU, 1, site="x")
@@ -313,8 +319,10 @@ def test_mem_surfaces_on_the_cpu_and_not_ported(monkeypatch):
     with pytest.raises(errors.MemoryBudgetError) as exc:
         mem.gate_host(Resources(device="cpu", host_budget_bytes=used), 1, site="x")
     assert (exc.value.site, exc.value.need_bytes) == ("x/host", 1)
-    with pytest.raises(RaftError, match="not yet ported"):
-        mem.plan("ivf_pq", None, 1000, 16, tier=object())
+    assert mem.plan("ivf_pq", None, 1000, 16, storage="tiered", tier=Disk())["tiers"][
+        "disk"] == 1000 * 16 * 4
+    mem.register_debug_section("probe", lambda: {"ok": 1})
+    assert mem.debug_payload()["probe"] == {"ok": 1}
 
 
 # -- kernel builds and launch counters --------------------------------------------

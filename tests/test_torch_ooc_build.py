@@ -344,8 +344,12 @@ def test_plan_refusals():
         mem.plan("brute_force", None, 10, 10, dtype="float64")
     with pytest.raises(RaftError, match="storage"):
         mem.plan("brute_force", None, 10, 10, storage="disk")
-    with pytest.raises(RaftError, match="not yet ported"):
-        mem.plan("ivf_pq", None, 1000, 16, tier=object())
+    # a tier policy is taken as the JAX plan takes it (duck-typed on
+    # disk_path), not refused
+    for tier in (object(), type("Disk", (), {"disk_path": "/x"})()):
+        for storage in ("hbm", "tiered"):
+            assert (mem.plan("ivf_pq", None, 1000, 16, storage=storage, tier=tier)
+                    == jmem.plan("ivf_pq", None, 1000, 16, storage=storage, tier=tier))
 
 
 @pytest.mark.parametrize("kind", ["brute_force", "ivf_flat", "ivf_pq"])

@@ -722,14 +722,24 @@ def test_exact_and_refined_search(data, sealed):
 # -- refusals and guards -----------------------------------------------------------
 
 def test_left_out_pieces_raise_not_yet_ported(data, sealed, tmp_path):
+    """The pieces this file once pinned as "not yet ported" (tiered storage,
+    ``Compactor(drift=)``, ``load(tier=)``) now answer as the JAX package:
+    a tiered wrap works, misuse is refused with the JAX texts."""
     from raft_tpu.core.chunked import ChunkedReader
 
-    x, _, _ = data
+    x, _, q = data
     bf = brute_force.BruteForce().build(x, res=CPU)
-    for kw in (dict(storage="tiered"), dict(tier=object()),
-               dict(tier_residency="host")):
-        with pytest.raises(RaftError, match="not yet ported"):
+    jbf_ = jbf.BruteForce().build(jnp.asarray(x))
+    tiered = stream.MutableIndex(bf, storage="tiered", name="lp_tiered")
+    assert tiered.tiered_store is not None and tiered.tiered_store.residency == "host"
+    _assert_same(*tiered.search(q, 5), *js.MutableIndex(jbf_).search(jnp.asarray(q), 5),
+                 1e-5, q)
+    for kw in (dict(tier=stream.TierPolicy()), dict(tier_residency="host")):
+        with pytest.raises(RaftError) as e:
             stream.MutableIndex(bf, **kw)
+        with pytest.raises(Exception) as je:
+            js.MutableIndex(jbf_, **kw)
+        assert str(e.value) == str(je.value)
     _, _, load = sealed["ivf_flat"]
     ix = load(sealed["ivf_flat"][1], res=CPU)
     # a reader duck-typed as the chunked readers are (the JAX one here)
@@ -744,12 +754,12 @@ def test_left_out_pieces_raise_not_yet_ported(data, sealed, tmp_path):
     twin.compact("rebuild")
     for f in ivf_flat._STATE_ARRAYS:
         assert torch.equal(getattr(m._state.sealed, f), getattr(twin._state.sealed, f)), f
-    with pytest.raises(RaftError, match="not yet ported"):
+    with pytest.raises(RaftError, match="drift must be an obs.quality.DriftDetector"):
         stream.Compactor(m, drift=object())
     p = str(tmp_path / "m.stream")
     stream.save(m, p)
-    with pytest.raises(RaftError, match="not yet ported"):
-        stream.load(p, res=CPU, tier=object())
+    with pytest.raises(RaftError, match="applies to storage='tiered' only"):
+        stream.load(p, res=CPU, tier=stream.TierPolicy())
     assert set(stream.__all__) < set(js.__all__)
 
 
