@@ -4,7 +4,7 @@ end to end.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --phases 01  # build and kernel checks only
-    python3 chip_smoke.py --phases 0124567  # all but phase 3's timings
+    python3 chip_smoke.py --phases 01245678  # all but phase 3's timings
     python3 chip_smoke.py --out DIR    # where the profile tables go
                                        # (default build/profiles)
 
@@ -249,13 +249,54 @@ Phases, each printing JSON lines:
      equal to the all-HBM scan), and ``plan(storage="tiered",
      tier=TierPolicy(disk_path=...))`` against the ledger within 20%. Each
      prints QPS of both twins, the hit ratio, the host gather and fetch
-     walls, and one profiled batch (``tier_*_profile.txt``).
+     walls, and one profiled batch (``tier_*_profile.txt``);
+  8. the sharded and replicated mesh (``stream/sharded.py``,
+     ``stream/replicated.py``, after phase 7, on phase 2's corpora), every
+     shard on ``cuda:0`` (``devices=None``). (a) The scatter-gather ladder:
+     ``ShardedMutableIndex`` of IVF-Flat over the ``ivf_flat_1m_p8`` set at
+     S = 1, 2 and 4 with the proportional sizing of bench.py's sharded row
+     (``n_lists`` 1024/S, ``n_probes`` 32/S; bench.py:1465, :1526-1535),
+     ``retain_vectors=True``,
+     ``delta_capacity=4096``: S = 1 equal to a plain ``MutableIndex`` over
+     the same sealed index bit for bit (the 10k batch and a 64-row flush,
+     before and after one write script); at each S recall@10 of the 10k
+     batch against the mesh's ``exact_search`` >= 0.95, batch QPS, served
+     QPS and p50 / p99 under phase 4's load (8 threads x 400 one-row
+     requests, no failure, no kernel built), and one 64-row flush's device
+     busy ms and idle share, host syncs with their sites, and launches by
+     kernel. (b) Churn at S = 4: phase 5's writer (64 steps of 96 upserts +
+     32 deletes) against 8 readers, a ``Compactor`` folding one shard a
+     cycle at a delta fill of 0.25 (1,024 of 4,096 rows a shard; the four
+     shards share phase 5's writes): at least 2 folds on distinct shards,
+     no failure, no kernel built, read-your-writes, no deleted id read
+     back, a ``RecallCanary`` over the mesh whose Wilson interval holds the
+     recall measured against ``exact_search``, and a tripped
+     ``reshard_rows_per_shard`` advising a split to 8. (c) A 2-shard x
+     2-replica IVF-Flat mesh served through ``SearchService`` with 2 reader
+     threads and a writer: ``replica/search`` injected on twin r0 of shard
+     0 for a window (no failed query, strikes on that twin, healed by the
+     re-probe once the fault clears, no strike outside the window); then
+     ``reshard(4, publisher=svc)`` under the same load with a twin of
+     shard 1 killed mid-migration (no failed query, no kernel built, recall
+     before and after the flip >= 0.95 against the mesh oracle, every
+     acknowledged write there after it). (d) A brute-force 4-shard mesh of
+     the same set with a ``wal_dir``: a 10k batch and a 64-row flush equal
+     ``BruteForce.search`` (``knn_equiv`` at 1e-5); after a writer burst a
+     ``SimulatedCrash`` at ``reshard/flip`` during ``reshard(8)``, and
+     ``ShardedMutableIndex.load`` recovers 4 shards id for id (and distance
+     for distance) against an uncrashed twin; prints the recovery seconds.
+     (e) Tiered shards: phase 2's IVF-PQ parameters
+     (``ivf_pq_1m_lid_pq4x64_r4``, refine_ratio 4) as a 4-shard mesh with
+     ``storage="tiered"`` (host RAM, cold) beside an all-HBM 4-shard twin
+     over the same sealed indexes: ``search_refined`` of the 10k batch and a
+     64-row flush bit for bit, H2D exactly m x 4 x 40 x 512 B a batch;
+     prints both twins' QPS.
 
 The line before the last lists the kernels (``launches_stream``: phase 5's
 windows; ``launches_stream_folds``: the part of those that the compactions'
 folds made on the writer thread, CAGRA's rebuild graph build among them;
 ``launches_ooc``: phase 6's builds and searches; ``launches_tier``: phase
-7's);
+7's; ``launches_mesh``: phase 8's);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line; so does a machine without CUDA (exit 2),
@@ -3669,7 +3710,7 @@ STREAM_RECALL_GAP = 0.01        # the JAX rows' recall_gap bound (bench.py:1135-
 STREAM_DELETED = 0.03           # share of ids the pq_scan_topk check tombstones
 
 
-def churn_window(st, svc, name, m, comp, pool, fresh, n0, steps, eval_q):
+def churn_window(st, svc, name, m, comp, pool, fresh, n0, steps, eval_q, key="stream"):
     """The churn protocol of bench.py's ``_serve_churn_impl`` (bench.py:1217)
     on a published ``MutableIndex``: ``STREAM_THREADS`` closed-loop reader
     threads send one-row queries from ``pool`` while one writer runs
@@ -3682,8 +3723,9 @@ def churn_window(st, svc, name, m, comp, pool, fresh, n0, steps, eval_q):
     launch counters (set to 0 just before) and build attribution; the
     launches the folds make on the writer thread (``launch_tally``) are
     reported apart from the window's total, which also holds the reads
-    other threads served meanwhile. Returns what the window measured; every
-    read is checked afterwards for ids deleted before it was submitted."""
+    other threads served meanwhile; both add into ``st``'s
+    ``launches_<key>`` totals. Returns what the window measured; every read
+    is checked afterwards for ids deleted before it was submitted."""
     import threading
 
     import numpy as np
@@ -3792,6 +3834,7 @@ def churn_window(st, svc, name, m, comp, pool, fresh, n0, steps, eval_q):
                compaction_wall_s=[r["wall_s"] for r in reports],
                compaction_compile_s=[r["compile_s"] for r in reports],
                folded_rows=[r["folded"] for r in reports], modes=[r["mode"] for r in reports],
+               fold_shards=[r.get("shard") for r in reports],
                uploaded_bytes_per_step=(m.uploaded_bytes - uploaded0 - fold_bytes) / steps,
                uploaded_bytes_per_fold=fold_bytes / max(len(reports), 1),
                failed=len(failures), ryw_failures=len(ryw_bad), deleted_ids_seen=len(late),
@@ -3803,8 +3846,8 @@ def churn_window(st, svc, name, m, comp, pool, fresh, n0, steps, eval_q):
     assert not late, late[:3]
     assert rec.programs == 0 and rec.cache_misses == 0 and rec.cache_hits == 0, rec.summary()
     assert reports, "the writer never reached the compaction watermark"
-    add_counts(st.setdefault("launches_stream", {}), launches)
-    add_counts(st.setdefault("launches_stream_folds", {}), fold_launches)
+    add_counts(st.setdefault(f"launches_{key}", {}), launches)
+    add_counts(st.setdefault(f"launches_{key}_folds", {}), fold_launches)
     return out, snap
 
 
@@ -5087,10 +5130,592 @@ def phase_tier(st):
          card=st["card"])
 
 
+# -- phase 8: the sharded and replicated mesh (stream/sharded.py, replicated.py) --
+
+MESH_SHARDS = (1, 2, 4)
+# the sharded row's base operating point, divided by S (bench.py:1465,
+# :1526-1535): 8 / S probes kept recall@10 at 0.853 at S = 4 (2 of 256 lists
+# a shard) on an H100 80GB HBM3 at 700 W, below the mesh's 0.95 floor
+MESH_PROBES = 32
+MESH_CAP = 4096                  # delta_capacity a shard (bench.py's sharded row)
+MESH_FILL = 0.25                 # 1,024 of 4,096 rows a shard: 4 shards share phase 5's writes
+MESH_RECALL_FLOOR = 0.95         # recall@10 against the mesh's own exact oracle
+MESH_ADVICE_ROWS = 200_000       # reshard_rows_per_shard: 1M / 4 = 250k trips it
+MESH_CANARY_PER_THREAD = 125     # 8 threads: 1,000 served queries sampled by the canary
+MESH_FAULT_S, MESH_HEAL_S = 1.5, 1.0
+# the replicated mesh's writer: 32 upserts + 8 deletes every ~50 ms, 6,144
+# rows at most (3,072 a shard of 4,096), so it still writes as the reshard runs
+MESH_WRITER_ROWS, MESH_WRITER_DELETES, MESH_WRITER_FRESH = 32, 8, 6_144
+MESH_BURST_STEPS = 16            # the exact mesh's writer burst before the crash
+MESH_CHECK = 1_000               # queries the recovered mesh is held id for id on
+
+
+def mesh_reset(st):
+    """Add the launches since the last reset to phase 8's total, then reset."""
+    total = st.setdefault("launches_mesh", {})
+    add_counts(total, all_counts())
+    reset_all_counts()
+
+
+def mesh_strikes(mesh):
+    """{replica name: strikes so far} over every twin of a replicated mesh."""
+    return {r["replica"]: r["strikes_total"] for g in mesh.health()["shards"]
+            for r in g["replicas"]}
+
+
+def mesh_flush(st, hook, qd, label):
+    """One 64-row flush of a mesh hook as the service runs it: its host
+    syncs with their sites, its launches by kernel, and (torch.profiler) the
+    device's busy ms and idle share."""
+    import torch
+
+    from raft_tpu_torch.serve.service import _start_copy_to_host
+
+    hook(qd, K_MAIN)
+    torch.cuda.synchronize()
+    mesh_reset(st)
+    (_, done), sites = count_syncs(lambda: _start_copy_to_host(hook(qd, K_MAIN)))
+    done.synchronize()
+    launches = {kk: v for kk, v in all_counts().items() if v}
+    mesh_reset(st)
+    prof = profile_batch(st, f"{label} flush", f"mesh_{label}_flush_profile.txt",
+                         lambda: _start_copy_to_host(hook(qd, K_MAIN))[1].synchronize(),
+                         what=f"{qd.shape[0]}-row flush")
+    mesh_reset(st)
+    return dict(host_syncs=len(sites), sync_sites=sites, launches=launches,
+                device_busy_ms=prof["device_busy_ms"], idle_share=prof["idle_share"],
+                wall_ms=prof["wall_ms"])
+
+
+def mesh_serve(svc, name, pool, threads, per_thread):
+    """phase 4's closed-loop load on a published mesh; returns QPS, p50 /
+    p99, the failures and the kernel builds in the window."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.obs import compile as obs_compile
+
+    with obs_compile.attribution() as rec:
+        lats, _, failures, load_s, _ = serve_load(svc, name, pool, threads, per_thread,
+                                                  K_MAIN, 0)
+    torch.cuda.synchronize()
+    lat = np.sort(np.array(lats)) * 1e3
+    return dict(qps=len(lats) / load_s, p50_ms=float(lat[len(lat) // 2]),
+                p99_ms=float(lat[int(len(lat) * 0.99) - 1]), requests=threads * per_thread,
+                failed=len(failures), failures=failures[:3], builds=rec.summary())
+
+
+def mesh_ladder(st, xh, q, pool, centers):
+    """Phase 8 (a): the scatter-gather ladder at S = 1, 2, 4. Returns the
+    S = 4 mesh for (b)."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import stream
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serve import SearchService
+
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+    qf = q[:TIER_FLUSH].contiguous()
+    keep = None
+    for S in MESH_SHARDS:
+        params = ivf_flat.IndexParams(n_lists=IVF_FLAT_LISTS // S, seed=0)
+        sp = ivf_flat.SearchParams(n_probes=max(MESH_PROBES // S, 1))
+
+        def build(rows, params=params):
+            return ivf_flat.build(params, torch.from_numpy(rows).to(dev), res=res)
+
+        mesh_reset(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh = stream.ShardedMutableIndex(xh, n_shards=S, build=build, search_params=sp,
+                                          delta_capacity=MESH_CAP, retain_vectors=True,
+                                          name=f"mesh_s{S}")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        line = dict(phase="mesh", part="a", shards=S, n=N_MAIN, d=D_MAIN, k=K_MAIN,
+                    n_lists=params.n_lists, n_probes=sp.n_probes, delta_capacity=MESH_CAP,
+                    build_seconds=build_s,
+                    shard_rows=[sh.stats()["sealed_rows"] for sh in mesh.shards])
+        d, i = mesh.search(q, K_MAIN)
+        if S == 1:
+            # the plain index over the same sealed index: the composition
+            # (scan halves, pads, one merge) must change nothing
+            plain = stream.MutableIndex(mesh.shards[0]._state.sealed, search_params=sp,
+                                        delta_capacity=MESH_CAP, name="mesh_plain")
+            rows = blobs(STREAM_UPSERTS, centers, 41, 0.5)[0].cpu().numpy()
+            ids = N_MAIN + np.arange(STREAM_UPSERTS)
+            parity = []
+            for step in range(2):
+                with uncounted():
+                    want = (plain.search(q, K_MAIN), plain.search(qf, K_MAIN))
+                got = (mesh.search(q, K_MAIN), mesh.search(qf, K_MAIN))
+                parity.append(bit_equal(want[0], got[0]) and bit_equal(want[1], got[1]))
+                if step == 0:
+                    for m in (mesh, plain):
+                        m.upsert(rows, ids=ids)
+                        m.delete(np.arange(0, 100 * STREAM_DELETES, 100))
+            line["plain_parity_before_after_writes"] = parity
+            assert all(parity), f"the 1-shard mesh differs from a plain MutableIndex: {parity}"
+            d, i = mesh.search(q, K_MAIN)
+            del plain
+        _, ex = mesh.exact_search(q, K_MAIN)
+        rec10 = recall(i, ex)
+        batch_s = timed(lambda: mesh.search(q, K_MAIN), 3)
+        svc = SearchService(max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US,
+                            max_queue_rows=4 * SERVE_MAX_BATCH * SERVE_THREADS)
+        svc.publish(f"mesh_s{S}", mesh, k=K_MAIN)
+        warm = mesh.warm(svc.buckets, ks=(K_MAIN,))
+        mesh_reset(st)
+        served = mesh_serve(svc, f"mesh_s{S}", pool, SERVE_THREADS, SERVE_PER_THREAD)
+        svc.shutdown()
+        flush = mesh_flush(st, mesh.searcher(), qf, f"s{S}")
+        line.update(recall_at_10=rec10, recall_floor=MESH_RECALL_FLOOR,
+                    qps_batch=CAGRA_Q / batch_s, seconds_per_batch=batch_s, served=served,
+                    warm_builds=sum(v["programs"] for v in warm[K_MAIN].values()),
+                    flush=flush, card=st["card"])
+        emit(**line)
+        assert rec10 >= MESH_RECALL_FLOOR, (S, rec10)
+        assert served["failed"] == 0, served["failures"]
+        assert served["builds"]["programs"] == 0, served["builds"]
+        assert flush["launches"].get("topk", 0) > 0, flush["launches"]
+        if S == MESH_SHARDS[-1]:
+            keep = mesh
+        else:
+            del mesh
+        del d, i, ex
+        torch.cuda.synchronize()
+    return keep
+
+
+def mesh_churn(st, mesh, pool, centers):
+    """Phase 8 (b): phase 5's writer against the S = 4 mesh, one shard folded
+    a Compactor cycle, then a RecallCanary over the quiet mesh."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import stream
+    from raft_tpu_torch.obs import quality
+    from raft_tpu_torch.serve import SearchService
+
+    S = mesh.n_shards
+    n_up = STREAM_STEPS * STREAM_UPSERTS
+    fresh = blobs(n_up, centers, 42, 0.5)[0].cpu().numpy()
+    svc = SearchService(max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US,
+                        max_queue_rows=4 * SERVE_MAX_BATCH * STREAM_THREADS)
+    svc.publish("mesh_churn", mesh, k=K_MAIN)
+    mesh.warm(svc.buckets, ks=(K_MAIN,))
+    policy = stream.CompactionPolicy(delta_fill=MESH_FILL, tombstone_ratio=None,
+                                     reshard_rows_per_shard=MESH_ADVICE_ROWS)
+    comp = stream.Compactor(mesh, publisher=svc, name="mesh_churn", ks=(K_MAIN,),
+                            policy=policy)
+    mesh_reset(st)
+    out, _ = churn_window(st, svc, "mesh_churn", mesh, comp, pool, fresh, N_MAIN,
+                          STREAM_STEPS, pool[:STREAM_EVAL], key="mesh")
+    reset_all_counts()               # churn_window added its window to launches_mesh
+    svc.shutdown()
+    advice = comp.last_advice
+    shards_folded = out["fold_shards"]
+
+    # the canary over the quiet mesh: every served query sampled, drained
+    # through the mesh's exact oracle
+    canary = quality.RecallCanary(quality.exact_oracle(mesh), k=K_MAIN, sample_rate=1.0,
+                                  reservoir=SERVE_THREADS * MESH_CANARY_PER_THREAD,
+                                  buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
+                                  name="mesh_canary", seed=0)
+    sampled = []
+    offer = canary.offer
+
+    def keep(queries, ids):
+        sampled.extend(zip(np.array(queries), np.array(ids)))
+        return offer(queries, ids)
+
+    canary.offer = keep
+    svc = SearchService(max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US,
+                        max_queue_rows=4 * SERVE_MAX_BATCH * SERVE_THREADS, canary=canary)
+    svc.publish("mesh_canary", mesh, k=K_MAIN)
+    served = mesh_serve(svc, "mesh_canary", pool, SERVE_THREADS, MESH_CANARY_PER_THREAD)
+    svc.shutdown()
+    t0 = time.perf_counter()
+    drained = canary.drain()
+    drain_s = time.perf_counter() - t0
+    est = canary.estimate()
+    qs = np.stack([row for row, _ in sampled])
+    ids = torch.from_numpy(np.stack([got for _, got in sampled])).cuda()
+    measured = recall(ids, mesh.exact_search(qs, K_MAIN)[1])
+    mesh_reset(st)
+    emit(phase="mesh", part="b", shards=S, threads=STREAM_THREADS, writer_steps=STREAM_STEPS,
+         upserts_per_step=STREAM_UPSERTS, deletes_per_step=STREAM_DELETES,
+         delta_capacity=MESH_CAP, compact_fill=MESH_FILL, **out, advice=advice,
+         canary=est, canary_drained=drained, canary_drain_seconds=drain_s,
+         measured_recall=measured, in_interval=canary.in_interval(measured),
+         canary_served=served, stats={kk: v for kk, v in mesh.stats().items()
+                                      if kk != "per_shard"}, card=st["card"])
+    assert out["compactions"] >= 2, out["compactions"]
+    assert len(set(shards_folded)) >= 2 and len(set(shards_folded)) == len(shards_folded), (
+        shards_folded)
+    assert advice is not None and advice["action"] == "split" and advice["target"] == 2 * S, (
+        advice)
+    assert served["failed"] == 0, served["failures"]
+    assert drained == len(sampled) > 0 and canary.in_interval(measured), (measured, est)
+
+
+def mesh_replicas(st, xh, q, pool, centers):
+    """Phase 8 (c): a 2-shard x 2-replica IVF-Flat mesh under 2 readers and
+    a writer: a fault window on shard 0's preferred twin, then a reshard to
+    4 with a twin of shard 1 killed mid-migration."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import stream
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.serve import SearchService
+    from raft_tpu_torch.testing import faults
+
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+    S = 2
+    params = ivf_flat.IndexParams(n_lists=IVF_FLAT_LISTS // S, seed=0)
+    sp = ivf_flat.SearchParams(n_probes=MESH_PROBES // S)
+
+    def build(rows):
+        return ivf_flat.build(params, torch.from_numpy(rows).to(dev), res=res)
+
+    t0 = time.perf_counter()
+    mesh = stream.ShardedMutableIndex(
+        xh, n_shards=S, replicas=2, build=build, search_params=sp, delta_capacity=MESH_CAP,
+        retain_vectors=True, name="mesh_r",
+        fencing=stream.FencingPolicy(max_consecutive=1, backoff_s=0.05, backoff_max_s=0.2))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    svc = SearchService(max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US,
+                        max_queue_rows=4 * SERVE_MAX_BATCH * SERVE_THREADS)
+    svc.publish("mesh_r", mesh, k=K_MAIN)
+    mesh.warm(svc.buckets, ks=(K_MAIN,))
+    fresh = blobs(MESH_WRITER_FRESH, centers, 43, 0.5)[0].cpu().numpy()
+    stop = threading.Event()
+    lock = threading.Lock()
+    failures, reads = [], [0]
+    written = {"up": 0, "del": 0, "ids": []}
+    rng = np.random.default_rng(44)
+
+    def reader(tid):
+        j = 0
+        while not stop.is_set():
+            qi = (tid + 2 * j) % pool.shape[0]
+            j += 1
+            try:
+                svc.search("mesh_r", pool[qi:qi + 1], K_MAIN)
+            except Exception as e:  # every loss fails the phase
+                with lock:
+                    failures.append(f"{type(e).__name__}: {str(e)[:120]}")
+                continue
+            with lock:
+                reads[0] += 1
+
+    def writer():
+        step = 0
+        while not stop.is_set() and (step + 1) * MESH_WRITER_ROWS <= fresh.shape[0]:
+            lo = step * MESH_WRITER_ROWS
+            ids = 3_000_000 + np.arange(lo, lo + MESH_WRITER_ROWS)
+            try:
+                svc.upsert("mesh_r", fresh[lo:lo + MESH_WRITER_ROWS], ids=ids)
+                dels = rng.choice(N_MAIN, MESH_WRITER_DELETES, replace=False)
+                killed = svc.delete("mesh_r", dels)
+            except Exception as e:
+                with lock:
+                    failures.append(f"write {type(e).__name__}: {str(e)[:120]}")
+                return
+            with lock:
+                written["up"] += MESH_WRITER_ROWS
+                written["del"] += killed
+                written["ids"].append(ids)
+            step += 1
+            time.sleep(0.05)
+
+    workers = [threading.Thread(target=reader, args=(t,)) for t in range(2)]
+    workers.append(threading.Thread(target=writer))
+    mesh_reset(st)
+    for w in workers:
+        w.start()
+    try:
+        time.sleep(0.5)
+        s0 = mesh_strikes(mesh)
+        # the preferred twin of shard 0: the read pick's lowest scan-wall EWMA
+        twins = mesh.health()["shards"][0]["replicas"]
+        target = min(twins, key=lambda r: r["ewma_ms"] or 0.0)["replica"]
+        with faults.scope():
+            faults.inject("replica/search", exc=faults.FaultError("injected"),
+                          match=lambda c: c["replica"] == target)
+            time.sleep(MESH_FAULT_S)
+            fired = faults.fired("replica/search")
+        time.sleep(0.2)              # scans in flight when the fault cleared end
+        s_end = mesh_strikes(mesh)
+        reads_window = reads[0]
+        time.sleep(MESH_HEAL_S)      # the backoff expires and a re-probe heals r0
+        s_after = mesh_strikes(mesh)
+        health = mesh.health()["shards"][0]
+        healed = all(not r["fenced"] and r["consecutive_strikes"] == 0
+                     for r in health["replicas"])
+        fault = dict(target=target, fired=fired, strikes_before=s0, strikes_at_window_end=s_end,
+                     strikes_after_heal=s_after, healed=healed, reads_to_window_end=reads_window,
+                     failed=len(failures))
+
+        # ---- reshard(4) under the same load, a twin of shard 1 killed -------------
+        qc = q[:MESH_CHECK]
+        rec_before = recall(mesh.search(qc, K_MAIN)[1], mesh.exact_search(qc, K_MAIN)[1])
+
+        def kill(ctx):
+            # shard 1's preferred twin dies as the first donor folds
+            twins = mesh.health()["shards"][1]["replicas"]
+            dead = min(twins, key=lambda r: r["ewma_ms"] or 0.0)["replica"]
+            killed.append(dead)
+            faults.inject("replica/search", exc=faults.FaultError("killed mid-migration"),
+                          match=lambda c: c["replica"] == dead)
+
+        killed = []
+
+        with faults.scope():
+            faults.inject("reshard/split", callback=kill, times=1)
+            with obs_compile.attribution() as rec:
+                rep = mesh.reshard(2 * S, publisher=svc, name="mesh_r", ks=(K_MAIN,))
+            killed_fired = faults.fired("replica/search")
+        time.sleep(0.3)
+    finally:
+        stop.set()
+        for w in workers:
+            w.join(120)
+    assert not any(w.is_alive() for w in workers), "a mesh reader or writer did not finish"
+    svc.shutdown()
+    rec_after = recall(mesh.search(qc, K_MAIN)[1], mesh.exact_search(qc, K_MAIN)[1])
+    expect = N_MAIN + written["up"] - written["del"]
+    last = written["ids"][-1] if written["ids"] else None
+    ryw = None
+    if last is not None:
+        lo, n = int(last[0]) - 3_000_000, min(STREAM_RYW, len(last))
+        _, got = mesh.search(fresh[lo:lo + n], K_MAIN)
+        ryw = got[:, 0].cpu().tolist() == last[:n].tolist()
+    mesh_reset(st)
+    emit(phase="mesh", part="c", shards=S, replicas=2, build_seconds=build_s, fault=fault,
+         reshard=dict(to=mesh.n_shards, wall_s=rep["wall_s"], rows_moved=rep["rows_moved"],
+                      steps=[{kk: v for kk, v in stp.items() if kk != "publish"}
+                             for stp in rep["steps"]],
+                      builds=rec.summary(), killed=killed, killed_fired=killed_fired),
+         recall_before=rec_before, recall_after=rec_after, recall_floor=MESH_RECALL_FLOOR,
+         reads=reads[0], failed=len(failures), failures=failures[:3],
+         writes=dict(upserted=written["up"], deleted=written["del"],
+                     writer_done=len(written["ids"]) * MESH_WRITER_ROWS >= fresh.shape[0]),
+         size=mesh.size,
+         size_expected=expect, last_write_read_back=ryw, stats={
+             kk: v for kk, v in mesh.stats().items() if kk != "per_shard"}, card=st["card"])
+    assert not failures, failures[:5]
+    assert fired > 0 and s_end[target] > 0, fault
+    assert all(v == 0 for v in s0.values()), s0
+    assert all(v == 0 for kk, v in s_end.items() if kk != target), s_end
+    assert s_after == s_end, (s_end, s_after)
+    assert healed, health
+    assert mesh.n_shards == 2 * S and killed_fired > 0, (mesh.n_shards, killed_fired)
+    assert rec.programs == 0, rec.summary()
+    assert rec_before >= MESH_RECALL_FLOOR and rec_after >= MESH_RECALL_FLOOR, (
+        rec_before, rec_after)
+    assert mesh.size == expect and ryw in (True, None), (mesh.size, expect, ryw)
+    del mesh
+    torch.cuda.synchronize()
+
+
+def mesh_exact(st, x, xh, q, centers, tmp):
+    """Phase 8 (d): a brute-force 4-shard mesh with a wal_dir, held against
+    BruteForce.search, crashed at reshard/flip and recovered."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import stream
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors.brute_force import BruteForce
+    from raft_tpu_torch.testing import faults
+
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+    S = 4
+
+    def build(rows):
+        return BruteForce("sqeuclidean").build(torch.from_numpy(rows).to(dev), res=res)
+
+    wal_dir = os.path.join(tmp, "mesh_exact")
+    mesh_reset(st)
+    t0 = time.perf_counter()
+    mesh = stream.ShardedMutableIndex(xh, n_shards=S, build=build, delta_capacity=MESH_CAP,
+                                      wal_dir=wal_dir, name="mesh_exact")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    qf = q[:TIER_FLUSH].contiguous()
+    bd, bi = mesh.search(q, K_MAIN)
+    fd, fi = mesh.search(qf, K_MAIN)
+    torch.cuda.synchronize()
+    with uncounted():
+        ref = BruteForce("sqeuclidean").build(x, res=res)
+        rd, ri = ref.search(q, K_MAIN)
+        rfd, rfi = ref.search(qf, K_MAIN)
+    err = max(knn_equiv(bd, bi, rd, ri, 1e-5, 1e-5), knn_equiv(fd, fi, rfd, rfi, 1e-5, 1e-5))
+    ids_equal = (int((bi == ri).all(1).sum()), int((fi == rfi).all(1).sum()))
+    del ref, rd, ri, rfd, rfi, bd, bi, fd, fi
+    batch_s = timed(lambda: mesh.search(q, K_MAIN), 3)
+
+    # the writer's burst, on the durable mesh and an uncrashed twin
+    twin = stream.ShardedMutableIndex(xh, n_shards=S, build=build, delta_capacity=MESH_CAP,
+                                      name="mesh_exact_twin")
+    rows = blobs(MESH_BURST_STEPS * STREAM_UPSERTS, centers, 45, 0.5)[0].cpu().numpy()
+    rng = np.random.default_rng(46)
+    t0 = time.perf_counter()
+    for step in range(MESH_BURST_STEPS):
+        lo = step * STREAM_UPSERTS
+        ids = 4_000_000 + np.arange(lo, lo + STREAM_UPSERTS)
+        dels = rng.choice(N_MAIN, STREAM_DELETES, replace=False)
+        for m in (mesh, twin):
+            m.upsert(rows[lo:lo + STREAM_UPSERTS], ids=ids)
+            m.delete(dels)
+    burst_s = time.perf_counter() - t0
+    with faults.scope():
+        faults.inject("reshard/flip", faults.SimulatedCrash("kill -9"))
+        t0 = time.perf_counter()
+        try:
+            mesh.reshard(2 * S)
+            crashed = False
+        except faults.SimulatedCrash:
+            crashed = True
+        crash_s = time.perf_counter() - t0
+    assert crashed, "the injected crash at reshard/flip did not fire"
+    del mesh                         # the process is gone; the directory stays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = stream.ShardedMutableIndex.load(wal_dir, build=build, res=res)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    qc = q[:MESH_CHECK]
+    got, want = rec.search(qc, K_MAIN), twin.search(qc, K_MAIN)
+    torch.cuda.synchronize()
+    same = bit_equal(got, want)
+    mesh_reset(st)
+    emit(phase="mesh", part="d", kind="brute_force", shards=S, build_seconds=build_s,
+         wal_dir_files=sorted(os.listdir(wal_dir)), max_abs_err=err,
+         rows_with_equal_ids={"batch": ids_equal[0], "flush": ids_equal[1]},
+         qps_batch=CAGRA_Q / batch_s, burst_steps=MESH_BURST_STEPS, burst_seconds=burst_s,
+         crash_at="reshard/flip", reshard_to=2 * S, crash_seconds=crash_s,
+         recovered_shards=rec.n_shards, recovery_seconds=recovery_s,
+         replayed=rec.last_recovery["replayed"], torn=rec.last_recovery["torn"],
+         recovered_equal_twin=same, size=rec.size, twin_size=twin.size, card=st["card"])
+    assert rec.n_shards == S and rec.last_recovery["replayed"] > 0, rec.last_recovery
+    assert same and rec.size == twin.size, (same, rec.size, twin.size)
+    del rec, twin
+    torch.cuda.synchronize()
+
+
+def mesh_tiered(st):
+    """Phase 8 (e): phase 2's IVF-PQ parameters as a 4-shard tiered mesh
+    beside an all-HBM twin over the same sealed indexes."""
+    import torch
+
+    from raft_tpu_torch import stream
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+    S, r = 4, 4
+    _, q = st["ivf"]
+    xh = st["ivf_x"].cpu().numpy()
+    params = ivf_pq.IndexParams(n_lists=1024, pq_bits=4, pq_dim=64, seed=0)
+    sp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
+    built = []
+
+    def build(rows):
+        built.append(ivf_pq.build(params, torch.from_numpy(rows).to(dev), res=res))
+        return built[-1]
+
+    mesh_reset(st)
+    t0 = time.perf_counter()
+    tiered = stream.ShardedMutableIndex(xh, n_shards=S, build=build, search_params=sp,
+                                        delta_capacity=MESH_CAP, storage="tiered",
+                                        name="mesh_tier")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prebuilt = iter(built)
+    hbm = stream.ShardedMutableIndex(xh, n_shards=S, build=lambda rows: next(prebuilt),
+                                     search_params=sp, delta_capacity=MESH_CAP,
+                                     name="mesh_tier_hbm")
+    stores = [sh.tiered_store for sh in tiered.shards]
+    assert all(ts.residency == "host" and not ts.mirror_resident for ts in stores)
+    qf = q[:TIER_FLUSH].contiguous()
+    equal = (bit_equal(hbm.search_refined(q, K_MAIN, r), tiered.search_refined(q, K_MAIN, r))
+             and bit_equal(hbm.search_refined(qf, K_MAIN, r),
+                           tiered.search_refined(qf, K_MAIN, r)))
+    torch.cuda.synchronize()
+    h0 = sum(ts.stats()["h2d_bytes"] for ts in stores)
+    tiered.search_refined(q, K_MAIN, r)
+    torch.cuda.synchronize()
+    h2d = sum(ts.stats()["h2d_bytes"] for ts in stores) - h0
+    expect = IVF_Q * S * K_MAIN * r * D_MAIN * 4
+    mesh_reset(st)
+    tier_s = timed(lambda: tiered.search_refined(q, K_MAIN, r), 3)
+    counts = all_counts()
+    hbm_s = timed(lambda: hbm.search_refined(q, K_MAIN, r), 3)
+    mesh_reset(st)
+    emit(phase="mesh", part="e", shards=S, n=N_MAIN, d=D_MAIN, m=IVF_Q, k=K_MAIN,
+         refine_ratio=r, params="n_lists=1024, pq_dim=64, pq_bits=4 a shard",
+         build_seconds=build_s, refined_bit_equal=equal, h2d_bytes_per_batch=h2d,
+         h2d_expected=expect, qps_batch_tiered=IVF_Q / tier_s, qps_batch_hbm=IVF_Q / hbm_s,
+         launches_per_tiered_batch={kk: v / 3 for kk, v in counts.items() if v},
+         residency=[ts.residency for ts in stores], card=st["card"])
+    assert equal, "the tiered mesh's search_refined differs from its all-HBM twin"
+    assert h2d == expect, (h2d, expect)
+    assert counts["pq_scan_topk"] > 0, counts
+    del tiered, hbm, built, stores
+    torch.cuda.synchronize()
+
+
+def phase_mesh(st):
+    """Phase 8: the sharded and replicated mesh on one card (see the module
+    docstring)."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    reset_all_counts()
+    st["launches_mesh"] = {}
+    dev = torch.device("cuda")
+    x, q, _, _ = cagra_data()
+    xh = x.cpu().numpy()
+    pool = q.cpu().numpy()
+    centers = 10.0 * torch.rand((CAGRA_CENTERS, D_MAIN), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(20))
+    mesh = mesh_ladder(st, xh, q, pool, centers)
+    mesh_churn(st, mesh, pool, centers)
+    del mesh
+    torch.cuda.synchronize()
+    mesh_replicas(st, xh, q, pool, centers)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_exact(st, x, xh, q, centers, tmp)
+    del x, xh
+    mesh_tiered(st)
+    mesh_reset(st)
+    total = st["launches_mesh"]
+    for name in ("fused_knn", "topk", "pq_scan_topk"):
+        assert total.get(name, 0) > 0, (name, total)
+    emit(phase="mesh_launches", launches=total, launches_folds=st.get("launches_mesh_folds"),
+         seconds=time.perf_counter() - t_phase, card=st["card"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="01234567",
-                    help="phases to run, e.g. 01 (default: all); 4, 5, 6 and 7 need 2")
+    ap.add_argument("--phases", default="012345678",
+                    help="phases to run, e.g. 01 (default: all); 4, 5, 6, 7 and 8 need 2")
     ap.add_argument("--out", default=os.path.join("build", "profiles"),
                     help="directory for the IVF-PQ, CAGRA and IVF-Flat profile tables")
     args = ap.parse_args(argv)
@@ -5117,8 +5742,8 @@ def main(argv=None):
     phase_build(st)
     if "1" in args.phases:
         phase_kernels(st)
-    if any(p in args.phases for p in "4567") and "2" not in args.phases:
-        print("chip_smoke: phases 4, 5, 6 and 7 use phase 2's indexes; run them with 2",
+    if any(p in args.phases for p in "45678") and "2" not in args.phases:
+        print("chip_smoke: phases 4, 5, 6, 7 and 8 use phase 2's indexes; run them with 2",
               file=sys.stderr)
         return 2
     if "2" in args.phases:
@@ -5139,6 +5764,8 @@ def main(argv=None):
         phase_ooc(st)
     if "7" in args.phases:
         phase_tier(st)
+    if "8" in args.phases:
+        phase_mesh(st)
     if "3" in args.phases and "2" in args.phases:
         time_fused_modes(st)
         time_f32_routes(st)
@@ -5155,6 +5782,11 @@ def main(argv=None):
         folds = st.get("launches_stream_folds")
         ooc = st.get("launches_ooc")
         tier = st.get("launches_tier")
+        mesh = st.get("launches_mesh")
+
+        def in_mesh(name):
+            # phase 8's launches, 0 where it made none (None: phase 8 not run)
+            return None if mesh is None else mesh.get(name, 0)
 
         def in_tier(name):
             # phase 7's launches, 0 where it made none (None: phase 7 not run)
@@ -5177,7 +5809,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_rows"),
                  launches_stream=strm.get("fused_knn_rows"),
                  launches_stream_folds=fold("fused_knn_rows"),
-                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"),
+                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"), launches_mesh=in_mesh("fused_knn_rows"),
                  max_abs_err=st["f32_err"]["rows"], m_small=fk.M_SMALL, merge=st["merge_t"],
                  **st["rows_t"]),
             dict(name="fused_knn_tf32x3", route="cuda",
@@ -5187,7 +5819,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_tf32x3"),
                  launches_stream=strm.get("fused_knn_tf32x3"),
                  launches_stream_folds=fold("fused_knn_tf32x3"),
-                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"),
+                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"), launches_mesh=in_mesh("fused_knn_tf32x3"),
                  max_abs_err=st["f32_err"]["tf32x3"], tf32x3_gate=st["tf32x3_gate"],
                  **st["f32_t"]),
             dict(name="fused_knn_tc", route="cuda",
@@ -5197,7 +5829,7 @@ def main(argv=None):
                  launches_by_mode=st["tc_launches"],
                  launches_stream=strm.get("fused_knn_tc"),
                  launches_stream_folds=fold("fused_knn_tc"),
-                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"),
+                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"), launches_mesh=in_mesh("fused_knn_tc"),
                  max_abs_err=st["tc_err"],
                  **{key: st["fused_modes_t"]["bf16"][key]
                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -5207,7 +5839,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/fused_knn.py:139", launches=st["split_launches"],
                  launches_stream=strm.get("bf16_split"),
                  launches_stream_folds=fold("bf16_split"),
-                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"),
+                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"), launches_mesh=in_mesh("bf16_split"),
                  launches_on="knn(compute='float32x3')", max_abs_err=0.0, **st["split_t"]),
             dict(name="tf32_split", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
@@ -5215,7 +5847,7 @@ def main(argv=None):
                  launches_serve=serve.get("tf32_split"),
                  launches_stream=strm.get("tf32_split"),
                  launches_stream_folds=fold("tf32_split"),
-                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"),
+                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"), launches_mesh=in_mesh("tf32_split"),
                  launches_on="BruteForce.search, 10,000 queries (mode f32's batch route)",
                  max_abs_err=0.0, **st["tf32_split_t"]),
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
@@ -5223,7 +5855,7 @@ def main(argv=None):
                  launches_ivf_flat=launches["topk_ivf_flat"],
                  launches_serve=serve.get("topk"), launches_stream=strm.get("topk"),
                  launches_stream_folds=fold("topk"),
-                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"),
+                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"), launches_mesh=in_mesh("topk"),
                  launches_ball_cover={m: launches[f"topk_ball_cover_{m}"]
                                       for m in ("sqeuclidean", "haversine")},
                  max_abs_err=st["topk_err"], **st["topk_t"]),
@@ -5232,7 +5864,7 @@ def main(argv=None):
                  launches_on="ivf_pq.search, select_impl='xla'",
                  launches_stream=strm.get("pq_scan"),
                  launches_stream_folds=fold("pq_scan"),
-                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"),
+                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"), launches_mesh=in_mesh("pq_scan"),
                  launches_funnel=launches["pq_scan_opq_anisotropic_4bit"],
                  max_abs_err=st["pq_err"], **st["pq_t"]),
             dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
@@ -5240,7 +5872,7 @@ def main(argv=None):
                  launches_serve=serve.get("pq_scan_topk"),
                  launches_stream=strm.get("pq_scan_topk"),
                  launches_stream_folds=fold("pq_scan_topk"),
-                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"),
+                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"), launches_mesh=in_mesh("pq_scan_topk"),
                  launches_filtered={str(f): launches[f"pq_scan_topk_filtered_{f}"]
                                     for f in FILTER_KEEP},
                  launches_codecs={n: launches[f"pq_scan_topk_{n}"]
@@ -5251,7 +5883,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
                  launches_serve=serve.get("cagra_hop"), launches_stream=strm.get("cagra_hop"),
                  launches_stream_folds=fold("cagra_hop"),
-                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"),
+                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"), launches_mesh=in_mesh("cagra_hop"),
                  launches_int8_rows=launches["cagra_hop_int8"],
                  max_abs_err=st["hop_err"], **st["hop_t"]),
         ])

@@ -52,7 +52,7 @@ class MemoryBudgetError(OverloadedError):
 
 
 class ReplicaUnavailableError(ServeError):
-    """EVERY replica of a ``stream.ReplicatedShard`` (not yet ported) is
+    """EVERY replica of a ``stream.ReplicatedShard`` is
     fenced or failed — the query cannot be served by any twin. One dead
     replica never raises this (the scatter retries the survivor in the
     same flush, which is the availability contract); all-dead is a real

@@ -20,22 +20,34 @@ Counterpart of raft_tpu/stream, with the names that are ported:
 - :class:`TieredStore` / :class:`TierPolicy` — beyond-HBM storage of the
   refine rows (host RAM, an mmap file or an adopted memmap, a device mirror
   placed by the budget), behind ``MutableIndex(storage="tiered")``.
-
-Not yet ported: ``ShardedMutableIndex`` / ``shard_of`` (``sharded.py``) and
-``ReplicatedShard`` / ``FencingPolicy`` (``replicated.py``), which wait for
-``comms/``, and with them the sharded and replicated tiered stores.
+- :class:`ReplicatedShard` / :class:`FencingPolicy` — R MutableIndex twins
+  behind one surface: writes in lockstep with whole-or-nothing admission,
+  reads on one twin picked by health and latency with same-call failover,
+  a strike breaker with doubling-backoff re-probes.
+- :class:`ShardedMutableIndex` / :func:`shard_of` — the lifecycle across S
+  hash-routed shards: one top-k merge over every shard's sealed and delta
+  candidates, one shard folded a Compactor cycle, ``replicas=R`` groups,
+  ``storage="tiered"`` shards, online power-of-two ``reshard``, and mesh
+  durability (a WAL per shard group, atomic snapshots, the topology
+  manifest) in the JAX package's files. On one card every shard runs on
+  the same device; ``comms=`` is not yet ported.
 """
 
-from . import compactor, mutable, tiered, wal
+from . import compactor, mutable, replicated, sharded, tiered, wal
 from .compactor import CompactionPolicy, Compactor
 from .mutable import (DELTA_MIN_BUCKET, DeltaFullError, MutableIndex,
                       delta_buckets, load, save)
+from .replicated import FencingPolicy, ReplicatedShard
+from .sharded import ShardedMutableIndex, shard_of
 from .tiered import TieredStore, TierPolicy
 from .wal import WalCorruptError, WriteAheadLog
 
 __all__ = [
-    "mutable", "compactor", "wal", "tiered", "TieredStore", "TierPolicy",
+    "mutable", "compactor", "sharded", "replicated", "wal", "tiered",
+    "TieredStore", "TierPolicy",
     "MutableIndex", "DeltaFullError", "DELTA_MIN_BUCKET", "delta_buckets",
+    "ShardedMutableIndex", "shard_of",
+    "ReplicatedShard", "FencingPolicy",
     "WriteAheadLog", "WalCorruptError",
     "Compactor", "CompactionPolicy",
     "save", "load",

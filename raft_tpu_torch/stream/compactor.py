@@ -22,15 +22,22 @@ Watermarks (:class:`CompactionPolicy`):
 The worker thread is a thin poll loop around :meth:`Compactor.run_once`,
 which tests and ``chip_smoke.py``'s churn phase drive directly.
 
-The reshard advisory (``last_advice``) is None: only a sharded index can
-reshard, and ``stream/sharded.py`` is not ported. ``drift=`` (an
-:class:`raft_tpu_torch.obs.quality.DriftDetector`) gets the corpus-side feed
-of each fold.
+A :class:`~raft_tpu_torch.stream.ShardedMutableIndex` is driven unchanged:
+its ``stats()`` reports the binding shard's watermarks and its ``compact()``
+folds one shard a call, so one ``run_once`` is one staggered shard fold and
+one warm republish. Over a mesh the policy's reshard watermarks
+(``reshard_rows_per_shard`` / ``reshard_min_rows_per_shard``) also arm the
+reshard advisory (``last_advice``, the ``reshard_advised`` /
+``reshard_advice_cleared`` events): advice only, applied by whoever calls
+``reshard``. ``drift=`` (an :class:`raft_tpu_torch.obs.quality.DriftDetector`)
+gets the corpus-side feed of each fold.
 """
 
 from __future__ import annotations
 
 import functools
+import inspect
+import itertools
 import threading
 import time
 from dataclasses import dataclass
@@ -43,6 +50,8 @@ from .mutable import MutableIndex
 
 __all__ = ["CompactionPolicy", "Compactor"]
 
+# per-Compactor journal transition keys (see last_advice)
+_compactor_ids = itertools.count()
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,6 +94,15 @@ def _c_failures():
 
 
 @functools.lru_cache(maxsize=None)
+def _c_reshard_advised():
+    return metrics.counter(
+        "raft_tpu_reshard_advised_total",
+        "reshard advisories emitted by the Compactor's per-shard row "
+        "watermarks (once per transition; auto_apply is always False — an "
+        "operator or controller calls ShardedMutableIndex.reshard)")
+
+
+@functools.lru_cache(maxsize=None)
 def _c_deferred():
     return metrics.counter(
         "raft_tpu_stream_compaction_deferred_total",
@@ -96,12 +114,20 @@ def _c_deferred():
 @dataclass(frozen=True)
 class CompactionPolicy:
     """Watermarks that arm :meth:`Compactor.run_once` (see module doc).
-    ``None`` disables a watermark; see docs/streaming.md for tuning. The
-    JAX policy's reshard watermarks wait for the sharded tier."""
+    ``None`` disables a watermark; see docs/streaming.md for tuning.
+
+    ``reshard_rows_per_shard`` / ``reshard_min_rows_per_shard`` are the
+    ADVISORY topology watermarks of a sharded mesh: when the mean live rows
+    per shard cross the high (low) mark, the Compactor emits one
+    ``reshard_advised`` event per transition recommending a power-of-two
+    split (merge). Advice only (``auto_apply: False``): the fold stays in
+    :meth:`raft_tpu_torch.stream.ShardedMutableIndex.reshard`."""
 
     delta_fill: float | None = 0.75
     tombstone_ratio: float | None = 0.25
     max_age_s: float | None = None
+    reshard_rows_per_shard: int | None = None
+    reshard_min_rows_per_shard: int | None = None
 
 
 class Compactor:
@@ -138,6 +164,11 @@ class Compactor:
         expects(publisher is None or name is not None,
                 "a publisher needs the published name")
         self._mutable = mutable
+        # a sharded index picks WHICH shard to fold from the tripped
+        # watermark (an age trip chases the stalest shard); a plain
+        # MutableIndex.compact takes no trigger
+        self._compact_takes_trigger = (
+            "trigger" in inspect.signature(mutable.compact).parameters)
         self._publisher = publisher
         self._pub_name = name
         self._ks = (ks,) if isinstance(ks, int) else tuple(ks)
@@ -165,6 +196,10 @@ class Compactor:
         self._worker: threading.Thread | None = None
         self.last_report: dict | None = None
         self.last_error: BaseException | None = None
+        # the standing reshard advisory lives in the event journal's
+        # transition store, keyed per instance; last_advice reads it
+        self._advice_tkey = ("compactor/reshard_advice",
+                             next(_compactor_ids))
 
     # -- pacing --------------------------------------------------------------
     def set_pacing(self, fn) -> None:
@@ -203,10 +238,73 @@ class Compactor:
 
     @property
     def last_advice(self) -> dict | None:
-        """The standing reshard advisory: always None here. Only a sharded
-        index can reshard (``stream/sharded.py``, not ported), and the JAX
-        Compactor returns None for any other index."""
-        return None
+        """The STANDING reshard advisory: a dict while a topology watermark
+        stays crossed, None once it clears (and always None for an index
+        that cannot reshard). A view over the event journal's transition
+        store, consistent with the ``reshard_advised`` /
+        ``reshard_advice_cleared`` events."""
+        return obs_events.transition_payload(self._advice_tkey)
+
+    def _check_reshard(self) -> dict | None:
+        """Evaluate the advisory topology watermarks: updates
+        :attr:`last_advice` and emits ``reshard_advised`` (journal entry,
+        counter and WARNING) or ``reshard_advice_cleared`` exactly once per
+        transition. None for an index without ``reshard``."""
+        p = self.policy
+        if (p.reshard_rows_per_shard is None
+                and p.reshard_min_rows_per_shard is None):
+            return None
+        if not hasattr(self._mutable, "reshard"):
+            return None
+        st = self._mutable.stats()
+        shards = st.get("shards")
+        if not shards:
+            return None
+        per = st["live"] / shards
+        advice = None
+        if (p.reshard_rows_per_shard is not None
+                and per >= p.reshard_rows_per_shard):
+            advice = {"action": "split", "target": 2 * shards,
+                      "watermark": "reshard_rows_per_shard",
+                      "threshold": p.reshard_rows_per_shard}
+        elif (p.reshard_min_rows_per_shard is not None and shards > 1
+                and shards % 2 == 0  # reshard() halves even counts only
+                and per <= p.reshard_min_rows_per_shard):
+            advice = {"action": "merge", "target": shards // 2,
+                      "watermark": "reshard_min_rows_per_shard",
+                      "threshold": p.reshard_min_rows_per_shard}
+        key = ((advice["action"], advice["target"])
+               if advice is not None else None)
+        # the payload carries the measured evidence inline, so a controller
+        # decides (and a postmortem replays) from the journal alone
+        payload = None if advice is None else dict(
+            advice, name=self._mutable.name, shards=shards,
+            live=int(st["live"]),
+            rows_per_shard=round(per, 1), auto_apply=False)
+        if not obs_events.transition(self._advice_tkey, key, payload):
+            return self.last_advice
+        if advice is None:
+            obs_events.emit(
+                "reshard_advice_cleared",
+                subject=("compactor", self._mutable.name, None, None),
+                evidence={"shards": shards,
+                          "rows_per_shard": round(per, 1)})
+            return None
+        obs_events.emit(
+            "reshard_advised",
+            subject=("compactor", self._mutable.name, None, None),
+            evidence=payload,
+            counter=_c_reshard_advised,
+            counter_labels={"name": self._mutable.name,
+                            "action": advice["action"]},
+            message=(
+                "reshard advised for %r: %s to %d shards (%.0f live "
+                "rows/shard crossed %s=%d); advisory only — call "
+                "reshard(%d) to apply"),
+            log_args=(self._mutable.name, advice["action"],
+                      advice["target"], per, advice["watermark"],
+                      advice["threshold"], advice["target"]))
+        return self.last_advice
 
     # -- one compaction cycle ----------------------------------------------
     def run_once(self, *, force: bool = False, mode: str | None = None,
@@ -217,6 +315,9 @@ class Compactor:
         ``force=True`` compacts regardless; ``mode`` overrides the
         trigger's fold mode."""
         trigger = self.due()
+        # the advisory rides every poll, due or not: a mesh that outgrew its
+        # shard count must not wait for a fold watermark to be advised
+        advice = self._check_reshard()
         if trigger is None:
             if not force:
                 return None
@@ -240,7 +341,8 @@ class Compactor:
                         evidence={"trigger": trigger, "mode": mode})
         t0 = time.perf_counter()
         with obs_compile.attribution() as rec:
-            report = self._mutable.compact(mode=mode, res=res)
+            kw = {"trigger": trigger} if self._compact_takes_trigger else {}
+            report = self._mutable.compact(mode=mode, res=res, **kw)
             report["trigger"] = trigger
             if self._publisher is not None:
                 # publish AFTER the swap: the registry warms the new epoch's
@@ -255,6 +357,8 @@ class Compactor:
         wall = time.perf_counter() - t0
         report["wall_s"] = round(wall, 3)
         report["compile_s"] = round(rec.compile_s, 3)
+        if advice is not None:
+            report["reshard_advised"] = advice
         if self._drift is not None:
             # compaction-time corpus stats: the retained store is the live
             # corpus' raw rows (the classifier subsamples them; a few

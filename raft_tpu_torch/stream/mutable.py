@@ -445,7 +445,8 @@ def _queries(cfg: _Config, queries) -> torch.Tensor:
     return q
 
 
-def _scan_state(st: _StreamState, queries, k: int, res=None):
+def _scan_state(st: _StreamState, queries, k: int, res=None,
+                k_sealed: int | None = None):
     """The scatter half of a one-epoch search: the sealed (filtered) scan
     and the delta scan, slot ids mapped to global ids, BEFORE the merge.
     Every device handle is snapshotted up front, so a concurrent write
@@ -456,7 +457,10 @@ def _scan_state(st: _StreamState, queries, k: int, res=None):
     sealed copy's tombstone. Stage walls land as ``stream/sealed`` /
     ``stream/delta`` request-log spans (host dispatch walls).
 
-    Returns ``(sealed_d (m, k), sealed_i, delta_d (m, kd), delta_i)``."""
+    Returns ``(sealed_d (m, k), sealed_i, delta_d (m, kd), delta_i)``.
+    ``k_sealed`` (the sharded tier only) narrows the sealed width: a shard
+    with fewer sealed rows than k gives what it has and the mesh merge pads
+    the rest; without it the sealed width is k."""
     from ..neighbors import brute_force
     from ..obs import requestlog
 
@@ -467,8 +471,9 @@ def _scan_state(st: _StreamState, queries, k: int, res=None):
     sealed, skeep, imap = st.sealed, st.sealed_keep_dev, st.id_map_dev
     queries = _queries(cfg, queries)
     k = int(k)
+    ks = k if k_sealed is None else int(k_sealed)
     t0 = time.perf_counter()
-    sd, si = _sealed_search(cfg, sealed, queries, k, skeep, res)
+    sd, si = _sealed_search(cfg, sealed, queries, ks, skeep, res)
     si = _map_ids(si, imap)
     t1 = time.perf_counter()
     kd = min(k, delta.shape[0])
@@ -534,6 +539,11 @@ class MutableIndex:
     :class:`~raft_tpu_torch.stream.tiered.TieredStore` configured by
     ``tier``, a :class:`~raft_tpu_torch.stream.tiered.TierPolicy`;
     ``tier_residency`` restores a saved placement without deciding again).
+    ``ids`` (length n, unique, >= 0, int32-representable) gives the sealed
+    rows' global ids in place of the row range: the sharded tier's id map,
+    where each shard's sealed index is a dense local build and fresh ids
+    continue past ``max(ids)``. ``shard`` is the shard ordinal the
+    ``obs.mem`` ledger attributes this index's bytes to (None: unsharded).
     ``clock`` is injected for deterministic tests (the age watermark's time
     base).
     """
@@ -541,7 +551,8 @@ class MutableIndex:
     def __init__(self, sealed, *, search_params=None, index_params=None,
                  delta_capacity: int = 1024, retain_vectors: bool | None = None,
                  dataset=None, builder: Callable | None = None,
-                 device=None, name: str = "default", wal=None,
+                 ids=None, device=None, name: str = "default",
+                 shard: int | None = None, wal=None,
                  snapshot_path: str | None = None,
                  storage: str = "hbm", tier: TierPolicy | None = None,
                  tier_residency: str | None = None,
@@ -574,6 +585,7 @@ class MutableIndex:
                       dim=d, data_kind=data_kind, query_dtype=query_dtype,
                       name=name, device=dev, res=Resources(device=dev))
         self._cfg = cfg
+        self._shard = None if shard is None else int(shard)
         self._index_params = index_params
         expects(builder is None or callable(builder),
                 "builder must be a callable fn(rows, res=None) -> sealed index")
@@ -600,8 +612,18 @@ class MutableIndex:
                     "would shadow them; recover with stream.load(wal=) or "
                     "point at a fresh log", getattr(wal, "path", "?"),
                     wal.seq)
-        id_map = np.arange(n, dtype=np.int64)
-        self._next_id = n
+        if ids is None:
+            id_map = np.arange(n, dtype=np.int64)
+        else:
+            id_map = np.asarray(_host(ids), np.int64).reshape(-1)
+            expects(id_map.shape == (n,),
+                    "ids= must assign one global id per sealed row (%d), "
+                    "got %d", n, id_map.shape[0])
+            expects(np.unique(id_map).size == n, "ids= must be unique")
+            expects(int(id_map.min()) >= 0, "ids= must be >= 0")
+            expects(int(id_map.max()) < 2 ** 31 - 1,
+                    "ids= must fit int32 (device id maps are int32)")
+        self._next_id = int(id_map.max()) + 1
         self._loc: dict[int, tuple[str, int]] = {}
 
         store = None
@@ -662,7 +684,7 @@ class MutableIndex:
         # ledger: the sealed index re-attributes under the serving name; the
         # stream-owned arrays get their own per-epoch entry
         self._sealed_mem = obs_mem.account_index(
-            sealed, name=cfg.name, epoch=0)
+            sealed, name=cfg.name, shard=self._shard, epoch=0)
         self._update_gauges(st)
 
     # -- introspection ---------------------------------------------------------
@@ -720,7 +742,8 @@ class MutableIndex:
         if rows is None or self._storage == "hbm":
             return rows
         # rows pass raw: the store adopts an np.memmap in place
-        return TieredStore(rows, name=self._cfg.name, epoch=epoch,
+        return TieredStore(rows, name=self._cfg.name, shard=self._shard,
+                           epoch=epoch,
                            policy=self._tier, device=self._cfg.device,
                            residency=residency, clock=self._clock)
 
@@ -788,10 +811,21 @@ class MutableIndex:
             host.append(st.store)
         if st.mem is None:
             st.mem = obs_mem.account(
-                "stream", name=self._cfg.name, epoch=st.epoch, device=dev,
-                host=host, owner=st)
+                "stream", name=self._cfg.name, shard=self._shard,
+                epoch=st.epoch, device=dev, host=host, owner=st)
         else:
             obs_mem.reaccount(st.mem, device=dev, host=host)
+
+    def _growth_bytes(self, r: int) -> int:
+        """Device bytes a write of ``r`` rows would newly allocate: what the
+        sharded and replicated tiers sum for their hoisted admission."""
+        return self._delta_growth_bytes(self._state, r)
+
+    def _delta_rows_now(self) -> int:
+        """The delta's occupancy for a hoisted admission check (read without
+        the lock: a concurrent fold only shrinks the delta, so a stale read
+        can over-refuse, never admit past capacity)."""
+        return int(self._state.delta_n)
 
     def _delta_growth_bytes(self, st: _StreamState, r: int) -> int:
         """Device bytes a write of ``r`` rows would newly allocate: the
@@ -1358,7 +1392,8 @@ class MutableIndex:
                 if nd.sealed is not old_state.sealed:
                     old_sealed_mem = self._sealed_mem
                     self._sealed_mem = obs_mem.account_index(
-                        nd.sealed, name=cfg.name, epoch=nd.epoch)
+                        nd.sealed, name=cfg.name, shard=self._shard,
+                        epoch=nd.epoch)
                     obs_mem.retire(old_sealed_mem)
                 self._update_gauges(nd)
             report = {"mode": mode, "epoch": nd.epoch,
@@ -1429,7 +1464,7 @@ def save(mutable: MutableIndex, path: str) -> None:
 def load(path: str, *, search_params=None, index_params=None,
          builder: Callable | None = None, name: str | None = None,
          device=None, res=None, wal=None, snapshot_path: str | None = None,
-         tier: TierPolicy | None = None,
+         shard: int | None = None, tier: TierPolicy | None = None,
          clock: Callable[[], float] = time.monotonic) -> MutableIndex:
     """Load a :func:`save`\\ d mutable index (the port's or the JAX
     package's) onto ``device`` (or ``res``'s device; ``cuda`` by default).
@@ -1481,7 +1516,7 @@ def load(path: str, *, search_params=None, index_params=None,
     m = MutableIndex(sealed, search_params=search_params,
                      index_params=index_params, delta_capacity=capacity,
                      retain_vectors=has_store, dataset=store, builder=builder,
-                     device=device, snapshot_path=snapshot_path,
+                     device=device, snapshot_path=snapshot_path, shard=shard,
                      storage=storage, tier=tier,
                      tier_residency=residency if storage == "tiered" else None,
                      name=saved_name if name is None else name, clock=clock)

@@ -29,8 +29,17 @@ Fault points in the port (grep ``faults.fire`` for the live list):
   the ``os.replace`` in :func:`raft_tpu_torch.core.serialize.atomic_write`:
   a crash here must leave the previous snapshot readable.
 
-The JAX package's replica, tier and reshard points wait for the port of
-``stream/replicated.py``, ``stream/tiered.py`` and ``stream/sharded.py``.
+- ``tier/fetch`` — fired before a tiered store's gather
+  (``stream/tiered.py``).
+- ``replica/search`` — fired per scan attempt of a replica group
+  (:class:`raft_tpu_torch.stream.ReplicatedShard`); a callback that
+  advances an injected clock simulates a wedged twin. ``replica/upsert`` /
+  ``replica/delete`` — fired per twin write.
+- ``reshard/split`` (per donor group, as its fold starts), ``reshard/flip``
+  (after the carry-over, before the manifest) and ``reshard/manifest``
+  (before the manifest's write) in
+  :meth:`raft_tpu_torch.stream.ShardedMutableIndex.reshard`: a crash at any
+  of them recovers the old topology.
 
 Every helper is thread-safe; ``fire`` holds no lock while nothing is armed.
 Injected exceptions should derive from :class:`FaultError` (the registry

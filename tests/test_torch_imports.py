@@ -51,3 +51,26 @@ def test_slice_modules_import_neither_jax_nor_raft_tpu(rel):
     assert path.is_file(), rel
     names = list(_imports(path))
     assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+
+
+# the modules of the sharded and replicated mesh slice, and the names the
+# stream package exports for it
+MESH_MODULES = ("stream/sharded.py", "stream/replicated.py", "stream/__init__.py",
+                "serve/errors.py")
+
+
+@pytest.mark.parametrize("rel", MESH_MODULES)
+def test_mesh_modules_import_neither_jax_nor_raft_tpu(rel):
+    path = ROOT / "raft_tpu_torch" / rel
+    assert path.is_file(), rel
+    names = list(_imports(path))
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+
+
+def test_stream_exports_the_mesh():
+    from raft_tpu_torch import stream
+
+    for name in ("ShardedMutableIndex", "shard_of", "ReplicatedShard", "FencingPolicy",
+                 "sharded", "replicated"):
+        assert name in stream.__all__ and hasattr(stream, name), name
+    assert "not yet ported" not in (stream.__doc__ or "").replace("``comms=`` is not yet ported", "")
