@@ -4,7 +4,7 @@ end to end.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --phases 01  # build and kernel checks only
-    python3 chip_smoke.py --phases 01245678  # all but phase 3's timings
+    python3 chip_smoke.py --phases 012456789  # all but phase 3's timings
     python3 chip_smoke.py --out DIR    # where the profile tables go
                                        # (default build/profiles)
 
@@ -290,13 +290,44 @@ Phases, each printing JSON lines:
      ``storage="tiered"`` (host RAM, cold) beside an all-HBM 4-shard twin
      over the same sealed indexes: ``search_refined`` of the 10k batch and a
      64-row flush bit for bit, H2D exactly m x 4 x 40 x 512 B a batch;
-     prints both twins' QPS.
+     prints both twins' QPS;
+  9. the autotuner and the deploy-time surface (``tune/``, ``publish(
+     tuned=)``, ``warmup``, ``config``, ``core.interruptible``; after phase
+     8, on phase 2's indexes). (a) ``tune.sweep`` of each kind's default
+     grid at 10,000 queries, k=10, ``repeats=3``: IVF-Flat (4 points) and
+     CAGRA (4) over the clustered 1M set, IVF-PQ + refine (7, the raw rows
+     as ``dataset=``); every trial's recall, QPS and wall, the frontier, the
+     chosen point and ``chosen_qps_over_default``; each chosen point meets
+     its target, the grid head's recall equals a direct search at its
+     params, and the sweep's ground truth (the port's ``knn``) equals phase
+     2's. (b) Each decision attached, the index saved and loaded, then
+     published on a ``SearchService`` with ``tuned=True`` and with
+     ``tuned=log`` (an IVF-PQ refine pin refuses ``tuned=True`` without its
+     rows and publishes ``tune.make_searcher(index, log, dataset=rows)``
+     and the loaded index's own hook instead): 256 one-row requests each,
+     served rows equal to ``tune.make_searcher``'s answers at their own
+     shapes, no kernel built in the window, the report's ``"tuned"`` the
+     pin; ``apply_global`` of (c)'s decisions applies inside a scope and
+     resets to the default, an unmeasured pin moves nothing. (c)
+     ``tune.sweep_select_k`` at 10,000 and 128 rows, 256 to 131,072
+     columns, k of 10 and 128: the plain route against the ``topk`` kernel,
+     the crossover beside ``WIDE_SELECT_COLS_DEFAULT`` (not changed here).
+     (d) ``warmup`` of each kind at 1M x 128 (IVF-Flat, IVF-PQ and CAGRA on
+     a 100,000-row sample of phase 2's clustered sets), then ``warmup(
+     "brute_force", n=100_000, d=128)`` in two fresh processes sharing an
+     empty cache directory: the first builds (``programs >= 1``), the second
+     loads (``programs == 0``, ``cache_hits >= 1``). (e) A worker's IVF-PQ
+     search loop cancelled from the main thread at its next
+     ``synchronize`` (within one search; the token resets); ``knn`` and
+     each ``search``, a served flush and a mutable-index search under
+     ``config.set_output_as("numpy")`` equal to the ``"torch"`` setting
+     (the mutable index's answers stay on the card).
 
 The line before the last lists the kernels (``launches_stream``: phase 5's
 windows; ``launches_stream_folds``: the part of those that the compactions'
 folds made on the writer thread, CAGRA's rebuild graph build among them;
 ``launches_ooc``: phase 6's builds and searches; ``launches_tier``: phase
-7's; ``launches_mesh``: phase 8's);
+7's; ``launches_mesh``: phase 8's; ``launches_tune``: phase 9's);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line; so does a machine without CUDA (exit 2),
@@ -5712,10 +5743,412 @@ def phase_mesh(st):
          seconds=time.perf_counter() - t_phase, card=st["card"])
 
 
+TUNE_K, TUNE_REPEATS = 10, 3
+TUNE_SERVE_THREADS, TUNE_SERVE_PER_THREAD = 4, 64   # served rows held against make_searcher
+TUNE_SELECT_ROWS = (10_000, 128)
+TUNE_SELECT_COLS = (256, 512, 1_024, 2_048, 4_096, 16_384, 65_536, 131_072)
+TUNE_SELECT_KS = (10, 128)
+TUNE_SAMPLE = 100_000            # warmup's data sample: rows of phase 2's clustered sets
+WARM_CACHE = """
+import json, sys
+sys.path.insert(0, {root!r})
+import raft_tpu_torch
+out = raft_tpu_torch.warmup("brute_force", n=100_000, d=128, cache_dir={cache!r})
+print(json.dumps(out))
+"""
+
+
+def tune_sweeps(st):
+    """Phase 9 (a): each kind's default grid over phase 2's 1M index,
+    10,000 queries, k = 10, ``repeats=3``; ground truth through the
+    sweep's own ``knn`` held against phase 2's, the grid head's recall
+    against a direct search at its params. Returns {kind: (index, dataset,
+    queries, decision)} and the decision log."""
+    import torch
+
+    from raft_tpu_torch import tune
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+    from raft_tpu_torch.neighbors.refine import refine
+
+    sweep_mod = importlib.import_module("raft_tpu_torch.tune.sweep")  # tune.sweep: the function
+    res = Resources(device="cuda")
+    cx, _, _, _ = cagra_data()
+    pq_index, pq_q = st["ivf"]
+    cindex, cq = st["cagra"]
+    findex, _ = st["ivf_flat"]
+    cases = {
+        "ivf_flat": (findex, cx, cq, st["cagra_truth"],
+                     lambda q: ivf_flat.search(ivf_flat.SearchParams(n_probes=8), findex, q,
+                                               TUNE_K, res=res)),
+        "ivf_pq": (pq_index, st["ivf_x"], pq_q, st["ivf_truth"],
+                   lambda q: refine(st["ivf_x"], q, ivf_pq.search(
+                       ivf_pq.SearchParams(n_probes=8), pq_index, q, 4 * TUNE_K,
+                       res=res)[1], TUNE_K, res=res)),
+        "cagra": (cindex, cx, cq, st["cagra_truth"],
+                  lambda q: cagra.search(cagra.SearchParams(itopk_size=32), cindex, q,
+                                         TUNE_K, res=res)),
+    }
+    log = tune.DecisionLog(meta={"round": tune.reference.ROUND, "card": st["card"]})
+    out = {}
+    for kind, (index, x, q, truth, direct) in cases.items():
+        gt_t0 = time.perf_counter()
+        gt = sweep_mod._ground_truth(x, q, TUNE_K, metric=index.metric, res=res)
+        gt_s = time.perf_counter() - gt_t0
+        gt_dev = torch.from_numpy(gt).to(q.device)
+        gt_match = recall(gt_dev[:truth.shape[0]], truth)
+        grid = tune.default_grid(kind)
+        t0 = time.perf_counter()
+        dec = tune.sweep(index, q, k=TUNE_K, dataset=x, gt=gt, grid=grid,
+                         repeats=TUNE_REPEATS, log=log)
+        sweep_s = time.perf_counter() - t0
+        ev = dec.evidence
+        head = round(sweep_mod._recall(direct(q)[1], gt), 4)
+        emit(phase="tune_sweep", kind=kind, family=dec.family, n=ev["n"], queries=ev["queries"],
+             k=TUNE_K, repeats=TUNE_REPEATS, grid_points=len(grid),
+             trials=[dict(params=t["params"], recall=t.get("recall"), qps=t.get("qps"),
+                          wall_s=t["wall_s"], error=t.get("error")) for t in ev["trials"]],
+             frontier=ev["frontier"], chosen=dec.params, chosen_recall=ev["chosen_recall"],
+             chosen_qps=ev["chosen_qps"], default_recall=ev["default_recall"],
+             default_qps=ev["default_qps"],
+             chosen_qps_over_default=ev["chosen_qps_over_default"],
+             recall_target=ev["recall_target"], target_met=ev["target_met"],
+             head_direct_recall=head, ground_truth_s=gt_s,
+             ground_truth_equals_phase2=gt_match, sweep_s=sweep_s, card=st["card"])
+        assert len(ev["trials"]) == len(grid) and all("error" not in t for t in ev["trials"]), (
+            kind, ev["trials"])
+        assert ev["target_met"] and ev["chosen_recall"] >= ev["recall_target"], (kind, ev)
+        assert head == ev["trials"][0]["recall"], (kind, head, ev["trials"][0])
+        assert gt_match == 1.0, (kind, gt_match)
+        out[kind] = (index, x, q, dec)
+    return out, log
+
+
+def tune_serve(st, swept, log):
+    """Phase 9 (b): attach, save, load; ``publish(tuned=True)`` and
+    ``publish(tuned=log)`` for each kind (an IVF-PQ refine pin publishes
+    ``make_searcher(index, log, dataset=rows)`` instead, as the JAX
+    package's publish says); served rows against ``make_searcher`` at their
+    own shapes, 0 builds in the window, the report's ``"tuned"``."""
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch import tune
+    from raft_tpu_torch.core import RaftError, Resources
+    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+    from raft_tpu_torch.obs import RequestLog
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.serve import SearchService
+
+    res = Resources(device="cuda")
+    mods = {"ivf_flat": ivf_flat, "ivf_pq": ivf_pq, "cagra": cagra}
+    log_r = RequestLog(capacity=8192)
+    svc = SearchService(max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US,
+                        request_log=log_r)
+    n_req = TUNE_SERVE_THREADS * TUNE_SERVE_PER_THREAD
+    try:
+        for kind, (index, x, q, dec) in swept.items():
+            mod = mods[kind]
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, f"{kind}.bin")
+                tune.attach(index, dec)
+                try:
+                    t0 = time.perf_counter()
+                    mod.save(index, path)
+                    loaded = mod.load(path, res=res)
+                    io_s = time.perf_counter() - t0
+                finally:
+                    index.tuned = None
+            assert loaded.tuned == dec.to_dict(), kind
+            refine_pin = int(dec.params.get("refine_ratio", 1)) > 1
+            publishes = {}
+            if refine_pin:
+                try:
+                    svc.publish(f"{kind}-pin", loaded, tuned=True, k=TUNE_K)
+                    raise AssertionError("a refine pin published without its rows")
+                except RaftError as e:
+                    assert "raw rows" in str(e), e
+                publishes["log"] = lambda: svc.publish(
+                    f"{kind}-log", tune.make_searcher(loaded, log, dataset=x), k=TUNE_K)
+                # the loaded index's own hook: the pin without its refine epilogue
+                publishes["pin"] = lambda: svc.publish(f"{kind}-pin", loaded, k=TUNE_K)
+            else:
+                publishes["pin"] = lambda: svc.publish(f"{kind}-pin", loaded, tuned=True,
+                                                       k=TUNE_K)
+                publishes["log"] = lambda: svc.publish(f"{kind}-log", loaded, tuned=log,
+                                                       k=TUNE_K)
+            pool = q[:n_req].cpu().numpy()
+            for how, publish in publishes.items():
+                name = f"{kind}-{how}"
+                report = publish()
+                assert report["tuned"] == dec.key, (name, report["tuned"], dec.key)
+                with svc.registry.lease(name) as v:
+                    searcher = v.searcher
+                direct = tune.make_searcher(
+                    loaded, dec, dataset=x if (refine_pin and how == "log") else None,
+                    degrade_without_rows=True)
+                with obs_compile.attribution() as rec:
+                    lats, results, failures, load_s, _ = serve_load(
+                        svc, name, pool, TUNE_SERVE_THREADS, TUNE_SERVE_PER_THREAD, TUNE_K,
+                        n_req)
+                torch.cuda.synchronize()
+                rows, ok, _ = served_rows_equal(results, log_r, (direct,), pool, TUNE_K)
+                emit(phase="tune_serve", kind=kind, publish=how, hook_kind=searcher.kind,
+                     tuned=report["tuned"], refine_pin=refine_pin, save_load_s=io_s,
+                     requests=n_req, failed=len(failures), qps=(n_req - len(failures)) / load_s,
+                     checked_rows=len(rows), rows_equal_make_searcher=int(ok.sum()),
+                     builds_in_window=rec.summary(),
+                     warm_builds=sum(b["programs"] for b in report["warm"][TUNE_K].values()),
+                     card=st["card"])
+                assert not failures, failures[:5]
+                assert rec.programs == 0 and rec.cache_misses == 0, rec.summary()
+                assert bool(ok.all()), f"{name}: {int((~ok).sum())} served rows differ"
+    finally:
+        svc.shutdown()
+
+
+def tune_select_k(st):
+    """Phase 9 (c): ``sweep_select_k`` at 10,000 and 128 rows; returns the
+    decisions by rows."""
+    from raft_tpu_torch import tune
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.matrix.select_k import WIDE_SELECT_COLS_DEFAULT, wide_cols_threshold
+
+    res = Resources(device="cuda")
+    out = {}
+    for rows in TUNE_SELECT_ROWS:
+        t0 = time.perf_counter()
+        dec = tune.sweep_select_k(rows=rows, cols=TUNE_SELECT_COLS, ks=TUNE_SELECT_KS,
+                                  repeats=TUNE_REPEATS, res=res)
+        ev = dec.evidence
+        by = {}
+        for t in ev["trials"]:
+            p = t["params"]
+            by.setdefault((p["cols"], p["k"]), {})[p["impl"]] = t.get("qps")
+        emit(phase="tune_select_k", rows=rows, cols=list(TUNE_SELECT_COLS),
+             ks=list(TUNE_SELECT_KS), repeats=TUNE_REPEATS,
+             ms={f"{c}x{k}": {impl: (rows / qps * 1e3 if qps else None)
+                              for impl, qps in arms.items()}
+                 for (c, k), arms in sorted(by.items())},
+             kernel_wins={f"{c}x{k}": (arms.get("kernel") or 0) > (arms.get("torch") or 0)
+                          for (c, k), arms in sorted(by.items())},
+             crossover_cols=dec.params["wide_cols_min"],
+             default_cols=WIDE_SELECT_COLS_DEFAULT, kernel_measured=ev["kernel_measured"],
+             backend=ev["backend"], seconds=time.perf_counter() - t0, card=st["card"])
+        assert ev["kernel_measured"] and ev["backend"] == "cuda", ev
+        assert all("error" not in t for t in ev["trials"]), ev["trials"]
+        assert wide_cols_threshold() == WIDE_SELECT_COLS_DEFAULT
+        out[rows] = dec
+    return out
+
+
+def tune_apply_global(st, decisions):
+    """Phase 9 (b), the process-wide pin: each row count's select_k decision
+    applies inside a scope and resets to the default after it; a log whose
+    kernel arm was not measured moves nothing."""
+    from raft_tpu_torch import tune
+    from raft_tpu_torch.matrix.select_k import (WIDE_SELECT_COLS_DEFAULT,
+                                                set_wide_cols_threshold, wide_cols_threshold)
+
+    applied = {}
+    for rows, dec in decisions.items():
+        log = tune.DecisionLog()
+        log.add(dec)
+        try:
+            got = tune.apply_global(log)
+            assert got == {"select_k.wide_cols_min": dec.params["wide_cols_min"]}, got
+            assert wide_cols_threshold() == dec.params["wide_cols_min"]
+            applied[rows] = got
+        finally:
+            set_wide_cols_threshold(None)
+        assert wide_cols_threshold() == WIDE_SELECT_COLS_DEFAULT
+    unmeasured = tune.DecisionLog()
+    unmeasured.add(tune.Decision(kind="select_k", dtype="float32", family="wide",
+                                 params={"wide_cols_min": 65536},
+                                 evidence={"pallas_measured": False, "trials": []}))
+    assert tune.apply_global(unmeasured) == {}
+    assert wide_cols_threshold() == WIDE_SELECT_COLS_DEFAULT
+    emit(phase="tune_apply_global", applied={str(r): a for r, a in applied.items()},
+         reset_to=WIDE_SELECT_COLS_DEFAULT, unmeasured_applied=False, card=st["card"])
+
+
+def tune_warmup(st):
+    """Phase 9 (d): ``warmup`` of each kind at 1M x 128 in this process
+    (IVF-Flat, IVF-PQ and CAGRA on a 100,000-row sample of phase 2's
+    clustered sets), then ``warmup("brute_force", n=100_000)`` in two fresh
+    processes sharing an empty cache directory: the first builds, the
+    second loads."""
+    import tempfile
+
+    import raft_tpu_torch
+    from raft_tpu_torch.core import Resources
+
+    res = Resources(device="cuda")
+    cx, _, _, _ = cagra_data()
+    samples = {"brute_force": None, "ivf_flat": cx[:TUNE_SAMPLE],
+               "ivf_pq": st["ivf_x"][:TUNE_SAMPLE], "cagra": cx[:TUNE_SAMPLE]}
+    for kind, sample in samples.items():
+        t0 = time.perf_counter()
+        out = raft_tpu_torch.warmup(kind, n=N_MAIN, d=D_MAIN, k=TUNE_K, data=sample, res=res)
+        emit(phase="tune_warmup", kind=kind, n=N_MAIN, d=D_MAIN, queries=10_000,
+             sample_rows=None if sample is None else TUNE_SAMPLE,
+             wall_s=time.perf_counter() - t0, **out, card=st["card"])
+        assert out["attribution"] == "obs.compile" and out["build"]["programs"] == 0, out
+    del cx, samples
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as cache:
+        runs = []
+        for attempt in ("cold", "warm"):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", WARM_CACHE.format(root=root, cache=cache)],
+                                  capture_output=True, text=True, timeout=600)
+            assert proc.returncode == 0, proc.stderr[-2000:]
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+            programs = out["build"]["programs"] + out["search"]["programs"]
+            hits = out["build"]["cache_hits"] + out["search"]["cache_hits"]
+            emit(phase="tune_warmup_cache", attempt=attempt, kind="brute_force", n=100_000,
+                 d=D_MAIN, programs=programs, cache_hits=hits,
+                 process_s=time.perf_counter() - t0, **out, card=st["card"])
+            runs.append((programs, hits))
+        assert runs[0][0] >= 1, runs
+        assert runs[1][0] == 0 and runs[1][1] >= 1, runs
+
+
+def tune_cancel_and_output(st):
+    """Phase 9 (e): a worker's IVF-PQ search loop cancelled from the main
+    thread at its next ``core.interruptible.synchronize`` (within one
+    search), the token reset; then every decorated entry point, a served
+    flush and a mutable-index search under ``config.set_output_as("numpy")``
+    against the ``"torch"`` setting."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import config
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
+    from raft_tpu_torch.serve import SearchService
+    from raft_tpu_torch.stream import MutableIndex
+
+    # core.interruptible: the module (the name alone is its context manager)
+    interruptible = importlib.import_module("raft_tpu_torch.core.interruptible")
+    res = Resources(device="cuda")
+    pq_index, pq_q = st["ivf"]
+    sp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
+    state = {"done": 0, "at_cancel": None, "error": None, "reset": None}
+    started = threading.Event()
+
+    def worker():
+        state["ident"] = threading.get_ident()
+        try:
+            while True:
+                d, i = ivf_pq.search(sp, pq_index, pq_q, IVF_K0, res=res)
+                interruptible.synchronize(d, i)
+                state["done"] += 1
+                if state["done"] == 2:
+                    started.set()
+                if state["done"] > 1000:
+                    break
+        except interruptible.InterruptedException as e:
+            state["error"] = str(e)
+            interruptible.synchronize()          # the token reset on the throw
+            state["reset"] = not interruptible.get_token().cancelled()
+
+    t = threading.Thread(target=worker)
+    t0 = time.perf_counter()
+    t.start()
+    assert started.wait(120), "the worker never finished two searches"
+    state["at_cancel"] = state["done"]
+    tc = time.perf_counter()
+    interruptible.cancel(state["ident"])
+    t.join(120)
+    stop_s = time.perf_counter() - tc
+    after = state["done"] - state["at_cancel"]
+    emit(phase="tune_cancel", searches_before_cancel=state["at_cancel"],
+         searches_after_cancel=after, stop_s=stop_s, error=state["error"],
+         token_reset=state["reset"], loop_s=tc - t0, card=st["card"])
+    assert not t.is_alive() and state["error"] == "raft_tpu task cancelled", state
+    assert after <= 1 and state["reset"], state
+
+    cx, _, _, _ = cagra_data()
+    cindex, cq = st["cagra"]
+    findex, fsp = st["ivf_flat"]
+    m = IVF_CHECK
+    calls = {
+        "knn": lambda: brute_force.knn(cx, cq[:m], TUNE_K, res=res),
+        "ivf_flat.search": lambda: ivf_flat.search(fsp, findex, cq[:m], TUNE_K, res=res),
+        "ivf_pq.search": lambda: ivf_pq.search(sp, pq_index, pq_q[:m], TUNE_K, res=res),
+        "cagra.search": lambda: cagra.search(cagra.SearchParams(itopk_size=32), cindex,
+                                             cq[:m], TUNE_K, res=res),
+    }
+    mut = MutableIndex(pq_index, search_params=sp, delta_capacity=4096,
+                       retain_vectors=False)
+    mut.upsert(pq_q[:64].cpu().numpy())
+    svc = SearchService(max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US)
+    try:
+        svc.publish("flat", findex, search_params=fsp, k=TUNE_K)
+        pool = cq[:256].cpu().numpy()
+
+        def served():
+            futs = [svc.submit("flat", pool[j:j + 1], TUNE_K) for j in range(pool.shape[0])]
+            return [f.result(timeout=120) for f in futs]
+
+        torch_out = {name: fn() for name, fn in calls.items()}
+        torch_mut = mut.search(pq_q[:m], TUNE_K)
+        torch_served = served()
+        config.set_output_as("numpy")
+        try:
+            numpy_out = {name: fn() for name, fn in calls.items()}
+            numpy_mut = mut.search(pq_q[:m], TUNE_K)
+            numpy_served = served()
+        finally:
+            config.set_output_as("torch")
+    finally:
+        svc.shutdown()
+    same = {}
+    for name in calls:
+        a, b = torch_out[name], numpy_out[name]
+        assert all(isinstance(v, np.ndarray) for v in b), (name, [type(v) for v in b])
+        same[name] = all(np.array_equal(x.cpu().numpy(), y) for x, y in zip(a, b))
+    mut_on_card = all(isinstance(v, torch.Tensor) and v.is_cuda for v in numpy_mut)
+    same["mutable.search"] = mut_on_card and all(torch.equal(x, y)
+                                                 for x, y in zip(torch_mut, numpy_mut))
+    same["served_flush"] = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                               for a, b in zip(torch_served, numpy_served))
+    emit(phase="tune_output_as", rows=m, equal=same, mutable_on_card=mut_on_card,
+         card=st["card"])
+    assert all(same.values()), same
+
+
+def phase_tune(st):
+    """Phase 9: the autotuner and the deploy-time surface on one card (see
+    the module docstring)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_all_counts()
+    swept, log = tune_sweeps(st)
+    tune_serve(st, swept, log)
+    del swept
+    decisions = tune_select_k(st)
+    tune_apply_global(st, decisions)
+    tune_warmup(st)
+    tune_cancel_and_output(st)
+    torch.cuda.synchronize()
+    total = st["launches_tune"] = {kk: v for kk, v in all_counts().items() if v}
+    for name in ("fused_knn", "topk", "pq_scan_topk", "cagra_hop"):
+        assert total.get(name, 0) > 0, (name, total)
+    emit(phase="tune_launches", launches=total, seconds=time.perf_counter() - t_phase,
+         card=st["card"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="012345678",
-                    help="phases to run, e.g. 01 (default: all); 4, 5, 6, 7 and 8 need 2")
+    ap.add_argument("--phases", default="0123456789",
+                    help="phases to run, e.g. 01 (default: all); 4 to 9 need 2")
     ap.add_argument("--out", default=os.path.join("build", "profiles"),
                     help="directory for the IVF-PQ, CAGRA and IVF-Flat profile tables")
     args = ap.parse_args(argv)
@@ -5742,8 +6175,8 @@ def main(argv=None):
     phase_build(st)
     if "1" in args.phases:
         phase_kernels(st)
-    if any(p in args.phases for p in "45678") and "2" not in args.phases:
-        print("chip_smoke: phases 4, 5, 6, 7 and 8 use phase 2's indexes; run them with 2",
+    if any(p in args.phases for p in "456789") and "2" not in args.phases:
+        print("chip_smoke: phases 4 to 9 use phase 2's indexes; run them with 2",
               file=sys.stderr)
         return 2
     if "2" in args.phases:
@@ -5766,6 +6199,8 @@ def main(argv=None):
         phase_tier(st)
     if "8" in args.phases:
         phase_mesh(st)
+    if "9" in args.phases:
+        phase_tune(st)
     if "3" in args.phases and "2" in args.phases:
         time_fused_modes(st)
         time_f32_routes(st)
@@ -5783,6 +6218,11 @@ def main(argv=None):
         ooc = st.get("launches_ooc")
         tier = st.get("launches_tier")
         mesh = st.get("launches_mesh")
+        tune = st.get("launches_tune")
+
+        def in_tune(name):
+            # phase 9's launches, 0 where it made none (None: phase 9 not run)
+            return None if tune is None else tune.get(name, 0)
 
         def in_mesh(name):
             # phase 8's launches, 0 where it made none (None: phase 8 not run)
@@ -5809,7 +6249,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_rows"),
                  launches_stream=strm.get("fused_knn_rows"),
                  launches_stream_folds=fold("fused_knn_rows"),
-                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"), launches_mesh=in_mesh("fused_knn_rows"),
+                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"), launches_mesh=in_mesh("fused_knn_rows"), launches_tune=in_tune("fused_knn_rows"),
                  max_abs_err=st["f32_err"]["rows"], m_small=fk.M_SMALL, merge=st["merge_t"],
                  **st["rows_t"]),
             dict(name="fused_knn_tf32x3", route="cuda",
@@ -5819,7 +6259,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_tf32x3"),
                  launches_stream=strm.get("fused_knn_tf32x3"),
                  launches_stream_folds=fold("fused_knn_tf32x3"),
-                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"), launches_mesh=in_mesh("fused_knn_tf32x3"),
+                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"), launches_mesh=in_mesh("fused_knn_tf32x3"), launches_tune=in_tune("fused_knn_tf32x3"),
                  max_abs_err=st["f32_err"]["tf32x3"], tf32x3_gate=st["tf32x3_gate"],
                  **st["f32_t"]),
             dict(name="fused_knn_tc", route="cuda",
@@ -5829,7 +6269,7 @@ def main(argv=None):
                  launches_by_mode=st["tc_launches"],
                  launches_stream=strm.get("fused_knn_tc"),
                  launches_stream_folds=fold("fused_knn_tc"),
-                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"), launches_mesh=in_mesh("fused_knn_tc"),
+                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"), launches_mesh=in_mesh("fused_knn_tc"), launches_tune=in_tune("fused_knn_tc"),
                  max_abs_err=st["tc_err"],
                  **{key: st["fused_modes_t"]["bf16"][key]
                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -5839,7 +6279,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/fused_knn.py:139", launches=st["split_launches"],
                  launches_stream=strm.get("bf16_split"),
                  launches_stream_folds=fold("bf16_split"),
-                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"), launches_mesh=in_mesh("bf16_split"),
+                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"), launches_mesh=in_mesh("bf16_split"), launches_tune=in_tune("bf16_split"),
                  launches_on="knn(compute='float32x3')", max_abs_err=0.0, **st["split_t"]),
             dict(name="tf32_split", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
@@ -5847,7 +6287,7 @@ def main(argv=None):
                  launches_serve=serve.get("tf32_split"),
                  launches_stream=strm.get("tf32_split"),
                  launches_stream_folds=fold("tf32_split"),
-                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"), launches_mesh=in_mesh("tf32_split"),
+                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"), launches_mesh=in_mesh("tf32_split"), launches_tune=in_tune("tf32_split"),
                  launches_on="BruteForce.search, 10,000 queries (mode f32's batch route)",
                  max_abs_err=0.0, **st["tf32_split_t"]),
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
@@ -5855,7 +6295,7 @@ def main(argv=None):
                  launches_ivf_flat=launches["topk_ivf_flat"],
                  launches_serve=serve.get("topk"), launches_stream=strm.get("topk"),
                  launches_stream_folds=fold("topk"),
-                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"), launches_mesh=in_mesh("topk"),
+                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"), launches_mesh=in_mesh("topk"), launches_tune=in_tune("topk"),
                  launches_ball_cover={m: launches[f"topk_ball_cover_{m}"]
                                       for m in ("sqeuclidean", "haversine")},
                  max_abs_err=st["topk_err"], **st["topk_t"]),
@@ -5864,7 +6304,7 @@ def main(argv=None):
                  launches_on="ivf_pq.search, select_impl='xla'",
                  launches_stream=strm.get("pq_scan"),
                  launches_stream_folds=fold("pq_scan"),
-                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"), launches_mesh=in_mesh("pq_scan"),
+                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"), launches_mesh=in_mesh("pq_scan"), launches_tune=in_tune("pq_scan"),
                  launches_funnel=launches["pq_scan_opq_anisotropic_4bit"],
                  max_abs_err=st["pq_err"], **st["pq_t"]),
             dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
@@ -5872,7 +6312,7 @@ def main(argv=None):
                  launches_serve=serve.get("pq_scan_topk"),
                  launches_stream=strm.get("pq_scan_topk"),
                  launches_stream_folds=fold("pq_scan_topk"),
-                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"), launches_mesh=in_mesh("pq_scan_topk"),
+                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"), launches_mesh=in_mesh("pq_scan_topk"), launches_tune=in_tune("pq_scan_topk"),
                  launches_filtered={str(f): launches[f"pq_scan_topk_filtered_{f}"]
                                     for f in FILTER_KEEP},
                  launches_codecs={n: launches[f"pq_scan_topk_{n}"]
@@ -5883,7 +6323,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
                  launches_serve=serve.get("cagra_hop"), launches_stream=strm.get("cagra_hop"),
                  launches_stream_folds=fold("cagra_hop"),
-                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"), launches_mesh=in_mesh("cagra_hop"),
+                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"), launches_mesh=in_mesh("cagra_hop"), launches_tune=in_tune("cagra_hop"),
                  launches_int8_rows=launches["cagra_hop_int8"],
                  max_abs_err=st["hop_err"], **st["hop_t"]),
         ])

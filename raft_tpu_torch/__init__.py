@@ -10,8 +10,11 @@ Entry points run on ``cuda`` unless the caller passes
 ``Resources(device="cpu")``; a CPU tensor takes each kernel's plain version.
 
 Ported so far:
+  config     the output type of the array-returning entry points, the
+             persistent kernel-build cache
   core       errors, resource handle, index-file serialization (raft_tpu/13),
-             logging, profiler ranges
+             logging, profiler ranges, cooperative cancellation, the
+             operator vocabulary, the staging buffer
   cluster    k-means, balanced k-means
   distance   metric vocabulary, pairwise distances (every metric), fused and
              masked L2 nearest neighbour, Gram matrices
@@ -31,7 +34,10 @@ Ported so far:
              compaction with a warm hot-swap (serve's write path), tiered
              (beyond-HBM) row storage
   testing    the fault-injection registry
-  tune       the decision log and the family classifiers
+  tune       the autotuner: sweeps, the decision log, pinned operating
+             points applied at serve.publish
+  warmup     the deploy-time build-and-search warm-up (``warmup``) and the
+             serving-bucket warm-up (``warm_buckets``)
 """
 
 import importlib
@@ -39,11 +45,15 @@ import importlib
 from .core import RaftError, Resources, default_resources, set_default_resources
 from .version import __version__
 
-_SUBMODULES = {"cluster", "core", "distance", "matrix", "neighbors", "obs", "ops", "serve",
-               "spatial", "stats", "stream", "testing", "tune"}
+_SUBMODULES = {"cluster", "config", "core", "distance", "matrix", "neighbors", "obs", "ops",
+               "serve", "spatial", "stats", "stream", "testing", "tune"}
 
 
 def __getattr__(name):
     if name in _SUBMODULES:
         return importlib.import_module(f".{name}", __name__)
+    if name in ("warmup", "warm_buckets"):  # the deploy-time and serving warm-ups
+        fn = getattr(importlib.import_module("._warmup", __name__), name)
+        globals()[name] = fn
+        return fn
     raise AttributeError(f"module 'raft_tpu_torch' has no attribute {name!r}")

@@ -29,6 +29,7 @@ import contextlib
 
 import torch
 
+from ..config import auto_convert_output
 from ..core.errors import expects, fail
 from ..core.resources import Resources, default_resources
 from ..obs.instrument import dtype_of, instrument, nrows
@@ -280,6 +281,7 @@ def _pairwise(x, y, metric: DistanceType, metric_arg: float, tile: int,
     return _tiled_rows(x, y, ew, tile)
 
 
+@auto_convert_output
 @instrument(
     "distance.pairwise_distance",
     items=lambda a, kw: nrows(a[0] if a else kw["x"]),

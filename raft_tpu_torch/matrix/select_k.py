@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..config import auto_convert_output
 from ..core.errors import expects
 from ..core.resources import Resources, default_resources
 from ..ops.topk import (float_order_key, gather_exact, lowest_index_positions,
@@ -116,6 +117,7 @@ def select_k_impl(values, in_idx, k: int, select_min: bool,
     return _select_k(values, in_idx, int(k), bool(select_min))
 
 
+@auto_convert_output
 @instrument("matrix.select_k",
             items=lambda a, kw: nrows(a[0] if a else kw["values"]),
             labels=lambda a, kw: {"k": a[1] if len(a) > 1 else kw["k"]})

@@ -6,12 +6,15 @@ a serving layer dispatches and warms through; the contract (the attribute
 set and the byte-dtype rule) lives here once, and each index module supplies
 only the search closure. The port's hooks also carry ``device``, the
 ``torch.device`` the index lives on, where the serve staging uploads the
-queries.
+queries. A hook returns tensors under any ``config.set_output_as`` setting:
+it is the serving layer's contract, and the serving layer converts nothing.
 """
 
 from __future__ import annotations
 
 from typing import Callable
+
+from ..config import keep_tensors
 
 __all__ = ["make_hook"]
 
@@ -23,7 +26,8 @@ def make_hook(search_fn: Callable, kind: str, dim: int,
     queries of the same dtype, everything else serves float32."""
 
     def fn(queries, k):
-        return search_fn(queries, k)
+        with keep_tensors():
+            return search_fn(queries, k)
 
     fn.kind = kind
     fn.dim = int(dim)

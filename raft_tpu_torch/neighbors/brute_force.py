@@ -30,6 +30,7 @@ import math
 import numpy as np
 import torch
 
+from ..config import auto_convert_output
 from ..core import chunked
 from ..core.chunked import is_reader
 from ..core.errors import expects
@@ -188,6 +189,7 @@ def _place(x, res: Resources):
     return x if x.dtype in _KEPT_DTYPES else x.to(torch.float32)
 
 
+@auto_convert_output
 @instrument(
     "brute_force.knn",
     items=lambda a, kw: nrows(a[1] if len(a) > 1 else kw["queries"]),

@@ -36,9 +36,9 @@ A chunked reader (:mod:`raft_tpu_torch.core.chunked`) builds out of core: the
 corpus streams onto the device through the staged chunks, then the graph
 builds as in-core. Armed memory budgets gate the build on ``obs.mem.plan()``.
 
-Not yet ported (each raises ``RaftError("not yet ported")``): the tune hook
-(``batched_searcher`` of a tuned index without params) and the distributed
-CAGRA.
+An index with a tune decision attached (``index.tuned``) serves its pinned
+operating point through ``batched_searcher`` (:mod:`raft_tpu_torch.tune.apply`).
+The distributed CAGRA build waits for ``parallel/``.
 """
 
 from __future__ import annotations
@@ -50,9 +50,10 @@ import math
 import numpy as np
 import torch
 
+from ..config import auto_convert_output
 from ..core import chunked
 from ..core.chunked import is_reader
-from ..core.errors import expects, fail
+from ..core.errors import expects
 from ..core.resources import Resources, default_resources
 from ..core.serialize import (atomic_write, check_header, deserialize_mdspan,
                               deserialize_scalar, deserialize_tuned, serialize_header,
@@ -74,10 +75,6 @@ logger = logging.getLogger("raft_tpu_torch")
 
 _HOP_IMPLS = ("auto", "xla", "fused", "fused_arena", "fused_arena_smem")
 _MERGE_OF = {"fused": "extract", "fused_arena": "arena", "fused_arena_smem": "arena_smem"}
-
-
-def _not_ported(what: str):
-    fail("cagra: %s is not yet ported to raft_tpu_torch", what)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,7 +184,7 @@ def _build_chunk_step(x, pq, xb, rows, n_probes: int, gpu_top_k: int, k: int, me
     k + 1, then the row's own id dropped (the first k other ids, in rank
     order)."""
     sp = ivf_pq_mod.SearchParams(n_probes=n_probes, select_impl=select_impl)
-    _, cand = ivf_pq_mod.search(sp, pq, xb, gpu_top_k + 1, res=res)
+    _, cand = ivf_pq_mod.search.native(sp, pq, xb, gpu_top_k + 1, res=res)
     _, refined = refine(x, xb, cand, k + 1, metric=metric, res=res)
     rank = torch.arange(k + 1, device=refined.device).expand_as(refined)
     big = torch.where(refined == rows[:, None], torch.iinfo(torch.int32).max, rank)
@@ -625,6 +622,7 @@ def _fused_loop(index, qf, beam_ids, beam_d, visited, k, itopk, max_iter, width,
     return out_d, torch.where(torch.isinf(out_d), -1, bi[:, :k])
 
 
+@auto_convert_output
 @instrument(
     "cagra.search",
     items=lambda a, kw: nrows(a[2] if len(a) > 2 else kw["queries"]),
@@ -710,13 +708,16 @@ def load(path: str, res: Resources | None = None) -> CagraIndex:
 def batched_searcher(index: CagraIndex, params: SearchParams | None = None):
     """The serving hook (contract in :mod:`._hooks`): ``fn(queries, k) ->
     (distances, ids)`` with ``kind``, ``dim``, ``query_dtype`` and
-    ``device``. The serving ``k`` must satisfy ``k <= itopk_size``. An index
-    with a tune decision and no ``params`` would take its pinned operating
-    point from ``tune/apply.py``, which is not yet ported."""
+    ``device``. The serving ``k`` must satisfy ``k <= itopk_size``. With no
+    ``params``, an attached tune decision (``index.tuned``, e.g. restored by
+    a raft_tpu/9 load) supplies the pinned operating point
+    (``tune.make_searcher(index, True, degrade_without_rows=True)``)."""
     from ._hooks import make_hook
 
     if params is None and index.tuned is not None:
-        _not_ported("batched_searcher of a tuned index without params (tune.apply)")
+        from ..tune.apply import make_searcher as tuned_searcher
+
+        return tuned_searcher(index, True, degrade_without_rows=True)
     sp = params or SearchParams()
     return make_hook(lambda queries, k: search(sp, index, queries, k),
                      "cagra", index.dim, index.data_kind, index.device)

@@ -37,9 +37,8 @@ handed to ``extend``: the result equals the in-core one bit for bit, bar the spa
 split of a severely oversized list, which needs every row on the device
 (streamed, such a list splits by input order, as in the JAX package).
 
-Not yet ported (raises ``RaftError("not yet ported")``): ``batched_searcher``
-of a tuned index without explicit params (``tune/``). The trace ranges wait
-for the port of ``core/tracing``.
+An index with a tune decision attached (``index.tuned``) serves its pinned
+operating point through ``batched_searcher`` (:mod:`raft_tpu_torch.tune.apply`).
 """
 
 from __future__ import annotations
@@ -53,9 +52,10 @@ import torch
 
 from ..cluster import kmeans_balanced
 from ..cluster.kmeans_balanced import KMeansBalancedParams
+from ..config import auto_convert_output
 from ..core import chunked
 from ..core.chunked import is_reader
-from ..core.errors import expects, fail
+from ..core.errors import expects
 from ..core.resources import Resources, default_resources
 from ..core.serialize import (atomic_write, check_header, deserialize_mdspan,
                               deserialize_scalar, deserialize_tuned, serialize_header,
@@ -75,10 +75,6 @@ __all__ = ["IndexParams", "SearchParams", "IvfFlatIndex", "build", "extend", "se
 _L2_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
                DistanceType.L2Unexpanded, DistanceType.L2SqrtUnexpanded)
 _SQRT_METRICS = (DistanceType.L2SqrtExpanded, DistanceType.L2SqrtUnexpanded)
-
-
-def _not_ported(what: str):
-    fail("ivf_flat: %s is not yet ported to raft_tpu_torch", what)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -468,6 +464,7 @@ def search_plan(index: IvfFlatIndex, m: int, n_probes: int, k: int,
                              budget_bytes=res.workspace_bytes)
 
 
+@auto_convert_output
 @instrument(
     "ivf_flat.search",
     items=lambda a, kw: nrows(a[2] if len(a) > 2 else kw["queries"]),
@@ -575,13 +572,16 @@ def from_state(arrays: dict, res: Resources | None = None, **meta) -> IvfFlatInd
 
 def batched_searcher(index: IvfFlatIndex, params: SearchParams | None = None):
     """The serving hook (contract in :mod:`._hooks`): ``fn(queries, k) ->
-    (distances, ids)`` with ``kind``, ``dim`` and ``query_dtype``. An index
-    with a tune decision and no ``params`` would take its pinned operating
-    point from ``tune/apply.py``, which is not yet ported."""
+    (distances, ids)`` with ``kind``, ``dim`` and ``query_dtype``. With no ``params``,
+    an attached tune decision (``index.tuned``, e.g. restored by a
+    raft_tpu/9 load) supplies the pinned operating point
+    (``tune.make_searcher(index, True, degrade_without_rows=True)``)."""
     from ._hooks import make_hook
 
     if params is None and index.tuned is not None:
-        _not_ported("batched_searcher of a tuned index without params (tune.apply)")
+        from ..tune.apply import make_searcher as tuned_searcher
+
+        return tuned_searcher(index, True, degrade_without_rows=True)
     sp = params or SearchParams()
     return make_hook(lambda queries, k: search(sp, index, queries, k),
                      "ivf_flat", index.dim, index.data_kind, index.device)

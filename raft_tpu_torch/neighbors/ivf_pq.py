@@ -51,8 +51,10 @@ out of core, as does a host array past ``chunked.STREAM_EXTEND_BYTES``
 handed to ``extend``: the assign, encode and fill run per tile over staged
 chunks, to the in-core result bit for bit.
 
-Not yet ported (raises ``RaftError("not yet ported")``): ``batched_searcher``
-of a tuned index without params.
+An index with a tune decision attached (``index.tuned``) serves its pinned
+operating point through ``batched_searcher`` (:mod:`raft_tpu_torch.tune.apply`;
+a ``refine_ratio`` pin serves its refine-free remainder there, with a
+warning, since the index holds no raw rows).
 """
 
 from __future__ import annotations
@@ -67,10 +69,11 @@ import torch
 
 from ..cluster import kmeans_balanced
 from ..cluster.kmeans_balanced import KMeansBalancedParams
+from ..config import auto_convert_output
 from ..core import serialize as core_serialize
 from ..core import chunked
 from ..core.chunked import is_reader
-from ..core.errors import expects, fail
+from ..core.errors import expects
 from ..core.resources import Resources, default_resources
 from ..core.serialize import (check_header, deserialize_mdspan, deserialize_scalar,
                               deserialize_tuned, serialize_header, serialize_mdspan,
@@ -98,10 +101,6 @@ _SQRT_METRICS = (DistanceType.L2SqrtExpanded, DistanceType.L2SqrtUnexpanded)
 _SELECT_IMPLS = {"auto": "auto", "xla": "torch", "pallas": "kernel"}
 _BLOCK_BYTES = 1 << 28   # temporaries of one step of the plain formulations
 logger = logging.getLogger("raft_tpu_torch")
-
-
-def _not_ported(what: str):
-    fail("ivf_pq: %s is not yet ported to raft_tpu_torch", what)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1367,6 +1366,7 @@ def _pq_search_grouped(index: IvfPqIndex, queries, n_probes: int, k: int, lut_dt
     return _finish(index, dists, idx, lambda d: ~torch.isfinite(d))
 
 
+@auto_convert_output
 @instrument(
     "ivf_pq.search",
     items=lambda a, kw: nrows(a[2] if len(a) > 2 else kw["queries"]),
@@ -1458,13 +1458,16 @@ def search(params: SearchParams, index: IvfPqIndex, queries, k: int,
 
 def batched_searcher(index: IvfPqIndex, params: SearchParams | None = None):
     """The serving hook (contract in :mod:`._hooks`): ``fn(queries, k) ->
-    (distances, ids)`` with ``kind``, ``dim`` and ``query_dtype``. An index
-    with a tune decision and no ``params`` would take its pinned operating
-    point from ``tune/apply.py``, which is not yet ported."""
+    (distances, ids)`` with ``kind``, ``dim`` and ``query_dtype``. With no ``params``,
+    an attached tune decision (``index.tuned``, e.g. restored by a
+    raft_tpu/9 load) supplies the pinned operating point
+    (``tune.make_searcher(index, True, degrade_without_rows=True)``)."""
     from ._hooks import make_hook
 
     if params is None and index.tuned is not None:
-        _not_ported("batched_searcher of a tuned index without params (tune.apply)")
+        from ..tune.apply import make_searcher as tuned_searcher
+
+        return tuned_searcher(index, True, degrade_without_rows=True)
     sp = params or SearchParams()
     return make_hook(lambda queries, k: search(sp, index, queries, k),
                      "ivf_pq", index.dim, index.data_kind, index.device)

@@ -209,7 +209,7 @@ def exact_oracle(index, dataset=None) -> Callable:
         fn_dtype = dk if dk in ("int8", "uint8") else "float32"
 
         def fn(queries, k):
-            return brute_force.knn(ds, queries, int(k), metric, metric_arg,
+            return brute_force.knn.native(ds, queries, int(k), metric, metric_arg,
                                    res=res)
 
     fn = _wrap_oracle(fn, fn_dim, fn_dtype)

@@ -45,7 +45,8 @@ from ..obs import compile as obs_compile
 __all__ = ["build_all", "load", "count_launch", "launch_tally", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_DIR = DEFAULT_BUILD_DIR   # config.enable_compilation_cache moves it
 SOURCES = ("fused_knn", "fused_knn_tc", "topk", "pq_scan", "cagra_hop")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -151,6 +152,18 @@ def _build_locked(names) -> dict:
         _libs[name] = ctypes.CDLL(str(_lib_path(name)))
         obs_compile.record_build(name, secs[name], cached=job is None)
     return secs
+
+
+def set_build_dir(path) -> Path:
+    """Point the build cache at ``path`` (created if missing) under the
+    build lock, so no build in flight straddles two directories; libraries
+    already loaded stay loaded. Returns the directory in effect."""
+    global BUILD_DIR
+    path = Path(path).expanduser().resolve()
+    with _lock:
+        path.mkdir(parents=True, exist_ok=True)
+        BUILD_DIR = path
+    return path
 
 
 def load(name: str) -> ctypes.CDLL:

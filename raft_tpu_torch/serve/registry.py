@@ -25,8 +25,8 @@ including the int8/uint8 byte-dataset variants, whose warmup queries are
 drawn in the index's own query dtype.
 
 A :class:`raft_tpu_torch.stream.MutableIndex` publishes through its own
-current-epoch searcher. Not yet ported (raises ``RaftError("not yet
-ported")``): ``tuned=`` (``tune/apply.py``).
+current-epoch searcher; ``publish(tuned=...)`` serves a plain index at a
+pinned tune decision (:func:`raft_tpu_torch.tune.make_searcher`).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable
 
-from ..core.errors import RaftError, expects, fail
+from ..core.errors import RaftError, expects
 from ..core.resources import default_resources
 from ..obs import events as obs_events
 from ..obs import mem as obs_mem
@@ -67,10 +67,6 @@ def _retired_total():
 def _versions_live():
     return metrics.gauge(
         "raft_tpu_serve_versions_live", "live (leasable) versions per name")
-
-
-def _not_ported(what: str):
-    fail("serve: %s is not yet ported to raft_tpu_torch", what)
 
 
 def make_searcher(index, search_params=None) -> Callable:
@@ -155,8 +151,17 @@ class IndexRegistry:
         warm-time walls in the report
         (:func:`raft_tpu_torch._warmup.warm_buckets`).
 
-        ``tuned`` (a tune decision) raises "not yet ported": ``tune/apply.py``
-        waits for a later slice.
+        ``tuned`` (a :class:`raft_tpu_torch.tune.DecisionLog`, a single
+        :class:`~raft_tpu_torch.tune.Decision` or its dict, or ``True`` to
+        use the decision attached to the index) serves the index at its
+        pinned operating point: the searcher is built through
+        :func:`raft_tpu_torch.tune.make_searcher`, and the warm ladder below
+        runs the TUNED searcher at every bucket before the flip, so applying
+        a decision builds no kernel on the hot path. Mutually exclusive with
+        ``search_params`` and pre-built hooks; ``refine_ratio`` operating
+        points need the raw rows, so publish the hook
+        ``tune.make_searcher(index, log, dataset=rows)`` builds instead.
+        The report's ``"tuned"`` names the live pin.
 
         ``res`` (a :class:`raft_tpu_torch.core.Resources`, default the process
         handle) carries ``memory_budget_bytes``: a publish whose index
@@ -182,7 +187,16 @@ class IndexRegistry:
 
         src_index = index  # the pre-resolution object, for the budget gate
         if tuned is not None:
-            _not_ported("publish(tuned=...) (tune.apply)")
+            from ..tune.apply import make_searcher as tuned_searcher
+
+            expects(search_params is None,
+                    "tuned= and search_params= both pin search params — "
+                    "pass one")
+            expects(not (callable(index) and hasattr(index, "kind"))
+                    and not hasattr(index, "upsert"),
+                    "tuned= applies to a plain index; pre-built hooks and "
+                    "stream.MutableIndex bake their own params")
+            index = tuned_searcher(index, tuned)
         if callable(index) and hasattr(index, "kind"):
             # pre-built hook: its params are baked into the closure, so a
             # search_params here would be silently ignored — refuse instead

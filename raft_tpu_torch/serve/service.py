@@ -37,9 +37,7 @@ published name, ``slo=`` (a :class:`raft_tpu_torch.obs.slo.SLOTracker`) gets
 every admission and every served request's latency, ``request_log=`` (a
 :class:`raft_tpu_torch.obs.requestlog.RequestLog`) the request traces. A
 tiered mutable index publishes its ``refined_searcher()`` like any hook.
-
-Not yet ported (raises ``RaftError("not yet ported")``): ``tuned=``
-publishes (``tune/apply.py``).
+``publish(tuned=...)`` serves a plain index at a pinned tune decision.
 
 Determinism for tests: pass ``start_workers=False`` plus an injected
 ``clock`` and drive the queues with :meth:`pump`.
@@ -222,8 +220,11 @@ class SearchService:
         draws the warmup queries from real data — see
         :func:`raft_tpu_torch._warmup.warm_buckets`. Publishing a
         ``stream.MutableIndex`` (or its own ``searcher()`` hook) opens the
-        write path for ``name``; anything else closes it. ``tuned`` raises
-        "not yet ported" (``tune/apply.py``).
+        write path for ``name``; anything else closes it. ``tuned`` (a
+        ``tune.DecisionLog`` / ``Decision`` / its dict / ``True``) serves
+        the index at its pinned operating point; the warm ladder covers the
+        tuned searcher, so applying a decision is as hiccup-free as any
+        other publish (:meth:`IndexRegistry.publish`).
         ``res`` carries ``memory_budget_bytes`` for the publish admission
         gate (:meth:`IndexRegistry.publish`); over budget raises
         :class:`~raft_tpu_torch.serve.errors.MemoryBudgetError` with zero

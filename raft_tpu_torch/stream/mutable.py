@@ -268,9 +268,9 @@ def _sealed_search(cfg, sealed, queries, k, keep, res):
     from ..neighbors import brute_force
 
     if cfg.kind == "brute_force":
-        return brute_force.knn(sealed.dataset, queries, k, cfg.metric,
+        return brute_force.knn.native(sealed.dataset, queries, k, cfg.metric,
                                cfg.metric_arg, sample_filter=keep, res=res)
-    return cfg.module.search(cfg.search_params, sealed, queries, k,
+    return cfg.module.search.native(cfg.search_params, sealed, queries, k,
                              sample_filter=keep, res=res)
 
 
@@ -477,7 +477,7 @@ def _scan_state(st: _StreamState, queries, k: int, res=None,
     si = _map_ids(si, imap)
     t1 = time.perf_counter()
     kd = min(k, delta.shape[0])
-    dd, di = brute_force.knn(delta, queries, kd, cfg.metric, cfg.metric_arg,
+    dd, di = brute_force.knn.native(delta, queries, kd, cfg.metric, cfg.metric_arg,
                              sample_filter=dkeep, res=res)
     di = _map_ids(di, dids)
     t2 = time.perf_counter()
@@ -993,12 +993,12 @@ class MutableIndex:
         else:
             store_dev = mirror if mirror is not None else self._store_device(st)
             ks = min(k, store_dev.shape[0])
-            sd, si = brute_force.knn(store_dev, queries, ks, cfg.metric,
+            sd, si = brute_force.knn.native(store_dev, queries, ks, cfg.metric,
                                      cfg.metric_arg, sample_filter=skeep.mask,
                                      res=res)
         si = _map_ids(si, imap)
         kd = min(k, delta.shape[0])
-        dd, di = brute_force.knn(delta, queries, kd, cfg.metric,
+        dd, di = brute_force.knn.native(delta, queries, kd, cfg.metric,
                                  cfg.metric_arg, sample_filter=dkeep, res=res)
         di = _map_ids(di, dids)
         obs_dispatch.note(4)
@@ -1030,7 +1030,7 @@ class MutableIndex:
         acc_d = acc_i = None
         for ci in range(n_chunks):
             rows_dev, base, _ = ts.oracle_chunk_dev(ci)
-            cd, cidx = brute_force.knn(
+            cd, cidx = brute_force.knn.native(
                 rows_dev, queries, kc, cfg.metric, cfg.metric_arg,
                 sample_filter=keep_dev[base:base + chunk], res=res)
             cidx = shift_slots(cidx, base)
@@ -1113,7 +1113,7 @@ class MutableIndex:
         kr = min(k * r, st.id_map.shape[0])
         t0 = time.perf_counter()
         # PQ candidates at the widened width; only their slot ids are used
-        _, slots = cfg.module.search(cfg.search_params, st.sealed, queries,
+        _, slots = cfg.module.search.native(cfg.search_params, st.sealed, queries,
                                      kr, sample_filter=skeep, res=res)
         t1 = time.perf_counter()
         ts = st.store if isinstance(st.store, TieredStore) else None
@@ -1127,7 +1127,7 @@ class MutableIndex:
         ri = _map_ids(rslots, imap)
         t2 = time.perf_counter()
         kd = min(k, delta.shape[0])
-        dd, di = brute_force.knn(delta, queries, kd, cfg.metric,
+        dd, di = brute_force.knn.native(delta, queries, kd, cfg.metric,
                                  cfg.metric_arg, sample_filter=dkeep,
                                  res=res)
         di = _map_ids(di, dids)
@@ -1228,7 +1228,7 @@ class MutableIndex:
                         keep = torch.zeros(db, dtype=torch.bool,
                                            device=cfg.device)
                         kd = min(kk, db)
-                        dd, di = brute_force.knn(
+                        dd, di = brute_force.knn.native(
                             dummy, q, kd, cfg.metric, cfg.metric_arg,
                             sample_filter=keep, res=cfg.res)
                         di = _map_ids(di, torch.zeros(

@@ -740,7 +740,7 @@ class ShardedMutableIndex:
                                     np.zeros((db, cfg.dim), dt)).to(cfg.device)
                                 keep = torch.zeros(db, dtype=torch.bool,
                                                    device=cfg.device)
-                                dd, di = brute_force.knn(
+                                dd, di = brute_force.knn.native(
                                     dummy, q, min(kk, db), cfg.metric,
                                     cfg.metric_arg, sample_filter=keep,
                                     res=cfg.res)

@@ -169,9 +169,10 @@ def local_scale_cv(dataset, sample: int = 1024) -> float:
     classifier online, on canary query samples and compaction-time corpus
     stats, to detect the live distribution leaving a pinned decision's
     family."""
-    x = _host(dataset).astype(np.float64)
-    step = max(x.shape[0] // int(sample), 1)
-    x = x[::step][:sample]
+    # the same rows as subsampling on the host, without copying the whole
+    # dataset off the card first
+    step = max(int(dataset.shape[0]) // int(sample), 1)
+    x = _host(dataset[::step][:sample]).astype(np.float64)
     if x.shape[0] < 8:
         return 0.0
     sq = (x * x).sum(1)

@@ -934,3 +934,73 @@ def test_tiered_mutable_on_card_equals_cpu(cuda, tmp_path):
         c = mc.search_refined(q, 10, 4)
         _knn_equiv(a[0].cpu(), a[1].cpu(), c[0], c[1], rtol=1e-5, atol=1e-4)
     assert mt.tiered_store.residency == "host" and mt.tiered_store._epoch == 1
+
+
+def test_sweep_select_k_measures_the_topk_kernel(cuda):
+    """On the card the kernel arm is measured (``kernel_measured``) and the
+    decision's evidence names the device type; its pin applies."""
+    from raft_tpu_torch import tune
+
+    dec = tune.sweep_select_k(rows=128, cols=(256, 2048), ks=(10, 128), repeats=1,
+                              res=Resources(device="cuda"))
+    ev = dec.evidence
+    assert ev["kernel_measured"] is True and ev["backend"] == "cuda"
+    assert all("error" not in t for t in ev["trials"])
+    assert {t["params"]["impl"] for t in ev["trials"]} == {"torch", "kernel"}
+    log = tune.DecisionLog()
+    log.add(dec)
+    try:
+        assert tune.apply_global(log) == {"select_k.wide_cols_min": dec.params["wide_cols_min"]}
+    finally:
+        set_wide_cols_threshold(None)
+
+
+def test_interruptible_synchronize_waits_on_the_card(cuda):
+    from raft_tpu_torch.core.interruptible import InterruptedException, cancel, synchronize
+
+    a = torch.randn(2048, 2048, device=cuda)
+    b = a @ a
+    synchronize(b, {"x": [a]})
+    cancel()
+    with pytest.raises(InterruptedException):
+        synchronize(b)
+    synchronize(b)
+
+
+def test_numpy_output_from_the_card_and_tensors_for_the_hooks(cuda):
+    """Under ``"numpy"`` an entry point copies its tensors off the card;
+    a serving hook and a tuned hook keep them there."""
+    from raft_tpu_torch import config, tune
+
+    rng = np.random.default_rng(15)
+    x = rng.standard_normal((20_000, 64)).astype(np.float32)
+    q = rng.standard_normal((64, 64)).astype(np.float32)
+    res = Resources(device="cuda")
+    index = ivf_flat.build(ivf_flat.IndexParams(n_lists=64, seed=0), x, res=res)
+    sp = ivf_flat.SearchParams(n_probes=8)
+    d, i = ivf_flat.search(sp, index, q, 10)
+    hook = tune.make_searcher(index, {"kind": "ivf_flat", "params": {"n_probes": 8}})
+    config.set_output_as("numpy")
+    try:
+        nd, ni = ivf_flat.search(sp, index, q, 10)
+        hd, hi = hook(q, 10)
+    finally:
+        config.set_output_as("torch")
+    assert isinstance(nd, np.ndarray) and np.array_equal(ni, i.cpu().numpy())
+    assert np.array_equal(nd, d.cpu().numpy())
+    assert hd.is_cuda and torch.equal(hi, i) and torch.equal(hd, d)
+
+
+def test_warmup_on_the_card(cuda, tmp_path):
+    import raft_tpu_torch
+    from raft_tpu_torch.ops import _build
+
+    before = _build.BUILD_DIR
+    try:
+        out = raft_tpu_torch.warmup("ivf_flat", n=20_000, d=64, queries=256,
+                                    index_params=ivf_flat.IndexParams(n_lists=64),
+                                    cache_dir=str(tmp_path))
+    finally:
+        _build.set_build_dir(before)
+    assert out["attribution"] == "obs.compile" and out["cache_dir"] == str(tmp_path.resolve())
+    assert out["build_s"] >= 0 and out["search"]["wall_s"] >= 0

@@ -74,3 +74,47 @@ def test_stream_exports_the_mesh():
                  "sharded", "replicated"):
         assert name in stream.__all__ and hasattr(stream, name), name
     assert "not yet ported" not in (stream.__doc__ or "").replace("``comms=`` is not yet ported", "")
+
+
+# the modules of the autotuner and deploy-time slice, each named so that a
+# move or a rename shows here
+DEPLOY_MODULES = ("config.py", "_warmup.py", "__init__.py", "core/__init__.py",
+                  "core/interruptible.py", "core/operators.py", "core/temporary_buffer.py",
+                  "tune/__init__.py", "tune/apply.py", "tune/sweep.py", "tune/reference.py",
+                  "serve/registry.py", "serve/service.py", "neighbors/_hooks.py",
+                  "neighbors/ivf_flat.py", "neighbors/ivf_pq.py", "neighbors/cagra.py")
+
+
+@pytest.mark.parametrize("rel", DEPLOY_MODULES)
+def test_deploy_modules_import_neither_jax_nor_raft_tpu(rel):
+    path = ROOT / "raft_tpu_torch" / rel
+    assert path.is_file(), rel
+    names = list(_imports(path))
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+
+
+def test_only_the_named_carve_outs_are_not_yet_ported():
+    """The tuned hooks, ``publish(tuned=)``, ``warmup`` and ``config`` are
+    ported; what still refuses is ``cagra_hop``'s ``profile=`` (a TPU
+    profiling aid), the mesh's ``comms=`` and sparse ``gram_matrix``."""
+    hits = sorted({str(f.relative_to(ROOT / "raft_tpu_torch"))
+                   for f in (ROOT / "raft_tpu_torch").rglob("*.py")
+                   if "not yet ported" in f.read_text()})
+    assert hits == ["distance/kernels.py", "ops/cagra_hop.py", "stream/__init__.py",
+                    "stream/sharded.py"], hits
+
+
+def test_package_exports_the_deploy_surface():
+    import raft_tpu_torch
+    from raft_tpu_torch import _warmup, config, core, tune
+
+    assert raft_tpu_torch.warmup is _warmup.warmup
+    assert raft_tpu_torch.warm_buckets is _warmup.warm_buckets
+    assert raft_tpu_torch.config is config
+    for name in ("InterruptedException", "interruptible", "synchronize", "cancel",
+                 "temporary_device_buffer", "operators"):
+        assert name in core.__all__ and hasattr(core, name), name
+    for name in ("sweep", "sweep_select_k", "make_searcher", "attach", "apply_global",
+                 "tuned_search_params", "resolve", "reference", "Trial", "default_grid"):
+        assert name in tune.__all__ and hasattr(tune, name), name
+    assert "not yet ported" not in (tune.__doc__ or "")

@@ -283,7 +283,7 @@ def test_batched_searcher_and_guards(data, jax_files):
     jd, ji = jfn(jnp.asarray(qu), 5)
     _compare(td, ti, jd, ji, exact=True)
     # a chunked reader (duck-typed: the JAX one here) streams, to the
-    # in-core build and extend of its rows; the tuned searcher waits for tune/
+    # in-core build and extend of its rows
     p4 = tfl.IndexParams(n_lists=4)
     for a, b in ((tfl.build(p4, ChunkedReader(xu, chunk_rows=300), res=CPU),
                   tfl.build(p4, xu, res=CPU)),
@@ -291,8 +291,19 @@ def test_batched_searcher_and_guards(data, jax_files):
                   tfl.extend(tindex, xu[:10], res=CPU))):
         for f in tfl._STATE_ARRAYS:
             assert torch.equal(getattr(a, f), getattr(b, f)), f
-    with pytest.raises(RaftError, match="not yet ported"):
-        tfl.batched_searcher(dataclasses.replace(tindex, tuned={"n_probes": 3}))
+    # an attached tune decision and no params: both packages serve the pin
+    pin = {"kind": "ivf_flat", "dtype": "uint8", "params": {"n_probes": 3}}
+    jindex.tuned = pin
+    try:
+        jpin = jfl.batched_searcher(jindex)
+    finally:
+        jindex.tuned = None
+    tpin = tfl.batched_searcher(dataclasses.replace(tindex, tuned=pin))
+    assert tpin.tuned == jpin.tuned == "ivf_flat/uint8/any"
+    assert (tpin.kind, tpin.dim, tpin.query_dtype) == (jpin.kind, jpin.dim, jpin.query_dtype)
+    td, ti = tpin(qu, 5)
+    jd, ji = jpin(jnp.asarray(qu), 5)
+    _compare(td, ti, jd, ji, exact=True)
     # contract errors
     with pytest.raises(RaftError, match="stores uint8"):
         tfl.extend(tindex, xu[:5].astype(np.int8), res=CPU)

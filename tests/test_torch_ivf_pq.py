@@ -258,8 +258,8 @@ def test_not_yet_ported_and_contract_errors(data, jax_files):
     x, q, _ = data
 
     # a chunked reader streams: the build and the extend equal the in-core
-    # ones over the same rows; a tuned index's hook without params waits
-    # for tune/
+    # ones over the same rows; a tuned index's hook without params serves
+    # its pin as JAX's does
     p8 = tpq.IndexParams(n_lists=8)
     streamed = tpq.build(p8, ChunkedReader(x[:1000], chunk_rows=300), res=CPU)
     incore = tpq.build(p8, x[:1000], res=CPU)
@@ -268,8 +268,16 @@ def test_not_yet_ported_and_contract_errors(data, jax_files):
     index = tpq.load(jax_files["pq4"][1], res=CPU)
     assert torch.equal(tpq.extend(index, ChunkedReader(x[:300], chunk_rows=128)).list_codes,
                        tpq.extend(index, x[:300]).list_codes)
-    with pytest.raises(RaftError, match="not yet ported"):
-        tpq.batched_searcher(dataclasses.replace(index, tuned={"n_probes": 4}))
+    jindex = jax_files["pq4"][0]
+    pin = {"kind": "ivf_pq", "params": {"n_probes": 4, "scan_impl": "onehot"}}
+    jindex.tuned = pin
+    try:
+        jpin = jpq.batched_searcher(jindex)
+    finally:
+        jindex.tuned = None
+    tpin = tpq.batched_searcher(dataclasses.replace(index, tuned=pin))
+    assert tpin.tuned == jpin.tuned == "ivf_pq/float32/any" and tpin.kind == jpin.kind
+    _assert_same_answers(*tpin(q, 10), *jpin(jnp.asarray(q), 10))
     for kw, msg in ((dict(codebook_kind="per_tree"), "codebook_kind"),
                     (dict(rotation="pca"), "rotation"), (dict(fast_scan="2bit"), "fast_scan"),
                     (dict(codebook_loss="l1"), "codebook_loss")):

@@ -312,10 +312,15 @@ def test_batched_searcher(built):
     assert (hook.kind, hook.dim, hook.query_dtype) == ("ivf_pq", D, "uint8")
     for a, b in zip(hook(q, 10), tpq.search(sp, tindex, q, 10, res=CPU)):
         assert torch.equal(a, b)
-    tuned = dataclasses.replace(tindex, tuned={"n_probes": 4})
-    assert tpq.batched_searcher(tuned, sp).kind == "ivf_pq"
-    with pytest.raises(RaftError, match="not yet ported"):
-        tpq.batched_searcher(tuned)
+    tuned = dataclasses.replace(tindex, tuned={"kind": "ivf_pq", "dtype": "uint8",
+                                               "params": {"n_probes": 4}})
+    explicit = tpq.batched_searcher(tuned, sp)
+    assert explicit.kind == "ivf_pq" and not hasattr(explicit, "tuned")
+    pinned = tpq.batched_searcher(tuned)
+    assert pinned.tuned == "ivf_pq/uint8/any" and pinned.query_dtype == "uint8"
+    want = tpq.search(tpq.SearchParams(n_probes=4), tindex, q, 10, res=CPU)
+    for a, b in zip(pinned(q, 10), want):
+        assert torch.equal(a, b)
 
 
 def test_contract_errors(built):

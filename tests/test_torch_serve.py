@@ -443,14 +443,27 @@ def test_external_registry_must_cover_service_buckets():
 
 
 def test_not_yet_ported_surfaces(bf, dataset):
-    """tune/ waits for a later slice: a tuned publish raises "not yet
-    ported" before any state lands. The write path is ported: a duck-typed
-    mutable publishes through its own searcher and opens upsert / delete,
-    which a plain index under the name refuses."""
+    """The surfaces an earlier slice refused, now ported. A tuned publish
+    of an index with nothing attached refuses as the JAX registry does,
+    before any state lands; with a pin attached it publishes the pin. The
+    write path: a duck-typed mutable publishes through its own searcher and
+    opens upsert / delete, which a plain index under the name refuses."""
     reg = IndexRegistry(buckets=(1,))
-    with pytest.raises(RaftError, match="not yet ported"):
+    jreg = jserve.IndexRegistry(buckets=(1,))
+    jindex = jbf.BruteForce().build(np.asarray(bf.dataset))
+    with pytest.raises(RaftError, match="no decision resolved") as te:
         reg.publish("main", bf, tuned=True, warm=False)
-    assert reg.names() == ()
+    with pytest.raises(Exception) as je:
+        jreg.publish("main", jindex, tuned=True, warm=False)
+    assert str(te.value) == str(je.value)
+    assert reg.names() == () == jreg.names()
+    bf.tuned = {"kind": "brute_force", "params": {}}
+    try:
+        pinned = IndexRegistry(buckets=(1,))
+        report = pinned.publish("main", bf, tuned=True, warm=False)
+    finally:
+        bf.tuned = None
+    assert report["tuned"] == "brute_force/float32/any" and pinned.names() == ("main",)
 
     writes = []
 
@@ -483,10 +496,14 @@ def test_not_yet_ported_surfaces(bf, dataset):
     with pytest.raises(RaftError, match="not a mutable"):
         svc.upsert("main", dataset[:1])
     svc.shutdown()
-    with pytest.raises(RaftError, match="not yet ported"):
-        cagra.batched_searcher(dataclasses.replace(
-            cagra.build(cagra.IndexParams(seed=0), dataset[:256], res=CPU),
-            tuned={"itopk_size": 32}))
+    # a pinned CAGRA index serves its pin through batched_searcher
+    cindex = cagra.build(cagra.IndexParams(seed=0), dataset[:256], res=CPU)
+    pinned = cagra.batched_searcher(dataclasses.replace(
+        cindex, tuned={"kind": "cagra", "params": {"itopk_size": 48}}))
+    assert pinned.tuned == "cagra/float32/any" and pinned.kind == "cagra"
+    want = cagra.search(cagra.SearchParams(itopk_size=48), cindex, dataset[:4], 5, res=CPU)
+    for a, b in zip(pinned(dataset[:4], 5), want):
+        assert torch.equal(a, b)
 
 
 def test_publish_refused_over_memory_budget_zero_partial_state(bf, dataset):
