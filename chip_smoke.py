@@ -4,7 +4,8 @@ end to end.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --phases 01  # build and kernel checks only
-    python3 chip_smoke.py --phases 012456789  # all but phase 3's timings
+    python3 chip_smoke.py --phases 012456789a  # all but phase 3's timings
+    python3 chip_smoke.py --phases 02a  # the front door, the mesh, the controller
     python3 chip_smoke.py --out DIR    # where the profile tables go
                                        # (default build/profiles)
 
@@ -321,13 +322,52 @@ Phases, each printing JSON lines:
      ``synchronize`` (within one search; the token resets); ``knn`` and
      each ``search``, a served flush and a mutable-index search under
      ``config.set_output_as("numpy")`` equal to the ``"torch"`` setting
-     (the mutable index's answers stay on the card).
+     (the mutable index's answers stay on the card);
+  a. the network front door, the process mesh, the controller and the
+     exporter (``net/``, ``obs/http.py``, ``control/``; after phase 9, on
+     phase 2's indexes). (a) IVF-PQ + refine (``serve``), brute force,
+     IVF-Flat and CAGRA on one ``SearchService(max_batch=64,
+     max_wait_us=2000)`` behind a ``NetServer``: the JAX package's
+     ``net_serve`` ladder (bench.py:3345-3347), 1 / 4 / 8 threads x 150
+     one-row requests on ``serve`` in process and over loopback (QPS, p50 /
+     p99, the p99 of the wire / queue / flush spans from ``X-Raft-Spans``
+     and of the histograms, the wire tax at 8 threads), recall@10 of 1,000
+     queries both ways (equal ids required), 100 one-at-a-time wire
+     requests to each other name; every served row equal to a direct
+     search at its shape, 0 builds in the window. (b) ``ProcessMesh`` of 2
+     shards x 2 replicas of brute force over phase 2's exact set, each
+     worker on ``cuda:0`` (the router builds the workers' kernels before it
+     spawns them): boot walls, ``stats()`` (0 cache misses at boot and
+     after), ``net_kill_worker``'s protocol (bench.py:3475-3477: 6 threads
+     for 8 s through a ``NetServer``, one worker SIGKILLed at 3 s): 0
+     failed queries, ``net_worker_fenced`` and ``net_worker_failover`` in
+     the journal, ``/healthz`` 200 ``degraded``, 256 queries' ids equal to
+     an exact in-process search; then the twin killed:
+     ``ReplicaUnavailableError`` rebuilt across the wire with its fields,
+     ``/healthz`` 503 ``failing``; the workers' launches summed. (c) The
+     controller: phase 2's clustered IVF-Flat pinned at ``n_probes=1`` in an
+     ``IndexRegistry``, a ``retune_advised`` event, the bounded sweep and
+     the tuned republish under a reader (recall before and after, 0 failed,
+     0 builds, the seq chain); an IVF-Flat ``ShardedMutableIndex`` at S = 2
+     over the same set (512 lists, 16 probes) taking an upsert ramp of 8 x
+     512 rows past ``reshard_rows_per_shard``, the compactor's advice
+     resharding it to 4 under the controller's headroom and burn checks
+     with a reader on the mesh (0 failed, recall against the mesh's oracle
+     held, the reshard's wall); a hot ``SLOTracker`` degrading the tuned
+     name to ``n_probes=1`` and its cooling restoring it (an injected
+     clock), the rows served at each point equal to a direct search. (d) A
+     ``MetricsExporter`` over (a)'s request log, an ``SLOTracker`` fed by
+     (a)'s service, (b)'s mesh and (c)'s controller: ``/metrics`` parsed as
+     Prometheus text, ``/healthz`` (503 with the replica and control
+     folds), ``/debug/mem`` with its ``tiers`` section, ``/debug/events``,
+     ``/debug/control``, ``/debug/requests`` and the 404 listing.
 
 The line before the last lists the kernels (``launches_stream``: phase 5's
 windows; ``launches_stream_folds``: the part of those that the compactions'
 folds made on the writer thread, CAGRA's rebuild graph build among them;
 ``launches_ooc``: phase 6's builds and searches; ``launches_tier``: phase
-7's; ``launches_mesh``: phase 8's; ``launches_tune``: phase 9's);
+7's; ``launches_mesh``: phase 8's; ``launches_tune``: phase 9's;
+``launches_net``: phase a's, the mesh workers' summed in);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line; so does a machine without CUDA (exit 2),
@@ -3165,20 +3205,12 @@ def topk_sweep(st):
 
 
 def all_counts():
-    """Every kernel wrapper's launch count (``fused_knn`` by mode, and mode
-    f32's by route)."""
-    from raft_tpu_torch.ops.cagra_hop import cagra_hop
-    from raft_tpu_torch.ops.fused_knn import bf16_split, fused_knn, tf32_split
-    from raft_tpu_torch.ops.pq_scan import pq_scan, pq_scan_topk
-    from raft_tpu_torch.ops.topk import topk
+    """Every kernel wrapper's launch count (``ops.launch_counts``, with mode
+    f32's ``fused_knn`` launches also summed over its routes)."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.ops.fused_knn import fused_knn
 
-    return {"fused_knn": fused_knn.launches_by_mode["f32"],
-            **{f"fused_knn_{r}": v for r, v in fused_knn.launches_by_route.items()},
-            "fused_knn_tc": sum(v for m, v in fused_knn.launches_by_mode.items()
-                                if m != "f32"),
-            "bf16_split": bf16_split.launches, "tf32_split": tf32_split.launches,
-            "topk": topk.launches, "pq_scan": pq_scan.launches,
-            "pq_scan_topk": pq_scan_topk.launches, "cagra_hop": cagra_hop.launches}
+    return {"fused_knn": fused_knn.launches_by_mode["f32"], **ops.launch_counts()}
 
 
 def reset_all_counts():
@@ -3505,6 +3537,27 @@ def flush_profile(st, kind, searcher, qhost, k, buckets=(1, SERVE_MAX_BATCH)):
     return out
 
 
+def pq_refine_hook(ix, x, sp):
+    """The serving row's searcher (bench.py:785-800): IVF-PQ at ``sp`` for
+    4k candidates, refined to k against the rows ``x``, on the card."""
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.neighbors.refine import refine
+
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+
+    def fn(queries, k_):
+        qd = torch.as_tensor(queries, device=dev)
+        _, cand = ivf_pq.search(sp, ix, qd, 4 * k_, res=res)
+        return refine(x, qd, cand, k_, res=res)
+
+    fn.kind, fn.dim, fn.query_dtype, fn.device = "ivf_pq+refine", D_MAIN, "float32", dev
+    return fn
+
+
 def phase_serve(st):
     """Phase 4: ``raft_tpu_torch.serve`` on the card. The serve path's
     kernels at its small shapes (:func:`serve_kernel_checks`); then the JAX
@@ -3528,14 +3581,12 @@ def phase_serve(st):
     from raft_tpu_torch import obs
     from raft_tpu_torch.core import Resources
     from raft_tpu_torch.neighbors import ivf_pq
-    from raft_tpu_torch.neighbors.refine import refine
     from raft_tpu_torch.obs import RequestLog
     from raft_tpu_torch.obs import compile as obs_compile
     from raft_tpu_torch.serve import SearchService
 
     serve_kernel_checks(st)
     res = Resources(device="cuda")
-    dev = torch.device("cuda")
     index, q = st["ivf"]
     serve_cold_publish(st, index)
     x, truth = st["ivf_x"], st["ivf_truth"]
@@ -3543,17 +3594,8 @@ def phase_serve(st):
     params = ivf_pq.IndexParams(n_lists=1024, pq_bits=4, pq_dim=64, seed=0)
     k = K_MAIN
 
-    def pq_refine_hook(ix):
-        def fn(queries, k_):
-            qd = torch.as_tensor(queries, device=dev)
-            _, cand = ivf_pq.search(sp, ix, qd, 4 * k_, res=res)
-            return refine(x, qd, cand, k_, res=res)
-
-        fn.kind, fn.dim, fn.query_dtype, fn.device = "ivf_pq+refine", D_MAIN, "float32", dev
-        return fn
-
     pool = q.cpu().numpy()
-    serving = pq_refine_hook(index)
+    serving = pq_refine_hook(index, x, sp)
     serving(pool[:1], k)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3575,7 +3617,7 @@ def phase_serve(st):
          hbm=obs.mem.hbm_stats(), card=st["card"])
     assert abs(ledger_bytes - delta) <= LEDGER_TOL * delta, (ledger_bytes, delta)
     obs.mem.release(tok)
-    swap_target = pq_refine_hook(index2)
+    swap_target = pq_refine_hook(index2, x, sp)
 
     stream = f"serve.k{k}"
     other = None
@@ -6145,10 +6187,707 @@ def phase_tune(st):
          card=st["card"])
 
 
+# -- phase a: the network front door, the process mesh, the controller, the exporter --
+
+NET_THREADS, NET_PER_THREAD = (1, 4, 8), 150     # bench.py:3345 _row_net_serve
+NET_OTHER = 100                  # wire requests to each of the other three names, one at a time
+NET_EVAL = 1_000                 # recall@10 queries, in 64-row batches, in process and over the wire
+NET_KILL_THREADS, NET_KILL_S, NET_KILL_AT_S = 6, 8.0, 3.0   # bench.py:3475 _row_net_kill_worker
+NET_KILL_CHECK = 256             # queries held id for id against an exact search after the kill
+CTL_GRID = [{"n_probes": 8}, {"n_probes": 16}, {"n_probes": 32}]   # the retune's bounded sweep
+CTL_CANARY = 128                 # the sweep's queries (bench.py:2560)
+CTL_RAMP_STEPS, CTL_RAMP_ROWS = 8, 512   # bench.py:2643 _row_controller_ramp
+CTL_DELTA = 8_192
+
+
+class FakeClock:
+    """An injected clock: the degrade / restore hysteresis without sleeping."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt):
+        self.t += dt
+
+
+def net_reset(st):
+    """Add the launches since the last reset to phase a's total, then reset."""
+    add_counts(st.setdefault("launches_net", {}), all_counts())
+    reset_all_counts()
+
+
+def net_rung(call, pool, threads, per_thread, tag):
+    """One rung of a closed loop: ``threads`` threads each make
+    ``per_thread`` one-row calls ``call(row, rid) -> (d, i, spans)`` and
+    wait for each. Returns QPS, p50 / p99 and the per-request spans' p99s,
+    the answers by row (with their request ids) and the failures."""
+    import threading
+
+    import numpy as np
+
+    lats, results, spans, failures = [], {}, [], []
+    lock = threading.Lock()
+
+    def worker(tid):
+        for j in range(per_thread):
+            qi = (tid + j * threads) % pool.shape[0]
+            rid = f"{tag}-{threads}-{tid}-{j}"
+            t0 = time.perf_counter()
+            try:
+                d, i, sp = call(pool[qi:qi + 1], rid)
+            except Exception as e:  # every loss is counted and fails the phase
+                with lock:
+                    failures.append(f"{type(e).__name__}: {str(e)[:120]}")
+                continue
+            lat = time.perf_counter() - t0
+            with lock:
+                lats.append(lat)
+                results[qi] = (d[0], i[0], rid)
+                if sp:
+                    spans.append(sp)
+
+    ws = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for w in ws:
+        w.start()
+    for w in ws:
+        w.join(600)
+        assert not w.is_alive(), "a closed-loop thread did not finish"
+    wall = time.perf_counter() - t0
+    lat = np.sort(np.array(lats)) * 1e3
+    out = dict(threads=threads, requests=threads * per_thread, qps=len(lats) / wall,
+               p50_ms=float(lat[len(lat) // 2]), p99_ms=float(lat[int(len(lat) * 0.99) - 1]),
+               failed=len(failures))
+    if spans:
+        out["spans_p99_ms"] = {key: float(np.quantile([s[key] for s in spans if key in s], 0.99)
+                                          * 1e3)
+                               for key in ("wire", "queue", "flush")
+                               if any(key in s for s in spans)}
+        out["requests_with_spans"] = len(spans)
+    return out, results, failures
+
+
+def net_front_door(st, tracker):
+    """Phase a (a): the four indexes of phase 2 on one ``SearchService``
+    (phase 4's settings) behind a ``NetServer``; the closed-loop ladder on
+    ``serve`` in process and over loopback, recall both ways, 100 wire
+    requests to each other name. Returns the service, its request log, the
+    front door and the brute-force index."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import brute_force, cagra, ivf_pq
+    from raft_tpu_torch.net import NetClient, NetServer
+    from raft_tpu_torch.obs import RequestLog
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.serve import SearchService
+
+    res = Resources(device="cuda")
+    index, q = st["ivf"]
+    x, truth = st["ivf_x"], st["ivf_truth"]
+    serving = pq_refine_hook(index, x, ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16"))
+    xm, qm = st["main"]
+    cindex, qc = st["cagra"]
+    findex, fsp = st["ivf_flat"]
+    bf = brute_force.BruteForce("sqeuclidean").build(xm, res=res)
+    log = RequestLog(capacity=16_384)
+    svc = SearchService(max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US,
+                        max_queue_rows=4 * SERVE_MAX_BATCH * SERVE_THREADS, request_log=log,
+                        slo=tracker)
+    svc.publish("serve", serving, k=K_MAIN)
+    svc.publish("brute_force", bf, k=K_MAIN)
+    svc.publish("ivf_flat", findex, search_params=fsp, k=K_MAIN)
+    svc.publish("cagra", cindex, search_params=cagra.SearchParams(itopk_size=CAGRA_ITOPK),
+                k=K_MAIN)
+    srv = NetServer(svc, request_log=log)
+    cli = NetClient(f"http://127.0.0.1:{srv.port}")
+    pool = q.cpu().numpy()
+    # first calls of both paths outside the window (publish warmed the ladder)
+    svc.search("serve", pool[:1], K_MAIN)
+    cli.search("serve", pool[:1], K_MAIN)
+    torch.cuda.synchronize()
+
+    def in_process(row, rid):
+        d, i = svc.submit("serve", row, K_MAIN, rid=rid).result(timeout=120)
+        return d, i, None
+
+    def over_wire(row, rid):
+        d, i, meta = cli.request("serve", row, K_MAIN, rid=rid)
+        return d, i, meta["spans"]
+
+    net_reset(st)                 # the publishes' warm ladders count in phase a's total
+    before = dict(st["launches_net"])
+    rungs, checks, failures = {"inproc": [], "wire": []}, {}, []
+    with obs_compile.attribution() as rec:
+        for path, call in (("inproc", in_process), ("wire", over_wire)):
+            for threads in NET_THREADS:
+                rung, results, lost = net_rung(call, pool, threads, NET_PER_THREAD, path)
+                rungs[path].append(rung)
+                failures += lost
+                if threads == NET_THREADS[-1]:
+                    checks[path] = results
+
+        def batches(search):
+            return np.concatenate([search(pool[b:min(b + SERVE_MAX_BATCH, NET_EVAL)])
+                                   for b in range(0, NET_EVAL, SERVE_MAX_BATCH)])
+
+        ids_in = batches(lambda qb: svc.search("serve", qb, K_MAIN)[1])
+        ids_wire = batches(lambda qb: cli.search("serve", qb, K_MAIN)[1])
+        others = {}
+        for name, qsrc in (("brute_force", qm), ("ivf_flat", qc), ("cagra", qc)):
+            opool = qsrc[:NET_OTHER].cpu().numpy()
+            got = {}
+            t0 = time.perf_counter()
+            for r in range(NET_OTHER):
+                rid = f"wire-{name}-{r}"
+                d, i, _ = cli.request(name, opool[r:r + 1], K_MAIN, rid=rid)
+                got[r] = (d[0], i[0], rid)
+            others[name] = (opool, got, NET_OTHER / (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    net_reset(st)
+    window = {kk: v - before.get(kk, 0) for kk, v in st["launches_net"].items()
+              if v > before.get(kk, 0)}
+    dev = torch.device("cuda")
+    with uncounted():
+        rows_ok = {}
+        for path, results in checks.items():
+            rows, ok, _ = served_rows_equal(results, log, (serving,), pool, K_MAIN)
+            rows_ok[path] = (len(rows), int(ok.sum()))
+        for name, (opool, got, _) in others.items():
+            with svc.registry.lease(name) as v:
+                searcher = v.searcher
+            rows, ok, _ = served_rows_equal(got, log, (searcher,), opool, K_MAIN)
+            rows_ok[name] = (len(rows), int(ok.sum()))
+    rec_in = recall(torch.from_numpy(ids_in).to(dev), truth[:NET_EVAL])
+    rec_wire = recall(torch.from_numpy(ids_wire).to(dev), truth[:NET_EVAL])
+    top_in, top_wire = rungs["inproc"][-1]["qps"], rungs["wire"][-1]["qps"]
+    hist = {"wire_total_ms": obs.metrics.quantile("raft_tpu_net_wire_seconds", 0.99,
+                                                  route="/v1/search") * 1e3,
+            "queue_ms": obs.metrics.quantile("raft_tpu_serve_queue_wait_seconds", 0.99,
+                                             stream=f"serve.k{K_MAIN}") * 1e3,
+            "flush_ms": obs.metrics.quantile("raft_tpu_serve_flush_seconds", 0.99,
+                                             stream=f"serve.k{K_MAIN}") * 1e3}
+    emit(phase="net", part="a", path="ivf_pq + refine behind NetServer (net_serve's protocol)",
+         n=N_MAIN, d=D_MAIN, k=K_MAIN, max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US,
+         per_thread=NET_PER_THREAD, ladder=rungs,
+         wire_tax=top_in / top_wire, wire_tax_at_threads=NET_THREADS[-1],
+         p99_split_histograms_ms=hist, recall_inproc=rec_in, recall_wire=rec_wire,
+         eval_queries=NET_EVAL, ids_equal_inproc_wire=bool(np.array_equal(ids_in, ids_wire)),
+         rows_equal_direct_search=rows_ok,
+         other_names={n: dict(requests=NET_OTHER, qps_one_at_a_time=o[2])
+                      for n, o in others.items()},
+         builds_in_window=rec.summary(), launches=window, card=st["card"])
+    assert not failures, failures[:5]
+    assert rec.cache_misses == 0 and rec.programs == 0, rec.summary()
+    assert rec_wire == rec_in and np.array_equal(ids_in, ids_wire), (rec_in, rec_wire)
+    assert all(n == ok for n, ok in rows_ok.values()), rows_ok
+    for name in ("pq_scan_topk", "fused_knn_rows", "topk", "cagra_hop"):
+        assert window.get(name, 0) > 0, (name, window)
+    return svc, log, srv, bf
+
+
+def net_mesh(st, bf):
+    """Phase a (b): a 2 x 2 ``ProcessMesh`` of brute force on the card over
+    phase 2's exact set, behind a ``NetServer``: a 6-thread closed loop for
+    8 s with one worker SIGKILLed at 3 s, the ids of 256 queries against
+    an exact in-process search, then the twin killed too. Returns the mesh,
+    its front door and the workers' launches."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.net import MeshSpec, NetClient, NetServer, ProcessMesh
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.obs import events as obs_events
+    from raft_tpu_torch.serve import ReplicaUnavailableError
+
+    x, qm = st["main"]
+    xh = x.cpu().numpy()
+    pool = qm[:2_000].cpu().numpy()
+    seq0 = obs_events.last_seq()
+    meminfo = dict(line.split(":", 1) for line in open("/proc/meminfo").read().splitlines())
+    rss = [line for line in open("/proc/self/status").read().splitlines()
+           if line.startswith("VmRSS")]
+    free, total = torch.cuda.mem_get_info()
+    before_boot = dict(host_available=meminfo["MemAvailable"].strip(),
+                       router_rss=rss[0].split(":", 1)[1].strip(), device_free_bytes=free,
+                       device_total_bytes=total, device_reserved_bytes=torch.cuda.memory_reserved(),
+                       load_avg=os.getloadavg(), router_threads=threading.active_count())
+    with obs_compile.attribution() as router:
+        t0 = time.perf_counter()
+        mesh = ProcessMesh(xh, spec=MeshSpec(n_shards=2, n_replicas=2, name="corpus",
+                                             ks=(K_MAIN,), max_batch=SERVE_MAX_BATCH))
+        boot_s = time.perf_counter() - t0
+    del xh
+    booted = mesh.stats()
+    srv = NetServer(mesh, stats=mesh.stats)
+    cli = NetClient(f"http://127.0.0.1:{srv.port}")
+    failures, served, lats = [], [0], []
+    lock = threading.Lock()
+    done = threading.Event()
+
+    def reader(tid):
+        cnt, j, mine = 0, 0, []
+        while not done.is_set():
+            qi = (tid + j * NET_KILL_THREADS) % pool.shape[0]
+            j += 1
+            t = time.perf_counter()
+            try:
+                cli.search("corpus", pool[qi:qi + 1], K_MAIN)
+            except Exception as e:  # every loss is counted and fails the phase
+                with lock:
+                    failures.append(f"{type(e).__name__}: {str(e)[:120]}")
+                continue
+            mine.append(time.perf_counter() - t)
+            cnt += 1
+        with lock:
+            served[0] += cnt
+            lats.extend(mine)
+
+    ws = [threading.Thread(target=reader, args=(t,)) for t in range(NET_KILL_THREADS)]
+    t_load = time.perf_counter()
+    for w in ws:
+        w.start()
+    time.sleep(NET_KILL_AT_S)
+    before_kill = mesh.stats()["per_worker"]
+    killed = mesh.kill_worker(0, 0)
+    kill_at = time.perf_counter() - t_load
+    time.sleep(NET_KILL_S - NET_KILL_AT_S)
+    done.set()
+    for w in ws:
+        w.join(60)
+        assert not w.is_alive(), "a reader did not finish"
+    load_s = time.perf_counter() - t_load
+    kinds = [e["kind"] for e in obs_events.query(since_seq=seq0)]
+    code_1, body_1 = cli.healthz()
+    eval_q = pool[:NET_KILL_CHECK]
+    got = [cli.search("corpus", eval_q[b:b + SERVE_MAX_BATCH], K_MAIN)
+           for b in range(0, NET_KILL_CHECK, SERVE_MAX_BATCH)]
+    dev = torch.device("cuda")
+    got_d = torch.from_numpy(np.concatenate([g[0] for g in got])).to(dev)
+    got_i = torch.from_numpy(np.concatenate([g[1] for g in got])).to(dev)
+    with uncounted():
+        ref_d, ref_i = bf.search(torch.from_numpy(eval_q).to(dev), k=K_MAIN)
+    ok = row_equiv(got_d, got_i, ref_d, ref_i.long())
+    after = mesh.stats()
+    per_worker = {label: after["per_worker"].get(label, w)["launches"]
+                  for label, w in before_kill.items()}
+    launches = {}
+    for counts in per_worker.values():
+        add_counts(launches, counts)
+    launches["fused_knn"] = launches.get("fused_knn_rows", 0) + launches.get(
+        "fused_knn_tf32x3", 0)
+    mesh.kill_worker(0, 1)
+    try:
+        cli.search("corpus", eval_q[:1], K_MAIN)
+        outage = None
+    except ReplicaUnavailableError as e:
+        outage = dict(type=type(e).__name__, name=e.name, replicas=e.replicas,
+                      fenced=e.fenced)
+    code_2, body_2 = cli.healthz()
+    lat = np.sort(np.array(lats)) * 1e3
+    emit(phase="net", part="b", path="ProcessMesh 2 shards x 2 replicas of brute force "
+                                     "(net_kill_worker's protocol)",
+         n=N_MAIN, d=D_MAIN, k=K_MAIN, boot_wall_s=boot_s, worker_boot_s=mesh.boot_s,
+         worker_boot_steps=mesh.boot_steps, before_boot=before_boot,
+         router_builds=router.summary(),
+         stats_at_boot={key: booted[key] for key in ("workers", "compile_s", "cache_misses",
+                                                     "boot_compile_s", "boot_cache_misses",
+                                                     "boot_cache_hits")},
+         threads=NET_KILL_THREADS, load_s=load_s, served=served[0], qps=served[0] / load_s,
+         p50_ms=float(lat[len(lat) // 2]), p99_ms=float(lat[int(len(lat) * 0.99) - 1]),
+         failed=len(failures), killed_pid=killed, killed_at_s=kill_at,
+         journal={kk: kinds.count(kk) for kk in ("net_worker_fenced", "net_worker_failover",
+                                                 "net_worker_unfenced")},
+         healthz_after_kill=(code_1, body_1["status"]),
+         rows_equal_exact_search=(int(ok.sum()), NET_KILL_CHECK),
+         stats_after=dict(workers=after["workers"], unreachable=after["unreachable"],
+                          cache_misses=after["cache_misses"], compile_s=after["compile_s"]),
+         twin_killed=dict(error=outage, healthz=(code_2, body_2["status"])),
+         worker_launches=per_worker, card=st["card"])
+    assert not failures, failures[:5]
+    assert booted["workers"] == 4 and booted["cache_misses"] == 0 and booted["compile_s"] == 0
+    assert booted["boot_cache_misses"] == 0 and router.cache_misses == 0, (booted, router)
+    assert after["cache_misses"] == 0 and after["compile_s"] == 0, after
+    assert "net_worker_fenced" in kinds and "net_worker_failover" in kinds, kinds
+    assert (code_1, body_1["status"]) == (200, "degraded"), (code_1, body_1)
+    assert bool(ok.all()), f"{int((~ok).sum())} of {NET_KILL_CHECK} rows differ after the kill"
+    assert outage is not None and outage["replicas"] == 2 and outage["name"].endswith("/s0"), (
+        outage)
+    assert (code_2, body_2["status"]) == (503, "failing"), (code_2, body_2)
+    assert launches.get("fused_knn_rows", 0) > 0, launches
+    return mesh, srv, launches
+
+
+def net_retune(st, reg, ctl, family, cx, cq):
+    """Phase a (c) 1: the collapsed IVF-Flat pin retuned by the controller
+    under a reader on the registry. Returns the tuned decision."""
+    import threading
+
+    import torch
+
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.obs import events as obs_events
+
+    truth = st["cagra_truth"]
+    eval_q = cq[:truth.shape[0]]
+
+    def measure():
+        ids = []
+        for b in range(0, eval_q.shape[0], SERVE_MAX_BATCH):
+            with reg.lease("drift") as v:
+                ids.append(torch.as_tensor(v.searcher(eval_q[b:b + SERVE_MAX_BATCH], K_MAIN)[1]))
+        return recall(torch.cat(ids).to(truth.device), truth)
+
+    stop, out = threading.Event(), {"failed": 0, "served": 0}
+
+    def reader():
+        b = 0
+        while not stop.is_set():
+            try:
+                with reg.lease("drift") as v:
+                    v.searcher(cq[b:b + SERVE_MAX_BATCH], K_MAIN)
+                out["served"] += 1
+            except Exception:  # every loss is counted and fails the phase
+                out["failed"] += 1
+            b = (b + SERVE_MAX_BATCH) % (cq.shape[0] - SERVE_MAX_BATCH)
+
+    with obs_compile.attribution() as rec:
+        pre = measure()
+        th = threading.Thread(target=reader)
+        th.start()
+        t0 = time.perf_counter()
+        try:
+            sensor = obs_events.emit("retune_advised", subject=("quality", "drift"),
+                                     evidence={"drifted": True, "observed": family,
+                                               "note": "emitted as the controller tests do"})
+            handled = ctl.step()
+        finally:
+            step_s = time.perf_counter() - t0
+            stop.set()
+            th.join(60)
+        post = measure()
+        torch.cuda.synchronize()
+    dec = obs_events.query(kind="control/decision", name="drift")[-1]
+    done = obs_events.query(kind="control/action_completed", name="drift")[-1]
+    pub = obs_events.query(kind="serve_published", name="drift")[-1]
+    emit(phase="net", part="c1", path="controller retune: ivf_flat_1m pinned at n_probes=1",
+         n=N_MAIN, d=D_MAIN, k=K_MAIN, grid=CTL_GRID, canary_queries=CTL_CANARY,
+         recall_before=pre, recall_after=post, chosen=done["evidence"]["params"],
+         version=reg.active("drift").version, step_s=step_s, reader_batches=out["served"],
+         failed=out["failed"], builds_in_window=rec.summary(),
+         chain=dict(sensor=sensor["seq"], decision=dec["seq"], completed=done["seq"],
+                    published=pub["seq"]), card=st["card"])
+    assert handled == 1 and out["failed"] == 0, (handled, out)
+    assert post > pre, (pre, post)
+    assert rec.cache_misses == 0 and rec.programs == 0, rec.summary()
+    assert sensor["seq"] < dec["seq"] < done["seq"], (sensor["seq"], dec["seq"], done["seq"])
+    assert dec["evidence"]["trigger_seq"] == sensor["seq"]
+    assert done["evidence"]["decision_seq"] == dec["seq"]
+    assert pub["evidence"]["cause"]["decision_seq"] == dec["seq"]
+    return done["evidence"]["params"]
+
+
+def net_reshard(st, ctl, cx, cq, centers):
+    """Phase a (c) 2: an upsert ramp past ``reshard_rows_per_shard`` on a
+    2-shard IVF-Flat mesh; the compactor's advice reaches the controller,
+    which reshards to 4 under its headroom and burn checks while a reader
+    searches the mesh."""
+    import threading
+
+    import torch
+
+    from raft_tpu_torch import stream
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.obs import events as obs_events
+
+    res = Resources(device="cuda")
+    dev = torch.device("cuda")
+    shards = 2
+    params = ivf_flat.IndexParams(n_lists=IVF_FLAT_LISTS // shards, seed=0)
+    sp = ivf_flat.SearchParams(n_probes=MESH_PROBES // shards)
+    ramp = blobs(CTL_RAMP_STEPS * CTL_RAMP_ROWS, centers, 43, 0.5)[0].cpu().numpy()
+    threshold = (N_MAIN + CTL_RAMP_STEPS * CTL_RAMP_ROWS // 2) // shards
+    eval_q = cq[:SERVE_CHECK]
+
+    def build(rows):
+        return ivf_flat.build(params, torch.from_numpy(rows).to(dev), res=res)
+
+    t0 = time.perf_counter()
+    mesh = stream.ShardedMutableIndex(cx.cpu().numpy(), n_shards=shards, build=build,
+                                      search_params=sp, delta_capacity=CTL_DELTA,
+                                      retain_vectors=True, name="ramp")
+    mesh.warm((SERVE_MAX_BATCH,), ks=(K_MAIN,))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    comp = stream.Compactor(mesh, policy=stream.CompactionPolicy(
+        delta_fill=None, tombstone_ratio=None, reshard_rows_per_shard=threshold))
+    ctl.attach_mesh(mesh, warm_buckets=(SERVE_MAX_BATCH,), ks=(K_MAIN,))
+    ctl.attach_compactor(comp)
+
+    def oracle_recall():
+        return recall(mesh.search(eval_q, K_MAIN)[1], mesh.exact_search(eval_q, K_MAIN)[1])
+
+    stop, out = threading.Event(), {"failed": 0, "served": 0}
+
+    def reader():
+        b = 0
+        while not stop.is_set():
+            try:
+                mesh.search(cq[b:b + SERVE_MAX_BATCH], K_MAIN)
+                out["served"] += 1
+            except Exception:  # every loss is counted and fails the phase
+                out["failed"] += 1
+            b = (b + SERVE_MAX_BATCH) % (cq.shape[0] - SERVE_MAX_BATCH)
+
+    seq0 = obs_events.last_seq()
+    with obs_compile.attribution() as rec:
+        pre = oracle_recall()
+        th = threading.Thread(target=reader)
+        th.start()
+        try:
+            for step in range(CTL_RAMP_STEPS):
+                lo = step * CTL_RAMP_ROWS
+                mesh.upsert(ramp[lo:lo + CTL_RAMP_ROWS], ids=N_MAIN + lo + torch.arange(
+                    CTL_RAMP_ROWS).numpy())
+                comp.run_once()       # the advisory rides every poll
+                ctl.step()            # ... and the controller acts on it
+        finally:
+            stop.set()
+            th.join(120)
+        post = oracle_recall()
+        torch.cuda.synchronize()
+    evs = obs_events.query(since_seq=seq0)
+    advised = [e for e in evs if e["kind"] == "reshard_advised" and e["name"] == "ramp"]
+    dec = [e for e in evs if e["kind"] == "control/decision" and e["name"] == "ramp"]
+    done = [e for e in evs if e["kind"] == "control/action_completed" and e["name"] == "ramp"]
+    emit(phase="net", part="c2", path="controller reshard: IVF-Flat mesh 2 -> 4 on an upsert "
+                                      "ramp (controller_ramp's protocol)",
+         n=N_MAIN, d=D_MAIN, k=K_MAIN, n_lists=params.n_lists, n_probes=sp.n_probes,
+         build_seconds=build_s, ramp=dict(steps=CTL_RAMP_STEPS, rows=CTL_RAMP_ROWS),
+         reshard_rows_per_shard=threshold, shards=mesh.n_shards, recall_before=pre,
+         recall_after=post, reader_batches=out["served"], failed=out["failed"],
+         admission=dec[-1]["evidence"] if dec else None,
+         reshard=done[-1]["evidence"] if done else None, builds_in_window=rec.summary(),
+         card=st["card"])
+    assert out["failed"] == 0, out
+    assert advised and dec and done, ([e["kind"] for e in evs])
+    assert mesh.n_shards == 2 * shards, mesh.n_shards
+    assert dec[-1]["evidence"]["headroom"] is not None and dec[-1]["evidence"]["burn"] is not None
+    assert post >= MESH_RECALL_FLOOR and post >= pre - 0.02, (pre, post)
+    assert rec.cache_misses == 0 and rec.programs == 0, rec.summary()
+    assert advised[-1]["seq"] < dec[-1]["seq"] < done[-1]["seq"]
+    return mesh
+
+
+def net_degrade(st, reg, findex, family, tuned, cx, cq):
+    """Phase a (c) 3: a hot ``SLOTracker`` degrades the tuned name to the
+    cheap point, cooling restores it (an injected clock); the rows served at
+    each point equal a direct search at its params."""
+    import torch
+
+    from raft_tpu_torch import tune
+    from raft_tpu_torch.control import ControlPolicy, Controller
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.obs import events as obs_events
+    from raft_tpu_torch.obs.slo import SLOPolicy, SLOTracker
+
+    clk = FakeClock()
+    hot = SLOTracker(SLOPolicy(windows_s=(60.0,), slot_s=30.0, latency_bound_s=0.1), clock=clk)
+    pin = tune.Decision(kind="ivf_flat", dtype="float32", family=family, params=tuned)
+    cheap = {"n_probes": 1}
+    ctl = Controller(publisher=reg, clock=clk, slo=hot, name="chip-burn",
+                     policy=ControlPolicy(degrade_cooldown_s=5.0, restore_clear_s=120.0))
+    ctl.watch("drift", findex, cq[:CTL_CANARY], dataset=cx, k=K_MAIN, ks=(K_MAIN,),
+              grid=CTL_GRID, repeats=1, warm_data=cx[:1024], decision=pin,
+              degrade_params=cheap)
+    qb = cq[:SERVE_MAX_BATCH]
+
+    def served_equals(params):
+        with reg.lease("drift") as v:
+            d, i = v.searcher(qb, K_MAIN)
+        with uncounted():
+            rd, ri = ivf_flat.search(ivf_flat.SearchParams(**params), findex, qb, K_MAIN)
+        return int(row_equiv(torch.as_tensor(d), torch.as_tensor(i), rd, ri).sum())
+
+    ctl.arm()
+    try:
+        with obs_compile.attribution() as rec:
+            for _ in range(4):
+                hot.record_request(1.0, 1.0)
+            ctl.step()
+            degraded = (reg.active("drift").version, served_equals(cheap))
+            clk.advance(100.0)
+            ctl.step()                  # the clear observed: the hysteresis clock starts
+            clk.advance(130.0)
+            ctl.step()                  # held past restore_clear_s: restore
+            restored = (reg.active("drift").version, served_equals(tuned))
+    finally:
+        ctl.disarm()
+    kinds = [e["kind"] for e in obs_events.query(component="control", name="drift")][-4:]
+    emit(phase="net", part="c3", path="controller degrade / restore on the tuned IVF-Flat name",
+         pinned=tuned, cheap=cheap, degraded_version=degraded[0],
+         degraded_rows_equal_direct=(degraded[1], SERVE_MAX_BATCH),
+         restored_version=restored[0],
+         restored_rows_equal_direct=(restored[1], SERVE_MAX_BATCH), journal=kinds,
+         builds_in_window=rec.summary(), card=st["card"])
+    assert kinds == ["control/decision", "control/degraded", "control/decision",
+                     "control/restored"], kinds
+    assert degraded[1] == restored[1] == SERVE_MAX_BATCH, (degraded, restored)
+    assert rec.cache_misses == 0 and rec.programs == 0, rec.summary()
+
+
+def prom_samples(text):
+    """The sample count of a Prometheus text exposition; raises on a line
+    that is neither a ``# HELP`` / ``# TYPE`` comment nor a sample whose
+    value parses as a float."""
+    import re
+
+    sample = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})?\s+(\S+)(\s+-?\d+)?$")
+    n = 0
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        if line.startswith("#"):
+            assert line.startswith(("# HELP ", "# TYPE ")), line
+            continue
+        m = sample.match(line)
+        assert m is not None, line
+        float(m.group(3))
+        n += 1
+    return n
+
+
+def net_exporter(st, tracker, log, mesh, ctl):
+    """Phase a (d): one ``MetricsExporter`` over (a)'s request log, an
+    ``SLOTracker`` fed by (a)'s service, (b)'s mesh and (c)'s controller:
+    each route's status and the keys of its body."""
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.obs import MetricsExporter
+    from raft_tpu_torch.stream import MutableIndex
+
+    x, _ = st["main"]
+    # a live tiered store registers /debug/mem's tiers section
+    tiered = MutableIndex(brute_force.BruteForce().build(x[:4_096], res=Resources(device="cuda")),
+                          retain_vectors=True, storage="tiered", name="net_tiered")
+
+    def get(url):
+        try:
+            with urllib.request.urlopen(url, timeout=30) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    routes = {}
+    with MetricsExporter(port=0, slo=tracker, request_log=log, replicas=mesh,
+                         controller=ctl) as exp:
+        base = f"http://127.0.0.1:{exp.port}"
+        for path in ("/metrics", "/healthz", "/debug/mem", "/debug/events", "/debug/control",
+                     "/debug/requests", "/nope"):
+            routes[path] = get(base + path)
+    samples = prom_samples(routes["/metrics"][1])
+    bodies = {p: json.loads(b) for p, (c, b) in routes.items() if p not in ("/metrics", "/nope")}
+    emit(phase="net", part="d", path="MetricsExporter over the front door, the mesh and the "
+                                     "controller",
+         status={p: c for p, (c, _) in routes.items()}, metrics_samples=samples,
+         keys={p: sorted(b) for p, b in bodies.items()},
+         healthz=dict(status=bodies["/healthz"]["status"],
+                      control=bodies["/healthz"]["control"],
+                      replicas_healthy=[g["healthy"] for g in
+                                        bodies["/healthz"]["replicas"]["shards"]]),
+         tiers=bodies["/debug/mem"].get("tiers"), card=st["card"])
+    assert routes["/metrics"][0] == 200 and samples > 0
+    assert "replicas" in bodies["/healthz"] and "control" in bodies["/healthz"], bodies["/healthz"]
+    assert routes["/healthz"][0] == 503 and bodies["/healthz"]["status"] == "failing"
+    assert "tiers" in bodies["/debug/mem"], sorted(bodies["/debug/mem"])
+    for path in ("/debug/mem", "/debug/events", "/debug/control", "/debug/requests"):
+        assert routes[path][0] == 200, (path, routes[path][0])
+    assert routes["/nope"][0] == 404 and "/debug/control" in routes["/nope"][1]
+    assert bodies["/debug/control"]["controller"]["actions"].get("reshard"), bodies[
+        "/debug/control"]
+    del tiered
+    torch.cuda.synchronize()
+
+
+def phase_net(st):
+    """Phase a: the network front door, the process mesh, the controller and
+    the exporter on the card (see the module docstring)."""
+    import torch
+
+    from raft_tpu_torch import tune
+    from raft_tpu_torch.control import ControlPolicy, Controller
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.obs.slo import SLOTracker
+    from raft_tpu_torch.serve import IndexRegistry
+
+    t_phase = time.perf_counter()
+    st["launches_net"] = {}
+    reset_all_counts()
+    tracker = SLOTracker()
+    svc, log, srv, bf = net_front_door(st, tracker)
+    mesh, mesh_srv, worker_launches = net_mesh(st, bf)
+    ctl = None
+    try:
+        cx, cq, _, _ = cagra_data()
+        centers = 10.0 * torch.rand((CAGRA_CENTERS, D_MAIN), device="cuda",
+                                    generator=torch.Generator(device="cuda").manual_seed(20))
+        findex, _ = st["ivf_flat"]
+        family = tune.family_of(findex, cx)
+        pin = tune.Decision(kind="ivf_flat", dtype="float32", family=family,
+                            params={"n_probes": 1})
+        reg = IndexRegistry(buckets=(SERVE_MAX_BATCH,))
+        net_reset(st)
+        reg.publish("drift", findex, tuned=pin, k=(K_MAIN,), warm_data=cx[:1024])
+        budget = Resources(device="cuda",
+                           memory_budget_bytes=torch.cuda.get_device_properties(0).total_memory)
+        cool = SLOTracker()
+        for _ in range(16):
+            cool.record_request(0.001, 0.002)
+        ctl = Controller(publisher=reg, res=budget, slo=cool, name="chip",
+                         policy=ControlPolicy(retune_cooldown_s=0.0))
+        ctl.watch("drift", findex, cq[:CTL_CANARY], dataset=cx, k=K_MAIN, ks=(K_MAIN,),
+                  grid=CTL_GRID, repeats=1, warm_data=cx[:1024], decision=pin)
+        ctl.arm()
+        tuned = net_retune(st, reg, ctl, family, cx, cq)
+        ramp_mesh = net_reshard(st, ctl, cx, cq, centers)
+        net_degrade(st, reg, findex, family, tuned, cx, cq)
+        del ramp_mesh
+        net_exporter(st, tracker, log, mesh, ctl)
+    finally:
+        if ctl is not None:
+            ctl.disarm()
+        mesh_srv.stop()
+        mesh.close()
+        srv.stop()
+        svc.shutdown()
+    net_reset(st)
+    total = st["launches_net"]
+    add_counts(total, worker_launches)
+    for name in ("fused_knn_rows", "topk", "pq_scan_topk", "cagra_hop"):
+        assert total.get(name, 0) > 0, (name, total)
+    emit(phase="net_launches", launches=total, worker_launches=worker_launches,
+         seconds=time.perf_counter() - t_phase, card=st["card"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0123456789",
-                    help="phases to run, e.g. 01 (default: all); 4 to 9 need 2")
+    ap.add_argument("--phases", default="0123456789a",
+                    help="phases to run, e.g. 01 (default: all); 4 to 9 and a need 2")
     ap.add_argument("--out", default=os.path.join("build", "profiles"),
                     help="directory for the IVF-PQ, CAGRA and IVF-Flat profile tables")
     args = ap.parse_args(argv)
@@ -6175,8 +6914,8 @@ def main(argv=None):
     phase_build(st)
     if "1" in args.phases:
         phase_kernels(st)
-    if any(p in args.phases for p in "456789") and "2" not in args.phases:
-        print("chip_smoke: phases 4 to 9 use phase 2's indexes; run them with 2",
+    if any(p in args.phases for p in "456789a") and "2" not in args.phases:
+        print("chip_smoke: phases 4 to 9 and a use phase 2's indexes; run them with 2",
               file=sys.stderr)
         return 2
     if "2" in args.phases:
@@ -6201,6 +6940,8 @@ def main(argv=None):
         phase_mesh(st)
     if "9" in args.phases:
         phase_tune(st)
+    if "a" in args.phases:
+        phase_net(st)
     if "3" in args.phases and "2" in args.phases:
         time_fused_modes(st)
         time_f32_routes(st)
@@ -6219,6 +6960,12 @@ def main(argv=None):
         tier = st.get("launches_tier")
         mesh = st.get("launches_mesh")
         tune = st.get("launches_tune")
+        net = st.get("launches_net")
+
+        def in_net(name):
+            # phase a's launches, the mesh workers' summed in, 0 where it made
+            # none (None: phase a not run)
+            return None if net is None else net.get(name, 0)
 
         def in_tune(name):
             # phase 9's launches, 0 where it made none (None: phase 9 not run)
@@ -6249,7 +6996,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_rows"),
                  launches_stream=strm.get("fused_knn_rows"),
                  launches_stream_folds=fold("fused_knn_rows"),
-                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"), launches_mesh=in_mesh("fused_knn_rows"), launches_tune=in_tune("fused_knn_rows"),
+                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"), launches_mesh=in_mesh("fused_knn_rows"), launches_tune=in_tune("fused_knn_rows"), launches_net=in_net("fused_knn_rows"),
                  max_abs_err=st["f32_err"]["rows"], m_small=fk.M_SMALL, merge=st["merge_t"],
                  **st["rows_t"]),
             dict(name="fused_knn_tf32x3", route="cuda",
@@ -6259,7 +7006,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_tf32x3"),
                  launches_stream=strm.get("fused_knn_tf32x3"),
                  launches_stream_folds=fold("fused_knn_tf32x3"),
-                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"), launches_mesh=in_mesh("fused_knn_tf32x3"), launches_tune=in_tune("fused_knn_tf32x3"),
+                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"), launches_mesh=in_mesh("fused_knn_tf32x3"), launches_tune=in_tune("fused_knn_tf32x3"), launches_net=in_net("fused_knn_tf32x3"),
                  max_abs_err=st["f32_err"]["tf32x3"], tf32x3_gate=st["tf32x3_gate"],
                  **st["f32_t"]),
             dict(name="fused_knn_tc", route="cuda",
@@ -6269,7 +7016,7 @@ def main(argv=None):
                  launches_by_mode=st["tc_launches"],
                  launches_stream=strm.get("fused_knn_tc"),
                  launches_stream_folds=fold("fused_knn_tc"),
-                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"), launches_mesh=in_mesh("fused_knn_tc"), launches_tune=in_tune("fused_knn_tc"),
+                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"), launches_mesh=in_mesh("fused_knn_tc"), launches_tune=in_tune("fused_knn_tc"), launches_net=in_net("fused_knn_tc"),
                  max_abs_err=st["tc_err"],
                  **{key: st["fused_modes_t"]["bf16"][key]
                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -6279,7 +7026,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/fused_knn.py:139", launches=st["split_launches"],
                  launches_stream=strm.get("bf16_split"),
                  launches_stream_folds=fold("bf16_split"),
-                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"), launches_mesh=in_mesh("bf16_split"), launches_tune=in_tune("bf16_split"),
+                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"), launches_mesh=in_mesh("bf16_split"), launches_tune=in_tune("bf16_split"), launches_net=in_net("bf16_split"),
                  launches_on="knn(compute='float32x3')", max_abs_err=0.0, **st["split_t"]),
             dict(name="tf32_split", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
@@ -6287,7 +7034,7 @@ def main(argv=None):
                  launches_serve=serve.get("tf32_split"),
                  launches_stream=strm.get("tf32_split"),
                  launches_stream_folds=fold("tf32_split"),
-                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"), launches_mesh=in_mesh("tf32_split"), launches_tune=in_tune("tf32_split"),
+                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"), launches_mesh=in_mesh("tf32_split"), launches_tune=in_tune("tf32_split"), launches_net=in_net("tf32_split"),
                  launches_on="BruteForce.search, 10,000 queries (mode f32's batch route)",
                  max_abs_err=0.0, **st["tf32_split_t"]),
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
@@ -6295,7 +7042,7 @@ def main(argv=None):
                  launches_ivf_flat=launches["topk_ivf_flat"],
                  launches_serve=serve.get("topk"), launches_stream=strm.get("topk"),
                  launches_stream_folds=fold("topk"),
-                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"), launches_mesh=in_mesh("topk"), launches_tune=in_tune("topk"),
+                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"), launches_mesh=in_mesh("topk"), launches_tune=in_tune("topk"), launches_net=in_net("topk"),
                  launches_ball_cover={m: launches[f"topk_ball_cover_{m}"]
                                       for m in ("sqeuclidean", "haversine")},
                  max_abs_err=st["topk_err"], **st["topk_t"]),
@@ -6304,7 +7051,7 @@ def main(argv=None):
                  launches_on="ivf_pq.search, select_impl='xla'",
                  launches_stream=strm.get("pq_scan"),
                  launches_stream_folds=fold("pq_scan"),
-                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"), launches_mesh=in_mesh("pq_scan"), launches_tune=in_tune("pq_scan"),
+                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"), launches_mesh=in_mesh("pq_scan"), launches_tune=in_tune("pq_scan"), launches_net=in_net("pq_scan"),
                  launches_funnel=launches["pq_scan_opq_anisotropic_4bit"],
                  max_abs_err=st["pq_err"], **st["pq_t"]),
             dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
@@ -6312,7 +7059,7 @@ def main(argv=None):
                  launches_serve=serve.get("pq_scan_topk"),
                  launches_stream=strm.get("pq_scan_topk"),
                  launches_stream_folds=fold("pq_scan_topk"),
-                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"), launches_mesh=in_mesh("pq_scan_topk"), launches_tune=in_tune("pq_scan_topk"),
+                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"), launches_mesh=in_mesh("pq_scan_topk"), launches_tune=in_tune("pq_scan_topk"), launches_net=in_net("pq_scan_topk"),
                  launches_filtered={str(f): launches[f"pq_scan_topk_filtered_{f}"]
                                     for f in FILTER_KEEP},
                  launches_codecs={n: launches[f"pq_scan_topk_{n}"]
@@ -6323,7 +7070,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
                  launches_serve=serve.get("cagra_hop"), launches_stream=strm.get("cagra_hop"),
                  launches_stream_folds=fold("cagra_hop"),
-                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"), launches_mesh=in_mesh("cagra_hop"), launches_tune=in_tune("cagra_hop"),
+                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"), launches_mesh=in_mesh("cagra_hop"), launches_tune=in_tune("cagra_hop"), launches_net=in_net("cagra_hop"),
                  launches_int8_rows=launches["cagra_hop_int8"],
                  max_abs_err=st["hop_err"], **st["hop_t"]),
         ])

@@ -16,15 +16,20 @@ Ported so far:
              logging, profiler ranges, cooperative cancellation, the
              operator vocabulary, the staging buffer
   cluster    k-means, balanced k-means
+  control    the closed-loop controller: drift → retune, watermark →
+             reshard, SLO burn → degrade / restore, compaction pacing
   distance   metric vocabulary, pairwise distances (every metric), fused and
              masked L2 nearest neighbour, Gram matrices
   matrix     select_k (row-wise top-k; wide rows run the ``topk`` kernel)
+  net        the network front door: wire schemas, NetServer / NetClient
+             over SearchService, the multi-process mesh (ProcessMesh)
   neighbors  brute-force kNN (the ``fused_knn`` kernel), IVF-Flat, IVF-PQ
              (the ``pq_scan`` kernel), CAGRA (the ``cagra_hop`` kernel),
              exact refine, the epsilon neighbourhood, sample filters
   obs        metrics, kernel-build attribution, the event journal and its
              flight recorder, request traces, the memory ledger and its
-             budget gate, the recall canary and drift detector, SLO tracking
+             budget gate, the recall canary and drift detector, SLO tracking,
+             the HTTP exporter (/metrics, /healthz, /debug/*)
   ops        the kernels and their build
   serve      micro-batched serving with warm hot-swap (SearchService,
              IndexRegistry, MicroBatcher, StagingBuffers)
@@ -45,8 +50,9 @@ import importlib
 from .core import RaftError, Resources, default_resources, set_default_resources
 from .version import __version__
 
-_SUBMODULES = {"cluster", "config", "core", "distance", "matrix", "neighbors", "obs", "ops",
-               "serve", "spatial", "stats", "stream", "testing", "tune"}
+_SUBMODULES = {"cluster", "config", "control", "core", "distance", "matrix", "net",
+               "neighbors", "obs", "ops", "serve", "spatial", "stats", "stream", "testing",
+               "tune"}
 
 
 def __getattr__(name):

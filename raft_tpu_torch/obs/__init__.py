@@ -22,16 +22,19 @@ Counterpart of raft_tpu/obs, holding what is ported:
 - :mod:`.build` — the ``raft_tpu_build_*`` metrics of the streamed builds.
 - :mod:`.instrument` — the entry-point decorator: per-call latency, items
   and build seconds.
+- :mod:`.http` — the opt-in stdlib endpoint routing ``/metrics``,
+  ``/healthz``, ``/debug/requests``, ``/debug/mem``, ``/debug/events`` and
+  ``/debug/control`` (404 elsewhere): :func:`start_http_exporter`,
+  :class:`MetricsExporter`.
 
-Not yet ported: ``http`` (the ``/metrics``, ``/healthz``, ``/debug/*``
-exporter, which needs ``net/``). Trace annotation
-lives in :mod:`raft_tpu_torch.core.tracing`.
+Trace annotation lives in :mod:`raft_tpu_torch.core.tracing`.
 """
 
 from . import build
 from . import compile  # noqa: A004 - submodule named like the builtin
 from . import dispatch
 from . import events
+from . import http
 from . import mem
 from . import metrics
 from . import quality
@@ -39,6 +42,7 @@ from . import requestlog
 from . import slo
 from .compile import CompileRecord, attribution
 from .events import EventJournal
+from .http import MetricsExporter, start_http_exporter, stop_http_exporter
 from .instrument import instrument
 from .metrics import (DEFAULT_BUCKETS, RATIO_BUCKETS, Registry, counter,
                       delta, disable, enable, enabled, gauge, histogram,
@@ -48,7 +52,8 @@ from .requestlog import RequestLog
 from .slo import SLOPolicy, SLOTracker
 
 __all__ = [
-    "metrics", "compile", "dispatch", "attribution", "CompileRecord",
+    "metrics", "compile", "dispatch", "http", "attribution", "CompileRecord",
+    "MetricsExporter", "start_http_exporter", "stop_http_exporter",
     "Registry", "DEFAULT_BUCKETS", "RATIO_BUCKETS", "counter", "gauge",
     "histogram", "snapshot", "to_prometheus", "to_json", "delta", "quantile",
     "reset", "enable", "disable", "enabled", "requestlog", "mem",

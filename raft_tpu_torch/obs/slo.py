@@ -33,9 +33,10 @@ fire only when EVERY window agrees (the short window proves it is still
 happening, the long one that it matters).
 
 :meth:`healthz` renders the verdict for an HTTP endpoint: ready/degraded
-→ 200, failing → 503 so load balancers eject the replica (the port has no
-exporter yet: ``obs/http.py`` is not ported). Burn rates and the status are
-also published as ``raft_tpu_slo_*`` gauges.
+→ 200, failing → 503 so load balancers eject the replica; the exporter's
+``/healthz`` serves it (``obs.start_http_exporter(port, slo=tracker)``,
+:mod:`raft_tpu_torch.obs.http`). Burn rates and the status are also
+published as ``raft_tpu_slo_*`` gauges.
 """
 
 from __future__ import annotations

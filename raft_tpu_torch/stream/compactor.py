@@ -204,7 +204,7 @@ class Compactor:
     # -- pacing --------------------------------------------------------------
     def set_pacing(self, fn) -> None:
         """(Re)wire the external pacing hint after construction — what
-        JAX package's ``control.Controller.attach_compactor`` calls.
+        :meth:`raft_tpu_torch.control.Controller.attach_compactor` calls.
         ``None`` unwires it (default scheduling restored)."""
         expects(fn is None or callable(fn),
                 "pacing must be a zero-arg callable or None")

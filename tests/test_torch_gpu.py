@@ -1004,3 +1004,60 @@ def test_warmup_on_the_card(cuda, tmp_path):
         _build.set_build_dir(before)
     assert out["attribution"] == "obs.compile" and out["cache_dir"] == str(tmp_path.resolve())
     assert out["build_s"] >= 0 and out["search"]["wall_s"] >= 0
+
+
+def test_net_server_over_a_card_service_equals_direct_search(cuda):
+    """The front door over a service whose index lives on the card: the wire
+    answer of each row equals the index's direct search at the shape that
+    served it (one row a request: bucket 1), and the window builds no
+    kernel."""
+    from raft_tpu_torch.net import NetClient, NetServer
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.serve import SearchService
+
+    g = np.random.default_rng(5)
+    x = g.standard_normal((20_000, 64)).astype(np.float32)
+    q = g.standard_normal((16, 64)).astype(np.float32)
+    index = BruteForce().build(x, res=Resources(device="cuda"))
+    svc = SearchService(max_batch=8)
+    svc.publish("bf", index, k=10)
+    srv = NetServer(svc)
+    try:
+        cli = NetClient(f"http://127.0.0.1:{srv.port}")
+        before = fused_knn.launches_by_route["rows"]
+        with obs_compile.attribution() as rec:
+            got = [cli.search("bf", q[j:j + 1], 10) for j in range(len(q))]
+        assert rec.cache_misses == 0
+        assert fused_knn.launches_by_route["rows"] - before == len(q)
+        for j, (d, i) in enumerate(got):
+            rd, ri = index.search(q[j:j + 1], k=10)
+            _knn_equiv(torch.as_tensor(d, device=cuda), torch.as_tensor(i, device=cuda),
+                       rd, ri)
+    finally:
+        srv.stop()
+        svc.shutdown()
+
+
+def test_process_mesh_workers_on_the_card(cuda):
+    """Two shards of brute force, each in a worker process on the card: the
+    router builds the workers' kernels before spawning them, every worker
+    boots on a cache hit, the merged answer equals one index's search, and
+    the workers' row-split launches reach ``stats()``."""
+    from raft_tpu_torch.net import MeshSpec, ProcessMesh
+
+    g = np.random.default_rng(6)
+    x = g.standard_normal((20_000, 64)).astype(np.float32)
+    q = g.standard_normal((8, 64)).astype(np.float32)
+    mesh = ProcessMesh(x, spec=MeshSpec(n_shards=2, n_replicas=1, ks=(10,),
+                                        max_batch=8))
+    try:
+        d, i = mesh.search("corpus", q, 10)
+        st = mesh.stats()
+    finally:
+        mesh.close()
+    assert st["workers"] == 2
+    assert st["cache_misses"] == 0 and st["boot_cache_misses"] == 0
+    assert st["boot_cache_hits"] >= 2
+    assert st["launches"]["fused_knn_rows"] >= 2
+    rd, ri = BruteForce().build(x, res=Resources(device="cuda")).search(q, k=10)
+    _knn_equiv(torch.as_tensor(d, device=cuda), torch.as_tensor(i, device=cuda), rd, ri)

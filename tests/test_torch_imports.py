@@ -93,6 +93,34 @@ def test_deploy_modules_import_neither_jax_nor_raft_tpu(rel):
     assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
 
 
+# the modules of the network front door, exporter and controller slice
+NET_MODULES = ("net/__init__.py", "net/_httpd.py", "net/wire.py", "net/server.py",
+               "net/client.py", "net/mesh.py", "obs/http.py", "obs/__init__.py",
+               "control/__init__.py", "control/controller.py")
+
+
+@pytest.mark.parametrize("rel", NET_MODULES)
+def test_net_modules_import_neither_jax_nor_raft_tpu(rel):
+    path = ROOT / "raft_tpu_torch" / rel
+    assert path.is_file(), rel
+    names = list(_imports(path))
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+
+
+def test_packages_export_the_front_door_exporter_and_controller():
+    from raft_tpu_torch import control, net, obs
+
+    for name in ("Httpd", "Request", "Response", "json_response", "wire", "NetServer",
+                 "NetClient", "ProcessMesh", "MeshSpec"):
+        assert name in net.__all__ and hasattr(net, name), name
+    for name in ("http", "MetricsExporter", "start_http_exporter", "stop_http_exporter"):
+        assert name in obs.__all__ and hasattr(obs, name), name
+    for name in ("Controller", "ControlPolicy", "NonTransferError"):
+        assert name in control.__all__ and hasattr(control, name), name
+    assert "not yet ported" not in (obs.__doc__ or "").lower()
+    assert "raft_tpu." not in (net.__doc__ or "").replace("raft_tpu_torch.", "")
+
+
 def test_only_the_named_carve_outs_are_not_yet_ported():
     """The tuned hooks, ``publish(tuned=)``, ``warmup`` and ``config`` are
     ported; what still refuses is ``cagra_hop``'s ``profile=`` (a TPU

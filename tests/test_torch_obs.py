@@ -480,7 +480,18 @@ def test_logger_basic_config():
 
 
 def test_obs_package_does_not_import_http():
-    tree = ast.parse((REPO / "raft_tpu_torch" / "obs" / "__init__.py").read_text())
-    imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+    """The obs package imports the submodules and names the JAX package's
+    obs/__init__.py imports, the exporter (``http``, ported with the network
+    front door) among them, and pulls in no ``raft_tpu_torch.net`` module but
+    ``net._httpd``, the stdlib server the exporter rides."""
+    def imported(pkg):
+        tree = ast.parse((REPO / pkg / "obs" / "__init__.py").read_text())
+        return {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
                 for a in n.names}
-    assert "http" not in imported and "mem" in imported
+
+    assert imported("raft_tpu_torch") == imported("raft_tpu")
+    assert {"http", "mem", "start_http_exporter"} <= imported("raft_tpu_torch")
+    http_tree = ast.parse((REPO / "raft_tpu_torch" / "obs" / "http.py").read_text())
+    from_net = {n.module for n in ast.walk(http_tree)
+                if isinstance(n, ast.ImportFrom) and n.module and "net" in n.module}
+    assert from_net == {"net._httpd"}
