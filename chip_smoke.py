@@ -6,6 +6,7 @@ end to end.
     python3 chip_smoke.py --phases 01  # build and kernel checks only
     python3 chip_smoke.py --phases 012456789a  # all but phase 3's timings
     python3 chip_smoke.py --phases 02a  # the front door, the mesh, the controller
+    python3 chip_smoke.py --phases 02b  # the communicator and the distributed drivers
     python3 chip_smoke.py --out DIR    # where the profile tables go
                                        # (default build/profiles)
 
@@ -361,13 +362,40 @@ Phases, each printing JSON lines:
      Prometheus text, ``/healthz`` (503 with the replica and control
      folds), ``/debug/mem`` with its ``tiers`` section, ``/debug/events``,
      ``/debug/control``, ``/debug/requests`` and the 404 listing.
+  b. the communicator and the distributed drivers (``comms/``,
+     ``parallel/``, ``core/platform.py``; after phase a, on phase 2's
+     indexes, saved once as raft_tpu/13 files the ranks load). Three worlds
+     of spawned ranks (``RankPool``), all on ``cuda:0``: one rank on NCCL,
+     then two and four on gloo (NCCL refuses two ranks on one card). Each
+     rank regenerates phase 2's sets from their seeds and takes its own
+     rows; every rank runs ``test_utils.run_all`` (all True), then the
+     counted path: ``parallel.knn`` over the 1M x 128 set (10,000 queries,
+     k=10, three timed batches, and 64 queries on the row split),
+     ``parallel.ivf.search`` on the IVF-Flat index (n_probes 8),
+     ``search_pq`` + ``refine`` on the IVF-PQ index, ``parallel.cagra.search``
+     (at S = 1 over phase 2's CAGRA index as one shard; at S = 2 and 4 over
+     ``parallel.cagra.build`` of the CAGRA set). Checks: the knn ids equal
+     ``brute_force.knn``'s on all 10,000 rows (bit for bit at S = 1,
+     distances within rtol 1e-5 beyond); recall@10 at phase 2's floors
+     (IVF-Flat 0.99 and at least the single-card search's at equal n_probes,
+     IVF-PQ + refine 0.85, CAGRA 0.95); at S = 1 whether each search equals
+     the single-card one, and ``ShardedMutableIndex(comms=)`` equal to
+     ``devices=``; at S = 2 ``parallel.ivf.build`` of the IVF-Flat row (its
+     wall beside the single-card build's, recall 0.99); ``parallel.kmeans.fit``
+     at 1,024 clusters on 100,000 blob rows within 5% of ``cluster.kmeans.fit``'s
+     inertia; ``fused_knn`` (rows and 3xTF32), ``topk``, ``pq_scan_topk`` and
+     ``cagra_hop`` against their plain versions at each rank's shard shapes.
+     Prints each world's boot wall, knn QPS against ``brute_force.knn``,
+     collective bytes and host hops a batch, and every rank's launches
+     summed (``launches_parallel``).
 
 The line before the last lists the kernels (``launches_stream``: phase 5's
 windows; ``launches_stream_folds``: the part of those that the compactions'
 folds made on the writer thread, CAGRA's rebuild graph build among them;
 ``launches_ooc``: phase 6's builds and searches; ``launches_tier``: phase
 7's; ``launches_mesh``: phase 8's; ``launches_tune``: phase 9's;
-``launches_net``: phase a's, the mesh workers' summed in);
+``launches_net``: phase a's, the mesh workers' summed in;
+``launches_parallel``: phase b's, every rank's summed);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line; so does a machine without CUDA (exit 2),
@@ -2129,6 +2157,7 @@ def phase_cagra(st):
     index = cagra.build(params, x, res=res)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    st["cagra_build_s"] = build_s
     build_launches = counts()
     build_peak = torch.cuda.max_memory_allocated() - live
     log.removeHandler(handler)
@@ -2287,6 +2316,7 @@ def phase_ivf_flat(st):
     emit(phase="ivf_flat_build", n=N_MAIN, d=D_MAIN, n_lists_asked=IVF_FLAT_LISTS,
          n_lists=index.n_lists, capacity=index.capacity, build_seconds=build_s,
          index_bytes=index_bytes(index), card=st["card"])
+    st["ivf_flat_build_s"] = build_s
 
     sp = ivf_flat.SearchParams(n_probes=IVF_FLAT_PROBES)
     ivf_flat.search(sp, index, q, K_MAIN, res=res)           # warm-up
@@ -6883,11 +6913,298 @@ def phase_net(st):
     emit(phase="net_launches", launches=total, worker_launches=worker_launches,
          seconds=time.perf_counter() - t_phase, card=st["card"])
 
+# -- phase b: the communicator and the distributed drivers -------------------------
+
+PAR_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))   # (ranks, backend), all on cuda:0
+PAR_BATCHES = 3
+PAR_SMALL_M = 64                 # a small parallel.knn batch: mode f32's row-split route
+PAR_TF32_M = 2_048               # the 3xTF32 check's queries
+PAR_BUILD_S = 2                  # the world that also builds IVF-Flat distributed
+PAR_KMEANS_N, PAR_KMEANS_K, PAR_KMEANS_ITERS = 100_000, 1_024, 20
+PAR_KMEANS_RTOL = 0.05           # distributed inertia against cluster.kmeans.fit's
+PAR_TIMEOUT_S = 600.0            # a world's collective and task timeout
+
+
+def par_world_rank(S, tmp, ref):
+    """Phase b on one rank of a world of S ranks on ``cuda:0`` (a spawned
+    process of ``RankPool``): the counted main path, then the checks, each
+    stage's data freed before the next; returns what the parent prints."""
+    import torch
+
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.comms import bootstrap, test_utils
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_plain
+    from raft_tpu_torch.parallel import cagra as pcagra
+    from raft_tpu_torch.parallel import ivf as pivf
+    from raft_tpu_torch.stream import ShardedMutableIndex
+
+    c = bootstrap.local_mesh("data")
+    r, dev = c.rank(), c.device
+    res = Resources(device=dev)
+    out = dict(rank=r, size=c.size(), backend=c.backend, device=str(dev),
+               run_all=test_utils.run_all(c))
+    assert all(out["run_all"].values()), out["run_all"]
+
+    def timed(fn):
+        """``fn()`` of every rank, from a barrier before to one after."""
+        c.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        c.barrier()
+        return got, time.perf_counter() - t0
+
+    x = torch.rand((N_MAIN, D_MAIN), generator=torch.Generator(device=dev).manual_seed(0),
+                   device=dev)
+    q = torch.rand((M_MAIN, D_MAIN), generator=torch.Generator(device=dev).manual_seed(1),
+                   device=dev)
+    cx, cq, _, _ = cagra_data()
+    centers = 2.0 * torch.randn((IVF_BLOBS, D_MAIN), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(10))
+    xb, _ = blobs(N_MAIN, centers, 11)
+    pq_q, _ = blobs(IVF_Q, centers, 12)
+    findex = ivf_flat.load(f"{tmp}/ivf_flat.bin", res=res)
+    pindex = ivf_pq.load(f"{tmp}/ivf_pq.bin", res=res)
+    fsp = ivf_flat.SearchParams(n_probes=IVF_FLAT_PROBES)
+    psp = ivf_pq.SearchParams(n_probes=8, lut_dtype="bfloat16")
+    csp = cagra.SearchParams(itopk_size=CAGRA_ITOPK)
+    if S == 1:
+        one = cagra.load(f"{tmp}/cagra.bin", res=res)
+        sharded = pcagra.ShardedCagraIndex(dataset=one.dataset[None], graph=one.graph[None],
+                                           metric=one.metric, data_kind=one.data_kind)
+    torch.cuda.synchronize()
+
+    # -- the main path, counted: every driver through the kernels --------------
+    reset_all_counts()
+    parallel.knn.knn(c, x, q, K_MAIN)                      # warm-up
+    s0 = c.stats()
+    walls = []
+    for _ in range(PAR_BATCHES):
+        (kd, ki), w = timed(lambda: parallel.knn.knn(c, x, q, K_MAIN))
+        walls.append(w)
+    s1 = c.stats()
+    out["knn"] = dict(walls=walls, qps=M_MAIN / (sum(walls) / PAR_BATCHES),
+                      collective_bytes_per_batch=(s1["bytes"] - s0["bytes"]) / PAR_BATCHES,
+                      collectives_per_batch=(s1["calls"] - s0["calls"]) / PAR_BATCHES,
+                      host_hops_per_batch=(s1["host_hops"] - s0["host_hops"]) / PAR_BATCHES)
+    sd, si = parallel.knn.knn(c, x, q[:PAR_SMALL_M], K_MAIN)
+    parallel.ivf.search(c, fsp, findex, cq, K_MAIN)        # warm-up (and the memo)
+    (fd, fi), fw = timed(lambda: parallel.ivf.search(c, fsp, findex, cq, K_MAIN))
+    parallel.ivf.search_pq(c, psp, pindex, pq_q, IVF_K0, res=res)
+    (pd, pi), pw = timed(lambda: parallel.ivf.search_pq(c, psp, pindex, pq_q, IVF_K0, res=res))
+    rd, ri = refine(xb, pq_q, pi, K_MAIN, res=res)
+    if S > 1:
+        sharded, bw = timed(lambda: parallel.cagra.build(c, cagra.IndexParams(), cx, res=res))
+        out["cagra_build_s"] = bw
+    parallel.cagra.search(c, csp, sharded, cq, K_MAIN)
+    (cd, ci), cw = timed(lambda: parallel.cagra.search(c, csp, sharded, cq, K_MAIN))
+    torch.cuda.synchronize()
+    out["launches"] = all_counts()
+    out["walls"] = dict(ivf_flat=fw, ivf_pq=pw, cagra=cw)
+    out["stats"] = c.stats()
+
+    # -- the checks (launches past here are not counted) -----------------------
+    err = {}
+    with uncounted():
+        bd, bi = brute_force.knn(x, q, K_MAIN, res=res)
+        sbd, sbi = brute_force.knn(x, q[:PAR_SMALL_M], K_MAIN, res=res)
+        if S == 1:
+            # S = 1 computes what the single-card search computes, bit for bit
+            assert torch.equal(ki, bi) and torch.equal(kd, bd), "knn at S = 1 differs"
+            assert torch.equal(si, sbi) and torch.equal(sd, sbd), "small knn differs"
+            bws = []
+            for _ in range(PAR_BATCHES):
+                _, w = timed(lambda: brute_force.knn(x, q, K_MAIN, res=res))
+                bws.append(w)
+            out["brute_force_qps"] = M_MAIN / (sum(bws) / PAR_BATCHES)
+        out["knn_ids_equal_rows"] = int((ki == bi).all(1).sum())
+        assert torch.equal(ki, bi) and torch.equal(si, sbi), (
+            f"parallel.knn ids differ from brute_force.knn on "
+            f"{int((ki != bi).any(1).sum())} of {M_MAIN} rows")
+        torch.testing.assert_close(kd, bd, rtol=1e-5, atol=0)
+        torch.testing.assert_close(sd, sbd, rtol=1e-5, atol=0)
+        out["knn_max_abs_err"] = float((kd - bd).abs().max())
+
+        # fused_knn (both routes) against its plain version at this rank's shard
+        rows_n = N_MAIN // S
+        shard = x[r * rows_n:(r + 1) * rows_n]
+        ov, oi = fused_knn(shard, q[:PAR_SMALL_M], K_MAIN)
+        pv, pi2 = fused_knn_plain(shard, q[:PAR_SMALL_M], K_MAIN)
+        err["fused_knn_rows"] = knn_equiv(ov, oi, pv, pi2, rtol=1e-5, atol=1e-5)
+        ov, oi = fused_knn(shard, q[:PAR_TF32_M], K_MAIN)
+        pv, pi2 = fused_knn_plain(shard, q[:PAR_TF32_M], K_MAIN)
+        err["fused_knn_tf32x3"] = knn_equiv(ov, oi, pv, pi2, rtol=1e-5, atol=1e-5)
+        if S == 1:
+            # the mesh's comms=: shard s on comms.devices[s % 1]
+            def bf(rows_):
+                return brute_force.BruteForce().build(rows_, res=res)
+
+            rows = x[:PAR_KMEANS_N]
+            gd, gi = ShardedMutableIndex(rows, n_shards=2, build=bf, comms=c).search(
+                q[:PAR_SMALL_M], K_MAIN)
+            wd, wi = ShardedMutableIndex(rows, n_shards=2, build=bf, devices=[dev, dev]).search(
+                q[:PAR_SMALL_M], K_MAIN)
+            assert torch.equal(torch.as_tensor(gi), torch.as_tensor(wi))
+            assert torch.equal(torch.as_tensor(gd), torch.as_tensor(wd))
+            out["mesh_comms_equals_devices"] = True
+            del rows, gd, gi, wd, wi
+        del x, q, shard, bd, bi, kd, ki, ov, oi, pv, pi2
+
+        ftruth, ptruth = ref["cagra_truth"].to(dev), ref["ivf_truth"].to(dev)
+        out["ivf_flat_recall"] = recall(fi[:IVF_FLAT_CHECK], ftruth)
+        out["ivf_pq_refined_recall"] = recall(ri[:IVF_CHECK], ptruth)
+        out["cagra_recall"] = recall(ci[:CAGRA_CHECK], ftruth)
+        if S == 1:
+            _, sfi = ivf_flat.search(fsp, findex, cq, K_MAIN, res=res)
+            _, spi = ivf_pq.search(psp, pindex, pq_q, IVF_K0, res=res)
+            _, sci = cagra.search(csp, one, cq, K_MAIN, res=res)
+            out["same_as_single_card"] = dict(
+                ivf_flat=torch.equal(fi, sfi), ivf_pq=torch.equal(pi, spi),
+                cagra=torch.equal(ci, sci))
+            del one
+        # the drivers' floors (phase 2's), and the JAX docstring's property:
+        # S x n_probes lists probed can only raise recall at equal n_probes
+        assert out["ivf_flat_recall"] >= IVF_FLAT_RECALL_FLOOR, out["ivf_flat_recall"]
+        assert out["ivf_flat_recall"] >= ref["ivf_flat_recall"], (
+            out["ivf_flat_recall"], ref["ivf_flat_recall"])
+        assert out["ivf_pq_refined_recall"] >= IVF_RECALL_FLOOR, out["ivf_pq_refined_recall"]
+        assert out["cagra_recall"] >= CAGRA_RECALL_FLOOR, out["cagra_recall"]
+
+        # topk, pq_scan_topk and cagra_hop against their plain versions at
+        # this rank's shard shapes (the local IVF-Flat chunk select, the local
+        # IVF-PQ tile, the local CAGRA shard)
+        fshard = pivf._flat_shard(c, findex)
+        v = torch.randn((min(256, M_MAIN), IVF_FLAT_PROBES * fshard.capacity), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(40 + r))
+        plant_topk_rows(v, torch.Generator(device=dev).manual_seed(41 + r))
+        check_topk(v, K_MAIN, True)
+        err["topk"] = 0.0
+        _, pq_s, same = codec_tile_check(pivf._pq_shard(c, pindex), pq_q)
+        assert same, "pq_scan_topk differs from its plain version on the rank's shard"
+        err["pq_scan_topk"] = 0.0
+        cshard = pcagra._local_shard(c, sharded)
+        hd, hi = cagra.search(csp, cshard, cq[:CAGRA_CHECK], K_MAIN, res=res)
+        phd, phi = plain_hop_search(csp, cshard, cq[:CAGRA_CHECK])
+        assert torch.equal(hi, phi) and torch.equal(hd, phd), \
+            "cagra_hop differs from its plain version on the rank's shard"
+        err["cagra_hop"] = 0.0
+        out["kernel_checks"] = dict(err=err, shard_rows=rows_n, topk_shape=list(v.shape),
+                                    pq_tile_s=pq_s, cagra_shard_rows=cshard.size)
+        del fshard, v, cshard, sharded, findex, pindex, pq_q
+        parallel.release_programs(c)
+
+        kx = xb[:PAR_KMEANS_N].contiguous()
+        del xb
+        km, w = timed(lambda: parallel.kmeans.fit(
+            c, kmeans.KMeansParams(n_clusters=PAR_KMEANS_K, max_iter=PAR_KMEANS_ITERS, seed=0),
+            kx))
+        out["kmeans"] = dict(inertia=float(km.inertia), single_inertia=ref["kmeans_inertia"],
+                             n_iter=km.n_iter, seconds=w)
+        assert abs(float(km.inertia) - ref["kmeans_inertia"]) <= (
+            PAR_KMEANS_RTOL * ref["kmeans_inertia"]), out["kmeans"]
+        del kx, km
+        torch.cuda.empty_cache()
+
+        if S == PAR_BUILD_S:
+            built, w = timed(lambda: parallel.ivf.build(
+                c, ivf_flat.IndexParams(n_lists=IVF_FLAT_LISTS, seed=0), cx, res=res))
+            assert built.size == N_MAIN and built.n_lists == IVF_FLAT_LISTS
+            # the recall rows alone: its lists are not split, so its
+            # capacity (and a probe's gather) runs to several times phase 2's
+            _, bfi = parallel.ivf.search(c, fsp, built, cq[:IVF_FLAT_CHECK], K_MAIN)
+            out["ivf_build"] = dict(seconds=w, single_card_seconds=ref["ivf_flat_build_s"],
+                                    recall=recall(bfi, ftruth),
+                                    capacity=built.capacity,
+                                    mean_list=N_MAIN / IVF_FLAT_LISTS)
+            assert out["ivf_build"]["recall"] >= IVF_FLAT_RECALL_FLOOR, out["ivf_build"]
+    return out
+
+
+def phase_parallel(st):
+    """Phase b: the communicator and the distributed drivers (see the module
+    docstring)."""
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.core import Resources
+    from raft_tpu_torch.core.platform import RankPool
+    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+
+    t_phase = time.perf_counter()
+    res = Resources(device="cuda")
+    findex, fsp = st["ivf_flat"]
+    cindex, cq = st["cagra"]
+    pindex, _ = st["ivf"]
+    _, fi = ivf_flat.search(fsp, findex, cq[:IVF_FLAT_CHECK], K_MAIN, res=res)
+    ref = dict(cagra_truth=st["cagra_truth"].cpu(), ivf_truth=st["ivf_truth"].cpu(),
+               ivf_flat_recall=recall(fi, st["cagra_truth"]),
+               ivf_flat_build_s=st["ivf_flat_build_s"])
+    km = kmeans.fit(kmeans.KMeansParams(n_clusters=PAR_KMEANS_K, max_iter=PAR_KMEANS_ITERS,
+                                        seed=0), st["ivf_x"][:PAR_KMEANS_N], res=res)
+    ref["kmeans_inertia"] = float(km.inertia)
+    total = {}
+    worlds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ivf_flat.save(findex, f"{tmp}/ivf_flat.bin")
+        ivf_pq.save(pindex, f"{tmp}/ivf_pq.bin")
+        cagra.save(cindex, f"{tmp}/cagra.bin")
+        torch.cuda.synchronize()
+        # the ranks share the card with this process: hand back its cached,
+        # unused blocks
+        torch.cuda.empty_cache()
+        free, total_mem = torch.cuda.mem_get_info()
+        emit(phase="parallel_memory", free_bytes=free, total_bytes=total_mem,
+             allocated_bytes=torch.cuda.memory_allocated(), card=st["card"])
+        for S, backend in PAR_WORLDS:
+            t0 = time.perf_counter()
+            with RankPool(S, device="cuda:0", backend=backend, timeout_s=PAR_TIMEOUT_S,
+                          threads=0) as pool:
+                boot = pool.boot_s
+                outs = pool.run(par_world_rank, S, tmp, ref)
+            wall = time.perf_counter() - t0
+            o = outs[0]
+            launches = {}
+            for ro in outs:
+                add_counts(launches, ro["launches"])
+            add_counts(total, launches)
+            worlds[S] = o["knn"]["qps"]
+            emit(phase="parallel", ranks=S, backend=backend, device=o["device"],
+                 boot_seconds=boot, world_seconds=wall, run_all=o["run_all"],
+                 knn_qps=o["knn"]["qps"], knn_walls=o["knn"]["walls"],
+                 brute_force_qps=o.get("brute_force_qps"),
+                 collective_bytes_per_batch=o["knn"]["collective_bytes_per_batch"],
+                 collectives_per_batch=o["knn"]["collectives_per_batch"],
+                 host_hops_per_batch=o["knn"]["host_hops_per_batch"],
+                 knn_ids_equal_rows=o["knn_ids_equal_rows"],
+                 knn_max_abs_err=o["knn_max_abs_err"],
+                 ivf_flat_recall=o["ivf_flat_recall"],
+                 ivf_flat_single_card_recall=ref["ivf_flat_recall"],
+                 ivf_pq_refined_recall=o["ivf_pq_refined_recall"],
+                 cagra_recall=o["cagra_recall"], cagra_build_seconds=o.get("cagra_build_s"),
+                 single_card_cagra_build_seconds=st.get("cagra_build_s"),
+                 same_as_single_card=o.get("same_as_single_card"),
+                 mesh_comms_equals_devices=o.get("mesh_comms_equals_devices"),
+                 ivf_build=o.get("ivf_build"), kmeans=o["kmeans"],
+                 walls=o["walls"], stats=o["stats"], kernel_checks=o["kernel_checks"],
+                 launches=launches, card=st["card"])
+    for name in ("fused_knn_rows", "fused_knn_tf32x3", "topk", "pq_scan_topk", "cagra_hop"):
+        assert total.get(name, 0) > 0, (name, total)
+    st["launches_parallel"] = total
+    emit(phase="parallel_launches", launches=total, knn_qps_by_ranks=worlds,
+         seconds=time.perf_counter() - t_phase, card=st["card"])
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0123456789a",
-                    help="phases to run, e.g. 01 (default: all); 4 to 9 and a need 2")
+    ap.add_argument("--phases", default="0123456789ab",
+                    help="phases to run, e.g. 01 (default: all); 4 to 9, a and b need 2")
     ap.add_argument("--out", default=os.path.join("build", "profiles"),
                     help="directory for the IVF-PQ, CAGRA and IVF-Flat profile tables")
     args = ap.parse_args(argv)
@@ -6914,8 +7231,8 @@ def main(argv=None):
     phase_build(st)
     if "1" in args.phases:
         phase_kernels(st)
-    if any(p in args.phases for p in "456789a") and "2" not in args.phases:
-        print("chip_smoke: phases 4 to 9 and a use phase 2's indexes; run them with 2",
+    if any(p in args.phases for p in "456789ab") and "2" not in args.phases:
+        print("chip_smoke: phases 4 to 9, a and b use phase 2's indexes; run them with 2",
               file=sys.stderr)
         return 2
     if "2" in args.phases:
@@ -6942,6 +7259,8 @@ def main(argv=None):
         phase_tune(st)
     if "a" in args.phases:
         phase_net(st)
+    if "b" in args.phases:
+        phase_parallel(st)
     if "3" in args.phases and "2" in args.phases:
         time_fused_modes(st)
         time_f32_routes(st)
@@ -6961,6 +7280,12 @@ def main(argv=None):
         mesh = st.get("launches_mesh")
         tune = st.get("launches_tune")
         net = st.get("launches_net")
+        par = st.get("launches_parallel")
+
+        def in_par(name):
+            # phase b's launches, every rank's summed, 0 where it made none
+            # (None: phase b not run)
+            return None if par is None else par.get(name, 0)
 
         def in_net(name):
             # phase a's launches, the mesh workers' summed in, 0 where it made
@@ -6996,7 +7321,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_rows"),
                  launches_stream=strm.get("fused_knn_rows"),
                  launches_stream_folds=fold("fused_knn_rows"),
-                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"), launches_mesh=in_mesh("fused_knn_rows"), launches_tune=in_tune("fused_knn_rows"), launches_net=in_net("fused_knn_rows"),
+                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"), launches_mesh=in_mesh("fused_knn_rows"), launches_tune=in_tune("fused_knn_rows"), launches_net=in_net("fused_knn_rows"), launches_parallel=in_par("fused_knn_rows"),
                  max_abs_err=st["f32_err"]["rows"], m_small=fk.M_SMALL, merge=st["merge_t"],
                  **st["rows_t"]),
             dict(name="fused_knn_tf32x3", route="cuda",
@@ -7006,7 +7331,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_tf32x3"),
                  launches_stream=strm.get("fused_knn_tf32x3"),
                  launches_stream_folds=fold("fused_knn_tf32x3"),
-                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"), launches_mesh=in_mesh("fused_knn_tf32x3"), launches_tune=in_tune("fused_knn_tf32x3"), launches_net=in_net("fused_knn_tf32x3"),
+                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"), launches_mesh=in_mesh("fused_knn_tf32x3"), launches_tune=in_tune("fused_knn_tf32x3"), launches_net=in_net("fused_knn_tf32x3"), launches_parallel=in_par("fused_knn_tf32x3"),
                  max_abs_err=st["f32_err"]["tf32x3"], tf32x3_gate=st["tf32x3_gate"],
                  **st["f32_t"]),
             dict(name="fused_knn_tc", route="cuda",
@@ -7016,7 +7341,7 @@ def main(argv=None):
                  launches_by_mode=st["tc_launches"],
                  launches_stream=strm.get("fused_knn_tc"),
                  launches_stream_folds=fold("fused_knn_tc"),
-                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"), launches_mesh=in_mesh("fused_knn_tc"), launches_tune=in_tune("fused_knn_tc"), launches_net=in_net("fused_knn_tc"),
+                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"), launches_mesh=in_mesh("fused_knn_tc"), launches_tune=in_tune("fused_knn_tc"), launches_net=in_net("fused_knn_tc"), launches_parallel=in_par("fused_knn_tc"),
                  max_abs_err=st["tc_err"],
                  **{key: st["fused_modes_t"]["bf16"][key]
                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -7026,7 +7351,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/fused_knn.py:139", launches=st["split_launches"],
                  launches_stream=strm.get("bf16_split"),
                  launches_stream_folds=fold("bf16_split"),
-                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"), launches_mesh=in_mesh("bf16_split"), launches_tune=in_tune("bf16_split"), launches_net=in_net("bf16_split"),
+                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"), launches_mesh=in_mesh("bf16_split"), launches_tune=in_tune("bf16_split"), launches_net=in_net("bf16_split"), launches_parallel=in_par("bf16_split"),
                  launches_on="knn(compute='float32x3')", max_abs_err=0.0, **st["split_t"]),
             dict(name="tf32_split", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
@@ -7034,7 +7359,7 @@ def main(argv=None):
                  launches_serve=serve.get("tf32_split"),
                  launches_stream=strm.get("tf32_split"),
                  launches_stream_folds=fold("tf32_split"),
-                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"), launches_mesh=in_mesh("tf32_split"), launches_tune=in_tune("tf32_split"), launches_net=in_net("tf32_split"),
+                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"), launches_mesh=in_mesh("tf32_split"), launches_tune=in_tune("tf32_split"), launches_net=in_net("tf32_split"), launches_parallel=in_par("tf32_split"),
                  launches_on="BruteForce.search, 10,000 queries (mode f32's batch route)",
                  max_abs_err=0.0, **st["tf32_split_t"]),
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
@@ -7042,7 +7367,7 @@ def main(argv=None):
                  launches_ivf_flat=launches["topk_ivf_flat"],
                  launches_serve=serve.get("topk"), launches_stream=strm.get("topk"),
                  launches_stream_folds=fold("topk"),
-                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"), launches_mesh=in_mesh("topk"), launches_tune=in_tune("topk"), launches_net=in_net("topk"),
+                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"), launches_mesh=in_mesh("topk"), launches_tune=in_tune("topk"), launches_net=in_net("topk"), launches_parallel=in_par("topk"),
                  launches_ball_cover={m: launches[f"topk_ball_cover_{m}"]
                                       for m in ("sqeuclidean", "haversine")},
                  max_abs_err=st["topk_err"], **st["topk_t"]),
@@ -7051,7 +7376,7 @@ def main(argv=None):
                  launches_on="ivf_pq.search, select_impl='xla'",
                  launches_stream=strm.get("pq_scan"),
                  launches_stream_folds=fold("pq_scan"),
-                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"), launches_mesh=in_mesh("pq_scan"), launches_tune=in_tune("pq_scan"), launches_net=in_net("pq_scan"),
+                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"), launches_mesh=in_mesh("pq_scan"), launches_tune=in_tune("pq_scan"), launches_net=in_net("pq_scan"), launches_parallel=in_par("pq_scan"),
                  launches_funnel=launches["pq_scan_opq_anisotropic_4bit"],
                  max_abs_err=st["pq_err"], **st["pq_t"]),
             dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
@@ -7059,7 +7384,7 @@ def main(argv=None):
                  launches_serve=serve.get("pq_scan_topk"),
                  launches_stream=strm.get("pq_scan_topk"),
                  launches_stream_folds=fold("pq_scan_topk"),
-                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"), launches_mesh=in_mesh("pq_scan_topk"), launches_tune=in_tune("pq_scan_topk"), launches_net=in_net("pq_scan_topk"),
+                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"), launches_mesh=in_mesh("pq_scan_topk"), launches_tune=in_tune("pq_scan_topk"), launches_net=in_net("pq_scan_topk"), launches_parallel=in_par("pq_scan_topk"),
                  launches_filtered={str(f): launches[f"pq_scan_topk_filtered_{f}"]
                                     for f in FILTER_KEEP},
                  launches_codecs={n: launches[f"pq_scan_topk_{n}"]
@@ -7070,7 +7395,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
                  launches_serve=serve.get("cagra_hop"), launches_stream=strm.get("cagra_hop"),
                  launches_stream_folds=fold("cagra_hop"),
-                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"), launches_mesh=in_mesh("cagra_hop"), launches_tune=in_tune("cagra_hop"), launches_net=in_net("cagra_hop"),
+                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"), launches_mesh=in_mesh("cagra_hop"), launches_tune=in_tune("cagra_hop"), launches_net=in_net("cagra_hop"), launches_parallel=in_par("cagra_hop"),
                  launches_int8_rows=launches["cagra_hop_int8"],
                  max_abs_err=st["hop_err"], **st["hop_t"]),
         ])

@@ -12,10 +12,15 @@ Entry points run on ``cuda`` unless the caller passes
 Ported so far:
   config     the output type of the array-returning entry points, the
              persistent kernel-build cache
-  core       errors, resource handle, index-file serialization (raft_tpu/13),
-             logging, profiler ranges, cooperative cancellation, the
-             operator vocabulary, the staging buffer
+  core       errors, resource handle (with its mesh and communicator),
+             index-file serialization (raft_tpu/13), logging, profiler
+             ranges, cooperative cancellation, the operator vocabulary, the
+             staging buffer, the spawned ranks that stand in for a
+             multi-device mesh (platform)
   cluster    k-means, balanced k-means
+  comms      the communicator over torch.distributed (a DeviceMesh and one
+             of its dimensions; NCCL on CUDA, gloo on the CPU), the world's
+             bootstrap, the collective self-tests
   control    the closed-loop controller: drift → retune, watermark →
              reshard, SLO burn → degrade / restore, compaction pacing
   distance   metric vocabulary, pairwise distances (every metric), fused and
@@ -31,6 +36,8 @@ Ported so far:
              budget gate, the recall canary and drift detector, SLO tracking,
              the HTTP exporter (/metrics, /healthz, /debug/*)
   ops        the kernels and their build
+  parallel   the distributed drivers over comms: sharded exact kNN,
+             k-means, IVF-Flat / IVF-PQ build and search, per-shard CAGRA
   serve      micro-batched serving with warm hot-swap (SearchService,
              IndexRegistry, MicroBatcher, StagingBuffers)
   spatial    the legacy spatial::knn entry points
@@ -50,9 +57,9 @@ import importlib
 from .core import RaftError, Resources, default_resources, set_default_resources
 from .version import __version__
 
-_SUBMODULES = {"cluster", "config", "control", "core", "distance", "matrix", "net",
-               "neighbors", "obs", "ops", "serve", "spatial", "stats", "stream", "testing",
-               "tune"}
+_SUBMODULES = {"cluster", "comms", "config", "control", "core", "distance", "matrix", "net",
+               "neighbors", "obs", "ops", "parallel", "serve", "spatial", "stats", "stream",
+               "testing", "tune"}
 
 
 def __getattr__(name):

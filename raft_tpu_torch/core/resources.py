@@ -9,8 +9,10 @@ hard budget for long-lived allocations. ``sync()`` is
 
 The device defaults to ``"cuda"``. A handle that asks for CUDA where there
 is none raises :class:`RaftError` at its first use: an entry point never
-runs on the CPU unless the caller asked for the CPU. The JAX handle's mesh
-slot waits for the port of ``comms/``.
+runs on the CPU unless the caller asked for the CPU. ``mesh`` holds a
+``torch.distributed`` ``DeviceMesh`` (the JAX handle's ``jax.sharding.Mesh``)
+and ``set_comms`` / ``get_comms`` the communicator over it
+(:mod:`raft_tpu_torch.comms`).
 """
 
 from __future__ import annotations
@@ -50,12 +52,34 @@ class Resources:
         ``site="build_stream/host"`` before the coarse trainer spends
         anything. An ``np.memmap`` corpus itself prices nothing here: its
         pages are disk-backed.
+      mesh: the ``torch.distributed.device_mesh.DeviceMesh`` of a
+        multi-device run (``None``: one device); ``device_count`` is its
+        size.
     """
 
     device: Any = "cuda"
+    mesh: Optional[Any] = None
     workspace_bytes: int = 2 << 30
     memory_budget_bytes: Optional[int] = None
     host_budget_bytes: Optional[int] = None
+    _comms: Any = dataclasses.field(default=None, repr=False)
+
+    # -- comms (reference: device_resources::get_comms / set_comms) -----------
+    def set_comms(self, comms: Any) -> None:
+        self._comms = comms
+
+    def get_comms(self) -> Any:
+        expects(self._comms is not None, "communicator was not initialized on this handle")
+        return self._comms
+
+    @property
+    def comms_initialized(self) -> bool:
+        return self._comms is not None
+
+    @property
+    def device_count(self) -> int:
+        """Devices of the handle's mesh (1 without one)."""
+        return self.mesh.size() if self.mesh is not None else 1
 
     @property
     def torch_device(self) -> torch.device:

@@ -30,7 +30,8 @@ Counterpart of raft_tpu/stream, with the names that are ported:
   ``storage="tiered"`` shards, online power-of-two ``reshard``, and mesh
   durability (a WAL per shard group, atomic snapshots, the topology
   manifest) in the JAX package's files. On one card every shard runs on
-  the same device; ``comms=`` is not yet ported.
+  the same device; ``devices=`` or ``comms=`` (a communicator of one
+  rank) pins shard ``s`` to a device.
 """
 
 from . import compactor, mutable, replicated, sharded, tiered, wal

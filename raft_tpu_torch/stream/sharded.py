@@ -44,7 +44,10 @@ per-shard scans run one after another on the device's current stream, and
 the gather moves nothing (``stream_moved_parts`` is 0). ``devices=`` (a
 list of torch devices) puts shard ``s`` on ``devices[s % len(devices)]``
 and gathers the candidate parts onto ``devices[0]`` for the merge.
-``comms=`` (a communicator's device list) is not yet ported.
+``comms=`` (a :class:`~raft_tpu_torch.comms.Comms` of one rank) takes
+its rank's device: shard ``s`` on ``comms.devices[s % D]``. A communicator
+of several ranks is refused: every rank, a process of its own, would build
+every shard.
 
 Serving is duck-typed: ``SearchService.publish`` and the registry resolve a
 mesh as they resolve a ``MutableIndex`` (``upsert`` / ``searcher``; the
@@ -193,6 +196,21 @@ def _units(sh) -> tuple:
     return sh.replicas if isinstance(sh, ReplicatedShard) else (sh,)
 
 
+def _comms_devices(comms, devices) -> list:
+    """The devices a ``comms=`` communicator stands for: its one rank's.
+
+    A communicator of several ranks is refused. Each rank is a process of
+    its own, so a mesh built on every rank would hold every shard, on the
+    other ranks' cards too (the JAX package's one controller builds each
+    shard once); a mesh that keeps only a rank's shards and merges over the
+    communicator is not built yet."""
+    expects(devices is None, "pass devices= or comms=, not both")
+    expects(comms.size() == 1,
+            "comms= takes a communicator of one rank, got %d: each rank would "
+            "build every shard; pass devices= in one process", comms.size())
+    return list(comms.devices)
+
+
 class ShardedMutableIndex:
     """Mesh-wide mutable index (see module docstring).
 
@@ -205,8 +223,10 @@ class ShardedMutableIndex:
     for rows / S). Every shard must own at least one row.
 
     ``devices`` (torch devices) puts shard ``s`` on ``devices[s]`` and
-    gathers the candidates onto ``devices[0]`` for the merge; without it
-    every shard stays where ``build`` put it. ``replicas=R`` makes every
+    gathers the candidates onto ``devices[0]`` for the merge; ``comms`` (a
+    communicator of one rank, not with ``devices``) puts shard ``s`` on
+    ``comms.devices[s % D]``; without either every shard stays where
+    ``build`` put it. ``replicas=R`` makes every
     shard a :class:`ReplicatedShard` (twin ``j`` of shard ``s`` on
     ``devices[(s*R + j) % D]``) under ``fencing``.
     ``search_params`` / ``index_params`` / ``builder`` / ``delta_capacity``
@@ -237,9 +257,6 @@ class ShardedMutableIndex:
                  clock: Callable[[], float] = time.monotonic):
         from ..core import chunked
 
-        expects(comms is None,
-                "ShardedMutableIndex: comms= is not yet ported to "
-                "raft_tpu_torch (pass devices=, a list of torch devices)")
         stream = chunked.is_reader(dataset)
         if not stream:
             dataset = _mut._host(dataset)
@@ -252,6 +269,10 @@ class ShardedMutableIndex:
         else:
             gids = np.asarray(_mut._host(ids), np.int64).reshape(-1)
             expects(gids.shape == (n,), "ids= must match dataset rows (%d)", n)
+        if comms is not None:
+            devices = _comms_devices(comms, devices)
+            if int(replicas) == 1:
+                devices = [devices[s % len(devices)] for s in range(n_shards)]
         if devices is not None:
             devices = [torch.device(dv) for dv in devices]
             expects(len(devices) >= n_shards,
@@ -1219,17 +1240,17 @@ class ShardedMutableIndex:
         OLD topology with no acknowledged write lost and none brought back.
         Runtime configuration (``build``, needed only to reshard again,
         ``search_params`` / ``index_params`` / ``builder`` / ``fencing``) is
-        supplied fresh. Shards load onto ``devices[s % D]``, or ``res``'s
-        device (``cuda`` by default).
+        supplied fresh. Shards load onto ``devices[s % D]`` (or
+        ``comms.devices[s % D]``), or ``res``'s device (``cuda`` by
+        default).
 
         A replicated mesh recovers DEGRADED-TO-ONE (the group snapshot is
         the primary twin's state). ``mesh.last_recovery`` aggregates the
         per-shard replay reports."""
         from ..core.serialize import check_header, deserialize_scalar
 
-        expects(comms is None,
-                "ShardedMutableIndex.load: comms= is not yet ported to "
-                "raft_tpu_torch (pass devices=)")
+        if comms is not None:
+            devices = _comms_devices(comms, devices)
         dir = os.fspath(dir)
         if devices is not None:
             devices = [torch.device(dv) for dv in devices]

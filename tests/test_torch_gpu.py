@@ -1061,3 +1061,27 @@ def test_process_mesh_workers_on_the_card(cuda):
     assert st["launches"]["fused_knn_rows"] >= 2
     rd, ri = BruteForce().build(x, res=Resources(device="cuda")).search(q, k=10)
     _knn_equiv(torch.as_tensor(d, device=cuda), torch.as_tensor(i, device=cuda), rd, ri)
+
+
+def test_two_gloo_ranks_share_the_card(cuda):
+    """A world of two ranks on one card (gloo: NCCL refuses a duplicate
+    device): the collective self-tests pass, ``ppermute`` stages through the
+    host, and ``parallel.knn`` equals ``brute_force.knn`` on the card."""
+    import torch_rank_tasks as tasks
+
+    from raft_tpu_torch.core.platform import RankPool
+    from raft_tpu_torch.neighbors import brute_force
+
+    rng = np.random.default_rng(0)
+    x = rng.random((20_000, 64)).astype(np.float32)
+    q = rng.random((300, 64)).astype(np.float32)
+    with RankPool(2, device="cuda:0", backend="gloo", timeout_s=300, threads=0) as pool:
+        outs = pool.run(tasks.run_all, 2)
+        got = pool.run(tasks.call, 2, "parallel.knn.knn", x, q, 10)
+    for o in outs:
+        assert all(o["results"].values()) and o["backend"] == "gloo", o
+        assert o["devices"] == ["cuda:0", "cuda:0"] and o["stats"]["host_hops"] > 0
+    d, i = brute_force.knn(x, q, 10, res=Resources(device="cuda"))
+    for gd, gi in got:
+        assert torch.equal(gi, i.cpu())
+        torch.testing.assert_close(gd, d.cpu(), rtol=1e-5, atol=0)

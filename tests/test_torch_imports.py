@@ -73,7 +73,7 @@ def test_stream_exports_the_mesh():
     for name in ("ShardedMutableIndex", "shard_of", "ReplicatedShard", "FencingPolicy",
                  "sharded", "replicated"):
         assert name in stream.__all__ and hasattr(stream, name), name
-    assert "not yet ported" not in (stream.__doc__ or "").replace("``comms=`` is not yet ported", "")
+    assert "not yet ported" not in (stream.__doc__ or "")
 
 
 # the modules of the autotuner and deploy-time slice, each named so that a
@@ -122,14 +122,13 @@ def test_packages_export_the_front_door_exporter_and_controller():
 
 
 def test_only_the_named_carve_outs_are_not_yet_ported():
-    """The tuned hooks, ``publish(tuned=)``, ``warmup`` and ``config`` are
-    ported; what still refuses is ``cagra_hop``'s ``profile=`` (a TPU
-    profiling aid), the mesh's ``comms=`` and sparse ``gram_matrix``."""
+    """The tuned hooks, ``publish(tuned=)``, ``warmup``, ``config`` and the
+    mesh's ``comms=`` are ported; what still refuses is ``cagra_hop``'s
+    ``profile=`` (a TPU profiling aid) and sparse ``gram_matrix``."""
     hits = sorted({str(f.relative_to(ROOT / "raft_tpu_torch"))
                    for f in (ROOT / "raft_tpu_torch").rglob("*.py")
                    if "not yet ported" in f.read_text()})
-    assert hits == ["distance/kernels.py", "ops/cagra_hop.py", "stream/__init__.py",
-                    "stream/sharded.py"], hits
+    assert hits == ["distance/kernels.py", "ops/cagra_hop.py"], hits
 
 
 def test_package_exports_the_deploy_surface():
@@ -146,3 +145,35 @@ def test_package_exports_the_deploy_surface():
                  "tuned_search_params", "resolve", "reference", "Trial", "default_grid"):
         assert name in tune.__all__ and hasattr(tune, name), name
     assert "not yet ported" not in (tune.__doc__ or "")
+
+
+# the modules of the communicator and distributed-driver slice
+COMMS_MODULES = ("comms/__init__.py", "comms/comms.py", "comms/bootstrap.py",
+                 "comms/test_utils.py", "parallel/__init__.py", "parallel/_progcache.py",
+                 "parallel/knn.py", "parallel/kmeans.py", "parallel/ivf.py",
+                 "parallel/cagra.py", "core/platform.py", "core/resources.py",
+                 "stream/sharded.py")
+
+
+@pytest.mark.parametrize("rel", COMMS_MODULES)
+def test_comms_modules_import_neither_jax_nor_raft_tpu(rel):
+    path = ROOT / "raft_tpu_torch" / rel
+    assert path.is_file(), rel
+    names = list(_imports(path))
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+
+
+def test_package_exports_comms_and_parallel():
+    import raft_tpu_torch
+    from raft_tpu_torch import comms, parallel
+
+    assert raft_tpu_torch.comms is comms and raft_tpu_torch.parallel is parallel
+    for name in ("Comms", "shard_along", "replicated", "initialize", "local_mesh",
+                 "test_utils"):
+        assert name in comms.__all__ and hasattr(comms, name), name
+    for name in ("knn", "kmeans", "ivf", "cagra", "release_programs"):
+        assert name in parallel.__all__ and hasattr(parallel, name), name
+    from raft_tpu_torch.core import platform
+
+    for name in ("RankPool", "force_virtual_cpu", "virtual_cpu_env"):
+        assert name in platform.__all__ and hasattr(platform, name), name

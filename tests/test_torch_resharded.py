@@ -35,6 +35,7 @@ Every shard is unpinned on the CPU. torch runs on one thread.
 import filecmp
 import os
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -215,8 +216,15 @@ def test_reshard_validations(data, tmp_path):
     rec = load(str(tmp_path))
     with pytest.raises(RaftError, match="build recipe"):
         rec.reshard(4)
-    with pytest.raises(RaftError, match="not yet ported"):
-        ShardedMutableIndex.load(str(tmp_path), comms=object())
+    # comms= (a stand-in for a communicator of one rank) loads like devices=
+    one_rank = SimpleNamespace(devices=["cpu"], size=lambda: 1)
+    by_comms = ShardedMutableIndex.load(str(tmp_path), comms=one_rank)
+    assert by_comms.n_shards == 2 and by_comms.size == rec.size
+    with pytest.raises(RaftError, match="not both"):
+        ShardedMutableIndex.load(str(tmp_path), comms=one_rank, devices=["cpu"])
+    with pytest.raises(RaftError, match="one rank, got 2"):
+        ShardedMutableIndex.load(str(tmp_path),
+                                 comms=SimpleNamespace(devices=["cpu"] * 2, size=lambda: 2))
 
 
 def test_mid_migration_writes_carry_over(data, queries):

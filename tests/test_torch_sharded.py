@@ -26,6 +26,7 @@ torch runs on one thread, as in the other files that build indexes.
 """
 
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -154,8 +155,14 @@ def test_constructor_validations(data):
         sharded_bf(data, 0)
     with pytest.raises(RaftError, match="devices"):
         sharded_bf(data, 4, devices=["cpu", "cpu"])
-    with pytest.raises(RaftError, match="not yet ported"):
-        sharded_bf(data, 2, comms=object())
+    # comms= (here a stand-in for a communicator of one rank) and devices=
+    # name the same thing: one of them at a time; each rank of a larger
+    # communicator would build every shard
+    with pytest.raises(RaftError, match="not both"):
+        sharded_bf(data, 2, comms=SimpleNamespace(devices=["cpu"], size=lambda: 1),
+                   devices=["cpu", "cpu"])
+    with pytest.raises(RaftError, match="one rank, got 2"):
+        sharded_bf(data, 2, comms=SimpleNamespace(devices=["cpu"] * 2, size=lambda: 2))
     with pytest.raises(RaftError, match="ids= must match"):
         sharded_bf(data, 2, ids=np.arange(5))
 
