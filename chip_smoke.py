@@ -4,9 +4,10 @@ end to end.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --phases 01  # build and kernel checks only
-    python3 chip_smoke.py --phases 012456789a  # all but phase 3's timings
+    python3 chip_smoke.py --phases 012456789abc  # all but phase 3's timings
     python3 chip_smoke.py --phases 02a  # the front door, the mesh, the controller
     python3 chip_smoke.py --phases 02b  # the communicator and the distributed drivers
+    python3 chip_smoke.py --phases 0c  # the sparse and graph stack (needs no phase 2)
     python3 chip_smoke.py --out DIR    # where the profile tables go
                                        # (default build/profiles)
 
@@ -388,6 +389,44 @@ Phases, each printing JSON lines:
      Prints each world's boot wall, knn QPS against ``brute_force.knn``,
      collective bytes and host hops a batch, and every rank's launches
      summed (``launches_parallel``).
+  c. the sparse and graph stack (``sparse/``, ``solver/``,
+     ``cluster/single_linkage.py``, ``spectral/``, ``gram_matrix`` of CSR
+     inputs; after phase b, on data of its own from seeds, so ``--phases
+     0c`` runs it alone), each part one ``phase="graph"`` line with its
+     wall and checks. (1) ``single_linkage`` on the knn route over 100,000
+     x 128 float32 blobs around 1,000 centers (``n_neighbors=15``,
+     ``n_clusters=1,000``, sqeuclidean): at least one ``fused_knn_tf32x3``
+     launch, ``n - 1`` MST edges after the repair rounds, the card's MSTs
+     (over the kNN graph and over the last repaired graph) equal to
+     ``mst()`` of the same graphs on the CPU edge for edge and weight bit
+     for bit, every MST weight within 1e-4 of its endpoints' float64
+     squared distance, ``sizes[-1] == n``; the kNN graph, MST, repair and
+     host dendrogram / cut walls apart, then the entry point end to end.
+     (2) The pairwise route at 10,000 x 32 (euclidean, 10 blobs): sorted
+     deltas within rtol 1e-4 of scipy's ``linkage(x64, "single")``, the
+     10-cluster partition equal to ``fcluster``'s. (3) Sparse ``knn``
+     (k=10, inner product and sqeuclidean) of 10,000 queries in 100,000
+     rows of a TF-IDF-shaped CSR (8,192 columns, 64 Zipf(1.1) draws a row,
+     idf-weighted, l2-normalised): ``topk`` launches equal to the tile
+     count, ids and distances equal to the plain select route, 500 queries
+     against float64 (an id outside the float64 top 10 ties the 10th
+     within 1e-6); QPS. (4) The 18 sparse metrics at 1,000 x 2,000 rows of
+     that CSR (0/1 rows for the set metrics, l1 rows for the distribution
+     metrics) against float64 at the dense checks' bounds. (5)
+     ``gram_matrix`` of CSR inputs (four kernels) at 2,000 x 2,000 x
+     8,192 against the dense call (rtol 1e-5). (6) ``knn_graph(k=15)`` ->
+     ``symmetrize`` -> ``partition(n_clusters=16)`` over 100,000 x 32 blobs
+     around 16 centers from a fixed ``v0`` (the Laplacian's spmv, its 1-D
+     segment sum and the 2-D ``segment_reduce`` path timed beside the
+     spmv's bytes): every Ritz pair's residual within 1e-3 of ‖L‖₁, each
+     eigenvalue within the sum of the two runs' residuals (at least 1e-4)
+     of the CPU's ``eigsh`` from the same ``v0``, ARI >= 0.95 against the
+     blobs; then
+     ``modularity_maximization`` on the same graph (ARI >= 0.95). (7)
+     ``lap_solve`` of 8 x 1,024 x 1,024 integer costs in [0, 1,000): every
+     problem converged, its objective equal to scipy's
+     ``linear_sum_assignment``'s; rounds and stop-flag reads. Every
+     launch of the parts summed: ``launches_graph``.
 
 The line before the last lists the kernels (``launches_stream``: phase 5's
 windows; ``launches_stream_folds``: the part of those that the compactions'
@@ -395,7 +434,8 @@ folds made on the writer thread, CAGRA's rebuild graph build among them;
 ``launches_ooc``: phase 6's builds and searches; ``launches_tier``: phase
 7's; ``launches_mesh``: phase 8's; ``launches_tune``: phase 9's;
 ``launches_net``: phase a's, the mesh workers' summed in;
-``launches_parallel``: phase b's, every rank's summed);
+``launches_parallel``: phase b's, every rank's summed;
+``launches_graph``: phase c's);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line; so does a machine without CUDA (exit 2),
@@ -2454,11 +2494,11 @@ def phase_ivf_flat(st):
     del iindex, x8, q8
 
 
-def expanded_bound(xn, yn):
+def expanded_bound(xn, yn, d=D_MAIN):
     """Error bound of the float32 expanded L2 form ‖x‖² + ‖y‖² − 2·x·y over d
     terms, d·2⁻²⁴·(‖x‖² + ‖y‖² + 2‖x‖‖y‖), from the squared norms ``xn`` and
     ``yn`` (float64, broadcast against each other)."""
-    return D_MAIN * 2.0 ** -24 * (xn + yn + 2.0 * (xn * yn).sqrt())
+    return d * 2.0 ** -24 * (xn + yn + 2.0 * (xn * yn).sqrt())
 
 
 def _ref64(metric, xt, y, p):
@@ -7201,9 +7241,471 @@ def phase_parallel(st):
          seconds=time.perf_counter() - t_phase, card=st["card"])
 
 
+GRAPH_N, GRAPH_CENTERS = 100_000, 1_000      # single linkage, knn route: 100k x 128 blobs
+GRAPH_NEIGHBORS, GRAPH_CLUSTERS = 15, 1_000
+SL_PAIR_N, SL_PAIR_D, SL_PAIR_CENTERS = 10_000, 32, 10   # the pairwise route
+SPARSE_N, SPARSE_Q, SPARSE_COLS = 100_000, 10_000, 8_192  # the TF-IDF-shaped CSR
+SPARSE_ROW_NNZ, SPARSE_ZIPF_S = 64, 1.1
+SPARSE_CHECK = 500                   # queries held against float64
+SPARSE_PAIR = (1_000, 2_000)         # sparse pairwise rows
+SPEC_N, SPEC_D, SPEC_CENTERS = 100_000, 32, 16
+SPEC_NEIGHBORS = 15
+SPEC_ARI_FLOOR = 0.95
+LAP_B, LAP_N, LAP_COST = 8, 1_024, 1_000
+GRAM_ROWS = 2_000
+
+
+def graph_emit(part, wall, st, **kw):
+    emit(phase="graph", part=part, wall_s=wall, card=st["card"], **kw)
+
+
+def counted(total, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; the counts are added to ``total``. Returns (result, counts, wall)."""
+    import torch
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {kk: v for kk, v in all_counts().items() if v}
+    add_counts(total, counts)
+    return out, counts, wall
+
+
+def ari(a, b):
+    """Adjusted Rand index of two labelings (numpy), from their contingency
+    table (the card's machine has no scikit-learn)."""
+    import numpy as np
+
+    _, ai = np.unique(np.asarray(a), return_inverse=True)
+    _, bi = np.unique(np.asarray(b), return_inverse=True)
+    table = np.zeros((ai.max() + 1, bi.max() + 1))
+    np.add.at(table, (ai, bi), 1)
+
+    def pairs(v):
+        return float((v * (v - 1) / 2).sum())
+
+    s, sa, sb = pairs(table), pairs(table.sum(1)), pairs(table.sum(0))
+    expected = sa * sb / pairs(np.array([len(ai)]))
+    return (s - expected) / (0.5 * (sa + sb) - expected)
+
+
+def same_mst(a, b, what):
+    """Two MstOutputs equal field for field, weights bit for bit."""
+    import torch
+
+    for f in a._fields:
+        x, y = getattr(a, f).cpu(), getattr(b, f).cpu()
+        assert x.dtype == y.dtype and torch.equal(x, y), f"{what}: MST field {f} differs"
+
+
+def graph_single_linkage_knn(st, total, res):
+    """(1) single linkage, knn route, at 100,000 x 128 float32 blobs."""
+    import torch
+
+    from raft_tpu_torch.cluster.single_linkage import (_connectivities, _repair,
+                                                       build_dendrogram_host, cut_tree_host,
+                                                       single_linkage)
+    from raft_tpu_torch.distance.types import resolve_metric
+    from raft_tpu_torch.solver.mst import _mst
+
+    dev = torch.device("cuda")
+    centers = 10.0 * torch.rand((GRAPH_CENTERS, D_MAIN), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(50))
+    x, _ = blobs(GRAPH_N, centers, 51, 1.0)
+    mt = resolve_metric("sqeuclidean")
+    n = GRAPH_N
+    graph, c_knn, t_knn = counted(total, lambda: _connectivities(x, mt, "knn", GRAPH_NEIGHBORS,
+                                                                  res))
+    assert c_knn.get("fused_knn_tf32x3", 0) >= 1, c_knn
+    (out, mst_rounds), c_mst, t_mst = counted(total, lambda: _mst(graph))
+    (fixed, rgraph, repairs), c_rep, t_rep = counted(total, lambda: _repair(x, out, mt, res))
+    ne = int(fixed.n_edges)
+    assert ne == n - 1, f"single linkage left {n - 1 - ne} edges out after {repairs} repairs"
+    # the card's MSTs equal mst() of the same graphs on the CPU
+    same_mst(out, _mst(graph.to("cpu"))[0], "kNN graph")
+    if rgraph is not None:
+        same_mst(fixed, _mst(rgraph.to("cpu"))[0], "repaired graph")
+    s, d = fixed.src[:ne].long(), fixed.dst[:ne].long()
+    ref = (x[s].double() - x[d].double()).square().sum(1)
+    rel = float(((fixed.weights[:ne].double() - ref).abs() / ref.clamp_min(1e-30)).max())
+    assert rel <= 1e-4, f"an MST weight is {rel} from its float64 distance"
+    t0 = time.perf_counter()
+    children, deltas, sizes = build_dendrogram_host(
+        fixed.src[:ne].cpu().numpy(), fixed.dst[:ne].cpu().numpy(),
+        fixed.weights[:ne].cpu().numpy(), n)
+    labels = cut_tree_host(children, n, GRAPH_CLUSTERS)
+    t_host = time.perf_counter() - t0
+    assert int(sizes[-1]) == n
+    # the entry point, end to end
+    so, c_e2e, t_e2e = counted(total, lambda: single_linkage(
+        x, GRAPH_CLUSTERS, connectivity="knn", n_neighbors=GRAPH_NEIGHBORS,
+        metric="sqeuclidean", res=res))
+    assert c_e2e.get("fused_knn_tf32x3", 0) >= 1, c_e2e
+    assert int(so.sizes[-1]) == n and (so.deltas == deltas).all()
+    assert (so.labels.cpu().numpy() == labels).all()
+    graph_emit("single_linkage_knn", t_e2e, st, n=n, d=D_MAIN, centers=GRAPH_CENTERS,
+               n_neighbors=GRAPH_NEIGHBORS, n_clusters=GRAPH_CLUSTERS,
+               knn_graph_s=t_knn, mst_s=t_mst, repair_s=t_rep, host_dendrogram_cut_s=t_host,
+               graph_edges=int(graph.nnz), mst_rounds=mst_rounds, repair_rounds=repairs,
+               forest_edges=int(out.n_edges), n_edges=ne, mst_equals_cpu=True,
+               max_weight_rel_err_vs_f64=rel, clusters_found=int(labels.max()) + 1,
+               launches=c_e2e, launches_steps={"knn": c_knn, "mst": c_mst, "repair": c_rep})
+
+
+def graph_single_linkage_pairwise(st, total, res):
+    """(2) single linkage, pairwise route, at 10,000 x 32 against scipy."""
+    import numpy as np
+    import torch
+    from scipy.cluster.hierarchy import fcluster, linkage
+
+    from raft_tpu_torch.cluster.single_linkage import single_linkage
+
+    dev = torch.device("cuda")
+    centers = 10.0 * torch.rand((SL_PAIR_CENTERS, SL_PAIR_D), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(52))
+    x, _ = blobs(SL_PAIR_N, centers, 53, 1.0)
+    out, counts, wall = counted(total, lambda: single_linkage(
+        x, SL_PAIR_CENTERS, connectivity="pairwise", metric="euclidean", res=res))
+    x64 = x.double().cpu().numpy()
+    t0 = time.perf_counter()
+    z = linkage(x64, method="single", metric="euclidean")
+    t_scipy = time.perf_counter() - t0
+    ref = np.sort(z[:, 2])
+    got = np.sort(out.deltas)
+    rel = float((np.abs(got - ref) / np.maximum(ref, 1e-30)).max())
+    assert rel <= 1e-4, f"single-linkage deltas differ from scipy's by {rel}"
+    expect = fcluster(z, SL_PAIR_CENTERS, criterion="maxclust")
+    lab = out.labels.cpu().numpy()
+    pairs = set(zip(lab.tolist(), expect.tolist()))
+    assert len(pairs) == len(set(lab.tolist())) == len(set(expect.tolist())), \
+        "the 10-cluster partition differs from fcluster's"
+    graph_emit("single_linkage_pairwise", wall, st, n=SL_PAIR_N, d=SL_PAIR_D,
+               edges=SL_PAIR_N * (SL_PAIR_N - 1) // 2, max_delta_rel_err_vs_scipy=rel,
+               partition_equals_fcluster=True, scipy_s=t_scipy, launches=counts)
+
+
+def tfidf_csr(res):
+    """A TF-IDF-shaped CSR from a seed: SPARSE_N + SPARSE_Q rows of 8,192
+    columns, 64 draws a row of Zipf(1.1)-ranked column ids (repeats summed),
+    each entry's count weight times its column's idf, rows l2-normalised."""
+    import torch
+
+    from raft_tpu_torch import sparse
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(54)
+    n = SPARSE_N + SPARSE_Q
+    p = 1.0 / torch.arange(1, SPARSE_COLS + 1, device=dev, dtype=torch.float64) ** SPARSE_ZIPF_S
+    cols = torch.multinomial(p.float(), n * SPARSE_ROW_NNZ, replacement=True, generator=g)
+    # ranks to column ids by a fixed permutation, so frequent terms spread
+    perm = torch.randperm(SPARSE_COLS, generator=g, device=dev)
+    cols = perm[cols].to(torch.int32)
+    rows = torch.arange(n, device=dev, dtype=torch.int32).repeat_interleave(SPARSE_ROW_NNZ)
+    vals = torch.rand((n * SPARSE_ROW_NNZ,), generator=g, device=dev) + 0.5
+    coo = sparse.CooMatrix(rows, cols, vals, torch.tensor(rows.numel(), dtype=torch.int32,
+                                                          device=dev), (n, SPARSE_COLS))
+    tf = sparse.coo_to_csr(sparse.sum_duplicates(sparse.sort_coo(coo)), assume_sorted=True)
+    df = sparse.degree(sparse.transpose(tf)).double()
+    idf = (torch.log(n / (1.0 + df)) + 1.0).float()
+    cols_of = torch.clamp_max(tf.indices, SPARSE_COLS - 1).long()
+    weighted = sparse.CsrMatrix(tf.indptr, tf.indices, tf.data * idf[cols_of], tf.shape)
+    return sparse.normalize_rows(weighted, "l2")
+
+
+def csr_rows(a, start, stop):
+    """Rows [start, stop) of a CSR matrix, as a CSR matrix of their entries."""
+    from raft_tpu_torch import sparse
+
+    lo, hi = int(a.indptr[start]), int(a.indptr[stop])
+    return sparse.CsrMatrix((a.indptr[start:stop + 1] - lo).contiguous(),
+                            a.indices[lo:hi].contiguous(), a.data[lo:hi].contiguous(),
+                            (stop - start, a.shape[1]))
+
+
+def graph_sparse_knn(st, total, res, data):
+    """(3) sparse kNN: 10,000 queries in 100,000 TF-IDF rows, k=10."""
+    import torch
+
+    from raft_tpu_torch import sparse
+    from raft_tpu_torch.distance.types import resolve_metric
+    from raft_tpu_torch.sparse.distance import _tile_for
+    from raft_tpu_torch.sparse.neighbors import _EXPANDED_L2
+
+    ds, qs = csr_rows(data, 0, SPARSE_N), csr_rows(data, SPARSE_N, SPARSE_N + SPARSE_Q)
+    yd = ds.todense()
+    for metric in ("inner_product", "sqeuclidean"):
+        mt = resolve_metric(metric)
+        tile = _tile_for(_EXPANDED_L2.get(mt, mt), SPARSE_Q, SPARSE_N, SPARSE_COLS, res)
+        tiles = -(-SPARSE_Q // tile)
+        (dv, di), counts, wall = counted(total, lambda: sparse.knn(ds, qs, K_MAIN, metric=metric,
+                                                                   res=res))
+        assert counts.get("topk", 0) == tiles, (counts, tiles)
+        with uncounted():
+            pv, pi = sparse.knn(ds, qs, K_MAIN, metric=metric, select_impl="torch", res=res)
+        assert torch.equal(pi, di) and torch.equal(pv, dv), f"{metric}: the select routes differ"
+        # float64 on SPARSE_CHECK queries
+        q64 = csr_rows(qs, 0, SPARSE_CHECK).todense().double()
+        ip = torch.cat([q64 @ yd[i:i + 20_000].double().T for i in range(0, SPARSE_N, 20_000)],
+                       dim=1)
+        if metric == "inner_product":
+            ref, best_first = ip, True
+        else:
+            yn = torch.cat([yd[i:i + 20_000].double().square().sum(1)
+                            for i in range(0, SPARSE_N, 20_000)])
+            ref, best_first = q64.square().sum(1)[:, None] + yn[None, :] - 2.0 * ip, False
+        kth = torch.topk(ref, K_MAIN, dim=1, largest=best_first).values[:, -1]
+        got = torch.gather(ref, 1, di[:SPARSE_CHECK].long())
+        assert bool(torch.allclose(dv[:SPARSE_CHECK].double(), got, rtol=1e-5, atol=1e-6)), \
+            f"{metric}: distances differ from float64"
+        # an id the float64 order leaves out must tie the k-th within 1e-6
+        slack = (kth[:, None] - got) if best_first else (got - kth[:, None])
+        worst = float(slack.max())
+        assert worst <= 1e-6, f"{metric}: an id is {worst} beyond the float64 k-th"
+        exact_rows = int(sum(
+            set(di[r].tolist()) == set(torch.topk(ref[r], K_MAIN, largest=best_first)
+                                       .indices.tolist()) for r in range(SPARSE_CHECK)))
+        graph_emit("sparse_knn", wall, st, metric=metric, n=SPARSE_N, m=SPARSE_Q,
+                   d=SPARSE_COLS, nnz=int(ds.nnz), k=K_MAIN, tile=tile, tiles=tiles,
+                   qps=SPARSE_Q / wall, routes_equal=True, f64_rows=SPARSE_CHECK,
+                   f64_rows_same_set=exact_rows, worst_tie_slack=worst, launches=counts)
+
+
+def graph_sparse_pairwise(st, total, res, data):
+    """(4) the 18 sparse metrics at 1,000 x 2,000 rows against float64."""
+    import torch
+
+    from raft_tpu_torch import sparse
+
+    m, n = SPARSE_PAIR
+    x, y = csr_rows(data, 0, m), csr_rows(data, m, m + n)
+
+    def variant(a, kind):
+        # the set metrics on 0/1 rows, the distribution metrics on l1 rows
+        if kind == "binary":
+            return sparse.CsrMatrix(a.indptr, a.indices, (a.data != 0).float(), a.shape)
+        if kind == "simplex":
+            return sparse.normalize_rows(a, "l1")
+        return a
+
+    # each sparse metric by its PAIRWISE_METRICS / _ref64 name
+    names = {"L2Expanded": "l2_expanded", "L2SqrtExpanded": "l2_sqrt_expanded",
+             "L2Unexpanded": "sqeuclidean", "L2SqrtUnexpanded": "euclidean",
+             "LpUnexpanded": "minkowski", "CosineExpanded": "cosine",
+             "InnerProduct": "inner_product", "L1": "l1", "Canberra": "canberra",
+             "Linf": "chebyshev", "JaccardExpanded": "jaccard",
+             "HellingerExpanded": "hellinger", "DiceExpanded": "dice",
+             "CorrelationExpanded": "correlation", "RusselRaoExpanded": "russellrao",
+             "HammingUnexpanded": "hamming", "JensenShannon": "jensenshannon",
+             "KLDivergence": "kl_divergence"}
+    worst = {}
+    t_all = time.perf_counter()
+    for mt in sorted(sparse.SPARSE_SUPPORTED):
+        name = names[mt.name]
+        kind, arg, rtol = PAIRWISE_METRICS[name]
+        xm, ym = variant(x, kind), variant(y, kind)
+        got = sparse.pairwise_distance(xm, ym, metric=mt, metric_arg=arg, res=res)
+        assert got.shape == (m, n) and got.dtype == torch.float32
+        xd, y64 = xm.todense().double(), ym.todense().double()
+        # _ref64 broadcasts (step, n, d) for these: 1 GB of float64 at 8 rows
+        step = 8 if name in ("l2_expanded", "l2_sqrt_expanded", "sqeuclidean", "euclidean",
+                             "l1", "chebyshev", "canberra", "minkowski", "hamming",
+                             "jensenshannon") else 250
+        err = 0.0
+        for i in range(0, m, step):
+            ref = _ref64(name, xd[i:i + step], y64, arg)
+            extra = 0.0
+            if name in ("l2_expanded", "l2_sqrt_expanded"):
+                # the expanded form's float32 bound over the rows' nonzeros
+                b = expanded_bound(xd[i:i + step].square().sum(1)[:, None],
+                                   y64.square().sum(1)[None, :], d=2 * SPARSE_ROW_NNZ)
+                extra = b if name == "l2_expanded" else torch.minimum(
+                    b.sqrt(), b / ref.clamp_min(1e-30))
+            if name == "correlation":
+                # centring makes the rows dense: a float32 product over all
+                # 8,192 terms of unit vectors, whose bound is d·2⁻²⁴
+                extra = SPARSE_COLS * 2.0 ** -24
+            diff = (got[i:i + step].double() - ref).abs()
+            ok = diff <= rtol * ref.abs() + 1e-5 + extra
+            assert bool(ok.all()), (f"sparse {name} differs from float64: "
+                                    f"{int((~ok).sum())} entries, max abs err {float(diff.max())}")
+            err = max(err, float(diff.max()))
+        worst[name] = err
+    graph_emit("sparse_pairwise", time.perf_counter() - t_all, st, m=m, n=n, d=SPARSE_COLS,
+               metrics=len(worst), max_abs_err=worst)
+
+
+def graph_spectral(st, total, res):
+    """(5) knn_graph -> symmetrize -> partition and modularity_maximization
+    over 100,000 x 32 blobs around 16 centers."""
+    import torch
+
+    from raft_tpu_torch import sparse, spectral
+    from raft_tpu_torch.solver import eigsh
+    from raft_tpu_torch.sparse.linalg import _row_runs, row_reduce
+
+    dev = torch.device("cuda")
+    # centers N(0, 1) a coordinate, unit noise: a few per cent of kNN edges
+    # cross blobs (the line prints the share), so the graph is connected
+    # and its 16 smallest eigenvalues are distinct: a single-vector Lanczos
+    # cannot resolve the 16-fold zero eigenvalue of 16 disconnected blobs
+    centers = torch.randn((SPEC_CENTERS, SPEC_D), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(55))
+    x, lab = blobs(SPEC_N, centers, 56, 1.0)
+    t0 = time.perf_counter()
+    a, c_graph, t_graph = counted(total, lambda: sparse.symmetrize(sparse.coo_to_csr(
+        sparse.knn_graph(sparse.dense_to_csr(x), SPEC_NEIGHBORS, res=res))))
+    assert c_graph.get("topk", 0) > 0, c_graph
+    v0 = torch.randn((SPEC_N,), device=dev, generator=torch.Generator(device=dev).manual_seed(57))
+    cfg = spectral.EigenSolverConfig(n_eig_vecs=SPEC_CENTERS)
+    out, c_part, t_part = counted(total, lambda: spectral.partition(a, SPEC_CENTERS, eigen_cfg=cfg,
+                                                                    v0=v0, res=res))
+    lap = sparse.laplacian(a)
+    lap64 = sparse.CsrMatrix(lap.indptr, lap.indices, lap.data.double(), lap.shape)
+    # a Lanczos step's matvec and the segment sum inside it (1-D), against
+    # the bytes the spmv must move (entries and indices read, x and y once),
+    # and the same sum over a (cap, 1) block, the 2-D path spmv leaves
+    contrib = lap.data * v0[torch.clamp_max(lap.indices, SPEC_N - 1).long()]
+    spmv_ms = cuda_ms(lambda: sparse.spmv(lap, v0), reps=20)
+    segsum_ms = cuda_ms(lambda: row_reduce(lap, contrib), reps=20)
+    runs = _row_runs(lap)
+    segsum_2d_ms = cuda_ms(lambda: torch.segment_reduce(contrib[:, None], "sum", lengths=runs,
+                                                        axis=0, unsafe=True), reps=10)
+    spmv_bound_ms = (int(lap.cap) * 8 + 2 * SPEC_N * 4) / H100_BYTES_S * 1e3
+
+    def residuals(w, v):
+        # ‖Lv - λv‖ of each Ritz pair, in float64
+        v = v.to(dev).double()
+        return torch.linalg.vector_norm(sparse.spmm(lap64, v) - v * w.to(dev).double()[None, :],
+                                        dim=0)
+
+    w, v = out.eigenvalues, out.eigenvectors
+    resid = residuals(w, v)
+    l1 = float(sparse.row_norm(lap, "l1").max())        # ‖L‖₁ of a symmetric L
+    assert float(resid.max()) <= 1e-3 * l1, (float(resid.max()), l1)
+    # the eigensolver alone on the card (the partition's share of it), then
+    # on the CPU from the same v0
+    (gw, _, _), _, t_eig = counted(total, lambda: eigsh(
+        lap, k=SPEC_CENTERS, which="SA", max_iter=cfg.max_iter, tol=cfg.tol, seed=cfg.seed,
+        v0=v0))
+    t0c = time.perf_counter()
+    cw, cv, c_restarts = eigsh(lap.to("cpu"), k=SPEC_CENTERS, which="SA", max_iter=cfg.max_iter,
+                               tol=cfg.tol, seed=cfg.seed, v0=v0.cpu())
+    t_cpu = time.perf_counter() - t0c
+    # each Ritz value lies within its residual of an eigenvalue of L, so two
+    # runs that reach the same eigenvalues differ by at most the sum of their
+    # residuals; 1e-4 where that is smaller (float32 Lanczos on an L this
+    # large leaves residuals near 1e-3, printed as max_residual)
+    ediff = (w.cpu() - cw).abs().double()
+    bound = torch.clamp_min(resid.cpu() + residuals(cw, cv).cpu(), 1e-4)
+    assert bool((ediff <= bound).all()), (
+        f"eigenvalues differ from the CPU's by {ediff.tolist()} against {bound.tolist()}")
+    ediff = float(ediff.max())
+    score = ari(out.labels.cpu().numpy(), lab.cpu().numpy())
+    assert score >= SPEC_ARI_FLOOR, f"partition ARI {score}"
+    mod, c_mod, t_mod = counted(total, lambda: spectral.modularity_maximization(
+        a, SPEC_CENTERS, eigen_cfg=cfg, v0=v0, res=res))
+    mscore = ari(mod.labels.cpu().numpy(), lab.cpu().numpy())
+    assert mscore >= SPEC_ARI_FLOOR, f"modularity ARI {mscore}"
+    q = float(spectral.analyze_modularity(a, SPEC_CENTERS, mod.labels))
+    cut, cost = spectral.analyze_partition(a, SPEC_CENTERS, out.labels)
+    rows, cols = a.row_ids()[:int(a.nnz)].long(), a.indices[:int(a.nnz)].long()
+    cross = float((lab[rows] != lab[cols]).float().mean())
+    graph_emit("spectral", time.perf_counter() - t0, st, n=SPEC_N, d=SPEC_D,
+               centers=SPEC_CENTERS, n_neighbors=SPEC_NEIGHBORS, graph_nnz=int(a.nnz),
+               cross_blob_edge_share=cross, graph_s=t_graph, partition_s=t_part,
+               restarts=out.n_eigen_restarts, eigsh_s=t_eig, spmv_ms=spmv_ms,
+               spmv_segment_sum_ms=segsum_ms, segment_reduce_2d_ms=segsum_2d_ms,
+               spmv_bound_ms=spmv_bound_ms,
+               eigsh_repeat_bit_equal=bool(torch.equal(gw, w)), cpu_eigsh_s=t_cpu,
+               cpu_restarts=c_restarts,
+               eigenvalues=w.tolist(), max_eig_diff_vs_cpu=ediff,
+               max_eig_diff_bound=float(bound.max()), max_residual=float(resid.max()),
+               l1_norm=l1, ari=score,
+               modularity_s=t_mod, modularity_restarts=mod.n_eigen_restarts,
+               modularity_ari=mscore, modularity=q, edge_cut=float(cut), cost=float(cost),
+               launches={"graph": c_graph, "partition": c_part, "modularity": c_mod})
+
+
+def graph_lap(st, total, res):
+    """(6) lap_solve of 8 x 1,024 x 1,024 integer costs against scipy."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from raft_tpu_torch.solver import lap as lap_mod
+
+    dev = torch.device("cuda")
+    cost = torch.randint(0, LAP_COST, (LAP_B, LAP_N, LAP_N), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(58)).float()
+    (out, stats), counts, wall = counted(total, lambda: lap_mod._lap(cost, None, False, None, res))
+    assert bool(out.converged.all()), "a LAP problem did not converge"
+    ch = cost.cpu().numpy()
+    objs = []
+    for i in range(LAP_B):
+        ri, ci = linear_sum_assignment(ch[i])
+        ref = float(ch[i][ri, ci].sum())
+        assert float(out.objective[i]) == ref, (i, float(out.objective[i]), ref)
+        ra = out.row_assignment[i].cpu().numpy()
+        assert (np.sort(ra) == np.arange(LAP_N)).all()
+        objs.append(ref)
+    graph_emit("lap", wall, st, batch=LAP_B, n=LAP_N, rounds=stats["rounds"],
+               reads=stats["reads"], rounds_per_read=lap_mod.ROUNDS_PER_READ,
+               objectives=objs, equal_to_scipy=True, launches=counts)
+
+
+def graph_gram(st, total, res, data):
+    """(7) gram_matrix of CSR inputs against the dense call."""
+    import torch
+
+    from raft_tpu_torch.distance import KernelParams, KernelType, gram_matrix
+
+    x, y = csr_rows(data, 0, GRAM_ROWS), csr_rows(data, GRAM_ROWS, 2 * GRAM_ROWS)
+    xd, yd = x.todense(), y.todense()
+    t0 = time.perf_counter()
+    err = {}
+    for kind in KernelType:
+        p = KernelParams(kernel=kind, degree=3, gamma=0.5, coef0=1.0)
+        got = gram_matrix(p, x, y, res=res)
+        ref = gram_matrix(p, xd, yd, res=res)
+        assert bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-7)), kind
+        err[kind.value] = float((got - ref).abs().max())
+    torch.cuda.synchronize()
+    graph_emit("gram_matrix_csr", time.perf_counter() - t0, st, m=GRAM_ROWS, n=GRAM_ROWS,
+               d=SPARSE_COLS, max_abs_err_vs_dense=err)
+
+
+def phase_graph(st):
+    """Phase c: the sparse and graph stack (see the module docstring)."""
+    from raft_tpu_torch.core import Resources
+
+    t_phase = time.perf_counter()
+    res = Resources(device="cuda")
+    total = {}
+    graph_single_linkage_knn(st, total, res)
+    graph_single_linkage_pairwise(st, total, res)
+    t0 = time.perf_counter()
+    data = tfidf_csr(res)
+    emit(phase="graph", part="tfidf_data", wall_s=time.perf_counter() - t0,
+         rows=data.shape[0], cols=data.shape[1], nnz=int(data.nnz), card=st["card"])
+    graph_sparse_knn(st, total, res, data)
+    graph_sparse_pairwise(st, total, res, data)
+    graph_gram(st, total, res, data)
+    del data
+    graph_spectral(st, total, res)
+    graph_lap(st, total, res)
+    for name in ("fused_knn_tf32x3", "topk"):
+        assert total.get(name, 0) > 0, (name, total)
+    st["launches_graph"] = total
+    emit(phase="graph_launches", launches=total, seconds=time.perf_counter() - t_phase,
+         card=st["card"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0123456789ab",
+    ap.add_argument("--phases", default="0123456789abc",
                     help="phases to run, e.g. 01 (default: all); 4 to 9, a and b need 2")
     ap.add_argument("--out", default=os.path.join("build", "profiles"),
                     help="directory for the IVF-PQ, CAGRA and IVF-Flat profile tables")
@@ -7261,6 +7763,8 @@ def main(argv=None):
         phase_net(st)
     if "b" in args.phases:
         phase_parallel(st)
+    if "c" in args.phases:
+        phase_graph(st)
     if "3" in args.phases and "2" in args.phases:
         time_fused_modes(st)
         time_f32_routes(st)
@@ -7281,6 +7785,11 @@ def main(argv=None):
         tune = st.get("launches_tune")
         net = st.get("launches_net")
         par = st.get("launches_parallel")
+        graph = st.get("launches_graph")
+
+        def in_graph(name):
+            # phase c's launches, 0 where it made none (None: phase c not run)
+            return None if graph is None else graph.get(name, 0)
 
         def in_par(name):
             # phase b's launches, every rank's summed, 0 where it made none
@@ -7321,7 +7830,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_rows"),
                  launches_stream=strm.get("fused_knn_rows"),
                  launches_stream_folds=fold("fused_knn_rows"),
-                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"), launches_mesh=in_mesh("fused_knn_rows"), launches_tune=in_tune("fused_knn_rows"), launches_net=in_net("fused_knn_rows"), launches_parallel=in_par("fused_knn_rows"),
+                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"), launches_mesh=in_mesh("fused_knn_rows"), launches_tune=in_tune("fused_knn_rows"), launches_net=in_net("fused_knn_rows"), launches_parallel=in_par("fused_knn_rows"), launches_graph=in_graph("fused_knn_rows"),
                  max_abs_err=st["f32_err"]["rows"], m_small=fk.M_SMALL, merge=st["merge_t"],
                  **st["rows_t"]),
             dict(name="fused_knn_tf32x3", route="cuda",
@@ -7331,7 +7840,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_tf32x3"),
                  launches_stream=strm.get("fused_knn_tf32x3"),
                  launches_stream_folds=fold("fused_knn_tf32x3"),
-                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"), launches_mesh=in_mesh("fused_knn_tf32x3"), launches_tune=in_tune("fused_knn_tf32x3"), launches_net=in_net("fused_knn_tf32x3"), launches_parallel=in_par("fused_knn_tf32x3"),
+                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"), launches_mesh=in_mesh("fused_knn_tf32x3"), launches_tune=in_tune("fused_knn_tf32x3"), launches_net=in_net("fused_knn_tf32x3"), launches_parallel=in_par("fused_knn_tf32x3"), launches_graph=in_graph("fused_knn_tf32x3"),
                  max_abs_err=st["f32_err"]["tf32x3"], tf32x3_gate=st["tf32x3_gate"],
                  **st["f32_t"]),
             dict(name="fused_knn_tc", route="cuda",
@@ -7341,7 +7850,7 @@ def main(argv=None):
                  launches_by_mode=st["tc_launches"],
                  launches_stream=strm.get("fused_knn_tc"),
                  launches_stream_folds=fold("fused_knn_tc"),
-                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"), launches_mesh=in_mesh("fused_knn_tc"), launches_tune=in_tune("fused_knn_tc"), launches_net=in_net("fused_knn_tc"), launches_parallel=in_par("fused_knn_tc"),
+                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"), launches_mesh=in_mesh("fused_knn_tc"), launches_tune=in_tune("fused_knn_tc"), launches_net=in_net("fused_knn_tc"), launches_parallel=in_par("fused_knn_tc"), launches_graph=in_graph("fused_knn_tc"),
                  max_abs_err=st["tc_err"],
                  **{key: st["fused_modes_t"]["bf16"][key]
                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -7351,7 +7860,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/fused_knn.py:139", launches=st["split_launches"],
                  launches_stream=strm.get("bf16_split"),
                  launches_stream_folds=fold("bf16_split"),
-                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"), launches_mesh=in_mesh("bf16_split"), launches_tune=in_tune("bf16_split"), launches_net=in_net("bf16_split"), launches_parallel=in_par("bf16_split"),
+                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"), launches_mesh=in_mesh("bf16_split"), launches_tune=in_tune("bf16_split"), launches_net=in_net("bf16_split"), launches_parallel=in_par("bf16_split"), launches_graph=in_graph("bf16_split"),
                  launches_on="knn(compute='float32x3')", max_abs_err=0.0, **st["split_t"]),
             dict(name="tf32_split", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
@@ -7359,7 +7868,7 @@ def main(argv=None):
                  launches_serve=serve.get("tf32_split"),
                  launches_stream=strm.get("tf32_split"),
                  launches_stream_folds=fold("tf32_split"),
-                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"), launches_mesh=in_mesh("tf32_split"), launches_tune=in_tune("tf32_split"), launches_net=in_net("tf32_split"), launches_parallel=in_par("tf32_split"),
+                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"), launches_mesh=in_mesh("tf32_split"), launches_tune=in_tune("tf32_split"), launches_net=in_net("tf32_split"), launches_parallel=in_par("tf32_split"), launches_graph=in_graph("tf32_split"),
                  launches_on="BruteForce.search, 10,000 queries (mode f32's batch route)",
                  max_abs_err=0.0, **st["tf32_split_t"]),
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
@@ -7367,7 +7876,7 @@ def main(argv=None):
                  launches_ivf_flat=launches["topk_ivf_flat"],
                  launches_serve=serve.get("topk"), launches_stream=strm.get("topk"),
                  launches_stream_folds=fold("topk"),
-                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"), launches_mesh=in_mesh("topk"), launches_tune=in_tune("topk"), launches_net=in_net("topk"), launches_parallel=in_par("topk"),
+                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"), launches_mesh=in_mesh("topk"), launches_tune=in_tune("topk"), launches_net=in_net("topk"), launches_parallel=in_par("topk"), launches_graph=in_graph("topk"),
                  launches_ball_cover={m: launches[f"topk_ball_cover_{m}"]
                                       for m in ("sqeuclidean", "haversine")},
                  max_abs_err=st["topk_err"], **st["topk_t"]),
@@ -7376,7 +7885,7 @@ def main(argv=None):
                  launches_on="ivf_pq.search, select_impl='xla'",
                  launches_stream=strm.get("pq_scan"),
                  launches_stream_folds=fold("pq_scan"),
-                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"), launches_mesh=in_mesh("pq_scan"), launches_tune=in_tune("pq_scan"), launches_net=in_net("pq_scan"), launches_parallel=in_par("pq_scan"),
+                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"), launches_mesh=in_mesh("pq_scan"), launches_tune=in_tune("pq_scan"), launches_net=in_net("pq_scan"), launches_parallel=in_par("pq_scan"), launches_graph=in_graph("pq_scan"),
                  launches_funnel=launches["pq_scan_opq_anisotropic_4bit"],
                  max_abs_err=st["pq_err"], **st["pq_t"]),
             dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
@@ -7384,7 +7893,7 @@ def main(argv=None):
                  launches_serve=serve.get("pq_scan_topk"),
                  launches_stream=strm.get("pq_scan_topk"),
                  launches_stream_folds=fold("pq_scan_topk"),
-                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"), launches_mesh=in_mesh("pq_scan_topk"), launches_tune=in_tune("pq_scan_topk"), launches_net=in_net("pq_scan_topk"), launches_parallel=in_par("pq_scan_topk"),
+                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"), launches_mesh=in_mesh("pq_scan_topk"), launches_tune=in_tune("pq_scan_topk"), launches_net=in_net("pq_scan_topk"), launches_parallel=in_par("pq_scan_topk"), launches_graph=in_graph("pq_scan_topk"),
                  launches_filtered={str(f): launches[f"pq_scan_topk_filtered_{f}"]
                                     for f in FILTER_KEEP},
                  launches_codecs={n: launches[f"pq_scan_topk_{n}"]
@@ -7395,7 +7904,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
                  launches_serve=serve.get("cagra_hop"), launches_stream=strm.get("cagra_hop"),
                  launches_stream_folds=fold("cagra_hop"),
-                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"), launches_mesh=in_mesh("cagra_hop"), launches_tune=in_tune("cagra_hop"), launches_net=in_net("cagra_hop"), launches_parallel=in_par("cagra_hop"),
+                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"), launches_mesh=in_mesh("cagra_hop"), launches_tune=in_tune("cagra_hop"), launches_net=in_net("cagra_hop"), launches_parallel=in_par("cagra_hop"), launches_graph=in_graph("cagra_hop"),
                  launches_int8_rows=launches["cagra_hop_int8"],
                  max_abs_err=st["hop_err"], **st["hop_t"]),
         ])

@@ -17,14 +17,14 @@ Ported so far:
              ranges, cooperative cancellation, the operator vocabulary, the
              staging buffer, the spawned ranks that stand in for a
              multi-device mesh (platform)
-  cluster    k-means, balanced k-means
+  cluster    k-means, balanced k-means, single-linkage clustering
   comms      the communicator over torch.distributed (a DeviceMesh and one
              of its dimensions; NCCL on CUDA, gloo on the CPU), the world's
              bootstrap, the collective self-tests
   control    the closed-loop controller: drift → retune, watermark →
              reshard, SLO burn → degrade / restore, compaction pacing
   distance   metric vocabulary, pairwise distances (every metric), fused and
-             masked L2 nearest neighbour, Gram matrices
+             masked L2 nearest neighbour, Gram matrices (dense or CSR)
   matrix     select_k (row-wise top-k; wide rows run the ``topk`` kernel)
   net        the network front door: wire schemas, NetServer / NetClient
              over SearchService, the multi-process mesh (ProcessMesh)
@@ -40,7 +40,13 @@ Ported so far:
              k-means, IVF-Flat / IVF-PQ build and search, per-shard CAGRA
   serve      micro-batched serving with warm hot-swap (SearchService,
              IndexRegistry, MicroBatcher, StagingBuffers)
+  solver     minimum spanning forest (Borůvka), thick-restart Lanczos,
+             the batched auction for linear assignment
+  sparse     padded COO / CSR matrices, conversions, SpMV / SpMM and the
+             graph ops, sparse pairwise distances and kNN (the ``topk``
+             kernel for wide rows), the kNN graph, the component repair
   spatial    the legacy spatial::knn entry points
+  spectral   spectral partitioning and modularity clustering
   stats      dispersion
   stream     the mutable index: delta memtable, tombstones, write-ahead log,
              compaction with a warm hot-swap (serve's write path), tiered
@@ -58,8 +64,8 @@ from .core import RaftError, Resources, default_resources, set_default_resources
 from .version import __version__
 
 _SUBMODULES = {"cluster", "comms", "config", "control", "core", "distance", "matrix", "net",
-               "neighbors", "obs", "ops", "parallel", "serve", "spatial", "stats", "stream",
-               "testing", "tune"}
+               "neighbors", "obs", "ops", "parallel", "serve", "solver", "sparse", "spatial",
+               "spectral", "stats", "stream", "testing", "tune"}
 
 
 def __getattr__(name):

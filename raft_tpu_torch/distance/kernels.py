@@ -3,8 +3,8 @@
 Counterpart of raft_tpu/distance/kernels.py (reference:
 distance/detail/kernels/{gram_matrix.cuh, kernel_matrices.cuh,
 kernel_factory.cuh}). One full-float32 product ``x·yᵀ`` and the kernel's
-elementwise epilogue. Dense inputs only: a ``CsrMatrix`` raises
-``RaftError("not yet ported")`` until ``sparse/`` is ported.
+elementwise epilogue. Inputs are dense, or a ``sparse.CsrMatrix``, which
+is densified first, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -43,8 +43,11 @@ class KernelParams:
 
 
 def _as_dense(x, res: Resources):
-    if hasattr(x, "indptr"):
-        fail("gram_matrix: sparse (CSR) inputs are not yet ported to raft_tpu_torch")
+    from ..sparse.types import CsrMatrix
+
+    if isinstance(x, CsrMatrix):
+        res.check_holds(x.device, "the CSR matrix")
+        return x.todense().to(_f32)
     return res.put(x, _f32)
 
 

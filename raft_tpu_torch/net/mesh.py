@@ -123,6 +123,7 @@ class MeshSpec:
 # route (every flush up to M_SMALL rows) and the tensor-core file's batch
 # route and split (a mutable flush past M_SMALL)
 WORKER_KERNELS = ("fused_knn", "fused_knn_tc")
+KILL_WAIT_S = 120.0     # kill_worker's wait for the process to be gone
 
 
 def _worker_main(conn, rows_conn, spec: dict) -> None:
@@ -589,7 +590,13 @@ class ProcessMesh:
         w = self._workers[shard][replica]
         pid = w.proc.pid
         w.proc.kill()
-        w.proc.join(5.0)
+        # a worker with a CUDA context can take seconds to exit, and until
+        # its files close its listening socket still accepts connections
+        # that nobody answers: a scatter that picked it would wait out the
+        # socket timeout instead of failing over, so wait for the exit
+        w.proc.join(KILL_WAIT_S)
+        expects(not w.proc.is_alive(), "worker %s outlived SIGKILL by %gs", w.label,
+                KILL_WAIT_S)
         return pid
 
     def close(self) -> None:

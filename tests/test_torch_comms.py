@@ -56,6 +56,17 @@ def jcomms(S):
     return JComms(Mesh(np.array(jax.devices()[:S]), ("data",)), "data")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _release_jax_programs():
+    """The JAX drivers memoize their programs by communicator value: drop
+    this file's at its end, so a JAX test later in the same process that
+    counts one communicator's programs (tests/test_comms.py's release
+    check) starts from none."""
+    yield
+    for S in (1, 2, 4):
+        jparallel.release_programs(jcomms(S))
+
+
 def on(pool, S, fn, *args, **kwargs):
     """``fn`` over the first S ranks: their results (the rest return None)."""
     out = pool.run(fn, S, *args, **kwargs)

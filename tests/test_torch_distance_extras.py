@@ -84,11 +84,23 @@ def test_gram_matrix_matches_jax(data, kernel, degree, gamma, coef0):
 
 
 def test_gram_matrix_csr_not_yet_ported(data):
-    x, _ = data
+    """CSR inputs, once refused here, are ported: the JAX CSR's padded
+    fields in the port's ``CsrMatrix`` give the JAX Gram matrix (rtol
+    1e-5), for every kernel type."""
+    from raft_tpu_torch.sparse import make_csr
+
+    x, y = data
+    x = np.where(x < 0.5, 0.0, x).astype(np.float32)     # a copy: the fixture is shared
     csr = dense_to_csr(jnp.asarray(x))
     assert isinstance(csr, CsrMatrix)
-    with pytest.raises(RaftError, match="not yet ported"):
-        gram_matrix(KernelParams(), csr, res=CPU)
+    tcsr = make_csr(np.asarray(csr.indptr), np.asarray(csr.indices), np.asarray(csr.data),
+                    csr.shape, res=CPU)
+    for kind in KernelType:
+        p = KernelParams(kernel=kind, degree=2, gamma=0.5, coef0=1.0)
+        jp = jk.KernelParams(kernel=jk.KernelType(kind.value), degree=2, gamma=0.5, coef0=1.0)
+        got = gram_matrix(p, tcsr, y, res=CPU)
+        ref = np.asarray(jk.gram_matrix(jp, csr, jnp.asarray(y)))
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("self_pairs", [False, True])

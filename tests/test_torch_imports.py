@@ -122,13 +122,13 @@ def test_packages_export_the_front_door_exporter_and_controller():
 
 
 def test_only_the_named_carve_outs_are_not_yet_ported():
-    """The tuned hooks, ``publish(tuned=)``, ``warmup``, ``config`` and the
-    mesh's ``comms=`` are ported; what still refuses is ``cagra_hop``'s
-    ``profile=`` (a TPU profiling aid) and sparse ``gram_matrix``."""
+    """The tuned hooks, ``publish(tuned=)``, ``warmup``, ``config``, the
+    mesh's ``comms=`` and sparse ``gram_matrix`` are ported; what still
+    refuses is ``cagra_hop``'s ``profile=`` (a TPU profiling aid)."""
     hits = sorted({str(f.relative_to(ROOT / "raft_tpu_torch"))
                    for f in (ROOT / "raft_tpu_torch").rglob("*.py")
                    if "not yet ported" in f.read_text()})
-    assert hits == ["distance/kernels.py", "ops/cagra_hop.py"], hits
+    assert hits == ["ops/cagra_hop.py"], hits
 
 
 def test_package_exports_the_deploy_surface():
@@ -177,3 +177,45 @@ def test_package_exports_comms_and_parallel():
 
     for name in ("RankPool", "force_virtual_cpu", "virtual_cpu_env"):
         assert name in platform.__all__ and hasattr(platform, name), name
+
+
+# the modules of the sparse and graph-solver slice
+GRAPH_MODULES = ("sparse/__init__.py", "sparse/types.py", "sparse/convert.py", "sparse/op.py",
+                 "sparse/linalg.py", "sparse/distance.py", "sparse/neighbors.py",
+                 "solver/__init__.py", "solver/mst.py", "solver/lanczos.py", "solver/lap.py",
+                 "cluster/__init__.py", "cluster/single_linkage.py", "spectral/__init__.py",
+                 "spectral/partition.py", "distance/kernels.py")
+
+
+@pytest.mark.parametrize("rel", GRAPH_MODULES)
+def test_graph_modules_import_neither_jax_nor_raft_tpu(rel):
+    path = ROOT / "raft_tpu_torch" / rel
+    assert path.is_file(), rel
+    names = list(_imports(path))
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+
+
+@pytest.mark.parametrize("pkg", ["sparse", "solver", "spectral"])
+def test_graph_packages_keep_the_jax_names(pkg):
+    """Each package exports the JAX package's public names."""
+    import importlib
+
+    port = importlib.import_module(f"raft_tpu_torch.{pkg}")
+    jax_init = ROOT / "raft_tpu" / pkg / "__init__.py"
+    tree = ast.parse(jax_init.read_text())
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and getattr(node.targets[0], "id", None) == "__all__")
+    assert sorted(port.__all__) == sorted(names)
+    for name in names:
+        assert hasattr(port, name), name
+    import raft_tpu_torch
+
+    assert getattr(raft_tpu_torch, pkg) is port
+
+
+def test_cluster_exports_single_linkage():
+    from raft_tpu_torch import cluster
+
+    for name in ("single_linkage", "SingleLinkageOutput"):
+        assert name in cluster.__all__ and hasattr(cluster, name), name
