@@ -8,6 +8,7 @@ end to end.
     python3 chip_smoke.py --phases 02a  # the front door, the mesh, the controller
     python3 chip_smoke.py --phases 02b  # the communicator and the distributed drivers
     python3 chip_smoke.py --phases 0c  # the sparse and graph stack (needs no phase 2)
+    python3 chip_smoke.py --phases 0d  # the remaining primitives (needs no phase 2)
     python3 chip_smoke.py --out DIR    # where the profile tables go
                                        # (default build/profiles)
 
@@ -54,7 +55,10 @@ Phases, each printing JSON lines:
      S=64, k=40; the CAGRA build's, S=128, k=193, 8 and 32 probes);
      ``cagra_hop`` bit for bit (2,048 queries over the 1M x 128 CAGRA set, itopk 32 and
      64, width 1 and 2, both merges, float32 and int8 rows, d of 100 and
-     126, the prime call, -1 ids, invalid lanes and repeated ids);
+     126, the prime call, -1 ids, invalid lanes and repeated ids; on each
+     hop call every ``profile`` carve-out, "noscore", "nodedup", "nomerge"
+     and "nogate", also bit for bit against its plain version, one launch
+     under its own mode, and "nogate" equal to "full");
   2. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``BruteForce("sqeuclidean").build(x).search(q, k=10)``
      at 1M x 128 float32 (uniform data from seed 0, 10,000 queries from
@@ -135,7 +139,10 @@ Phases, each printing JSON lines:
      shapes; kernel
      times (CUDA events) beside their bound, their plain version's
      time and one library call's time (for ``cagra_hop``, which no single
-     PyTorch call computes, the ``"xla"`` hop body's time instead; for
+     PyTorch call computes, the ``"xla"`` hop body's time instead, and its
+     in-kernel profile: each ``profile`` carve-out timed on both merges,
+     scoring = full - noscore, dedup = full - nodedup, merge = full -
+     nomerge, the gate's worth = full - nogate; for
      ``pq_scan_topk`` also the unfused kernel route's time and its time
      under the 50% filter, whose bound gains the bitset's bytes); and a
      sweep of ``topk`` against the plain route and ``torch.topk`` over
@@ -427,6 +434,42 @@ Phases, each printing JSON lines:
      problem converged, its objective equal to scipy's
      ``linear_sum_assignment``'s; rounds and stop-flag reads. Every
      launch of the parts summed: ``launches_graph``.
+  d. the remaining primitives (``linalg/``, ``random/``, ``label/``,
+     ``stats/``, ``runtime/``; after phase c, on data of its own from
+     seeds, so ``--phases 0d`` runs it alone), each part one
+     ``phase="prims"`` line with its wall and checks. (1) ``gemm`` at
+     8,192^3 float32 within d * 2^-24 of the magnitudes |A| |B| of a float64
+     product, its TFLOP/s beside the 67 TFLOP/s FP32 peak; ``rsvd(k=64)``
+     of 100,000 x 1,024 (rank 64 plus noise), singular values within 1e-3
+     (relative) of float64; ``eigh``, ``qr``, ``svd`` and ``lstsq`` (full
+     rank, and rank 64) at 4,096 x 1,024 by reconstruction and against
+     float64 (1e-4; lstsq's rank-64 case 1e-3); ``cholesky_r1_update`` at
+     n = 1,024 (L'L'^T within 1e-4 of A + xx^T); ``reduce_rows_by_key`` at
+     1M x 128 into 1,024 keys against float64 (1e-5 of the summed
+     magnitudes), a repeat bit-equal, timed. (2) 10M draws of each of the
+     12 distributions, mean and variance within 6 standard errors of the
+     closed forms; ``make_blobs`` at 1M x 128 around 1,000 centers (at most
+     4 of the 128M coordinates beyond 6 std, 0.25 expected, none beyond
+     7); ``rmat`` at scales 20 x 20 with 16M edges (ids below 2^20, each
+     level's quadrant shares within 1e-3 of theta); the weighted
+     ``sample_without_replacement`` of 256 from 1M with a tenth of the
+     weights 0 (no zero-weight id; a ``topk`` launch). (3)
+     ``make_monotonic`` on 10M int32 labels with a filter, equal to numpy;
+     ``merge_labels`` on 1M labels with 100,000 equivalences, equal to the
+     union graph's components (scipy), with its rounds. (4) The moments,
+     ``cov`` and ``histogram`` on 1M x 128 against float64 and numpy's
+     counts (exact); the label metrics on 1M labels of 1,000 classes
+     against float64 numpy of the same formulas (rtol 1e-4);
+     ``silhouette_score`` at 20,000 x 128 (1e-4 of float64);
+     ``trustworthiness`` of 10,000 x 128 blobs against their 32-d ``rsvd``
+     projection, within 1e-5 of float64 (the same formula on the card),
+     with its ``topk`` launches. (5) The native runtime built and loaded;
+     ``write_bin`` of 1M x 128 float32 (512 MB) and a ``BinDataset``
+     streaming it to the card in 100k-row chunks, each equal to the source
+     bytes; ``refine_host`` of 10,000 queries x 40 candidates against the
+     device ``refine`` (ids equal but at ties within 1e-5);
+     ``merge_parts_host`` of 4 shards against ``knn_merge_parts``. Every
+     launch of the parts summed: ``launches_prims``.
 
 The line before the last lists the kernels (``launches_stream``: phase 5's
 windows; ``launches_stream_folds``: the part of those that the compactions'
@@ -435,7 +478,7 @@ folds made on the writer thread, CAGRA's rebuild graph build among them;
 7's; ``launches_mesh``: phase 8's; ``launches_tune``: phase 9's;
 ``launches_net``: phase a's, the mesh workers' summed in;
 ``launches_parallel``: phase b's, every rank's summed;
-``launches_graph``: phase c's);
+``launches_graph``: phase c's; ``launches_prims``: phase d's);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line; so does a machine without CUDA (exit 2),
@@ -1264,11 +1307,37 @@ def phase_hop_kernel(st, m=HOP_M, cases=HOP_CASES):
                     f"cagra_hop differs from its plain version in {name}: {what} itopk={itopk} "
                     f"width={width} {merge} {kind} d={d}; {int((a != b).sum())} entries")
             inserted = int((got[2][:, :itopk] == 0).sum()) if what == "hop" else 0
+            carved = check_hop_carve_outs(args, merge, got) if what == "hop" else []
             emit(phase="check", kernel="cagra_hop", call=what, m=m, n=data.shape[0], d=d,
                  rows=kind, itopk=itopk, width=width, cw=cw, merge=merge,
                  unvisited_after=inserted, no_cand_rows=int(got[4][:, 0].sum()),
-                 max_abs_err=0.0, bit_equal=True, ok=True)
+                 carve_outs_bit_equal=carved, max_abs_err=0.0, bit_equal=True, ok=True)
     st["hop_err"] = 0.0
+
+
+def check_hop_carve_outs(args, merge, full):
+    """Each ``profile`` carve-out of ``cagra_hop`` against its plain version,
+    bit for bit, one launch counted under its own mode; "nogate" also
+    equals "full" (``full``, the kernel's outputs). Returns the profiles
+    checked."""
+    import torch
+
+    from raft_tpu_torch.ops.cagra_hop import PROFILES, cagra_hop, cagra_hop_plain
+
+    for prof in PROFILES[1:]:
+        before = cagra_hop.launches_by_mode[prof]
+        got = cagra_hop(*args, merge=merge, profile=prof)
+        torch.cuda.synchronize()
+        assert cagra_hop.launches_by_mode[prof] == before + 1, f"cagra_hop {prof} did not launch"
+        want = cagra_hop_plain(*args, merge=merge, profile=prof)
+        for name, a, b in zip(("beam_d", "beam_i", "beam_v", "pick", "no_cand"), got, want):
+            assert torch.equal(a, b), (
+                f"cagra_hop profile={prof} differs from its plain version in {name} ({merge}); "
+                f"{int((a != b).sum())} entries")
+        if prof == "nogate":
+            assert all(torch.equal(a, b) for a, b in zip(got, full)), \
+                f"cagra_hop profile=nogate differs from full ({merge})"
+    return list(PROFILES[1:])
 
 
 def phase_main(st):
@@ -2938,6 +3007,7 @@ def time_cagra_hop(st):
     plain_ms = cuda_ms(lambda: cagra_hop_plain(*args, merge="arena"), reps=2)
     for a, b in zip(cagra_hop(*args, merge="arena"), cagra_hop_plain(*args, merge="arena")):
         assert torch.equal(a, b), "cagra_hop differs from its plain version at the timed shape"
+    profile = hop_profile(args)
     # the "xla" route's hop body on the same beam: its beam is (m, itopk + cw)
     # and holds distances without |q|^2
     qn = (q * q).sum(1, keepdim=True)
@@ -2959,7 +3029,7 @@ def time_cagra_hop(st):
     st["hop_t"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                        bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       xla_hop_ms=xla_ms)
+                       xla_hop_ms=xla_ms, profile=profile)
     emit(phase="time", kernel="cagra_hop", m=m, cw=32, d=d, itopk=it, merge="arena",
          pairs_scored=rows, distinct_rows=distinct, bytes=nbytes, flops=ops, extract_ms=extract_ms,
          library="none: no single PyTorch call computes a hop",
@@ -2967,6 +3037,38 @@ def time_cagra_hop(st):
                  "several calls)",
          card=st["card"], **st["hop_t"])
     cagra_hop.launches = saved
+
+
+def hop_profile(args):
+    """The in-kernel profile of ``cagra_hop`` at the timed shape: every
+    ``profile`` carve-out timed on both merges (each checked against its
+    plain version first; "nogate" also against "full"), and the phases'
+    costs: scoring = full - noscore, dedup = full - nodedup, merge = full -
+    nomerge, the gate's worth = full - nogate. Under ``merge="arena"``,
+    "noscore" and "nodedup" run the extract merge (the JAX kernel's
+    rule), so there those two differences also hold the merges' gap."""
+    import torch
+
+    from raft_tpu_torch.ops.cagra_hop import PROFILES, cagra_hop, cagra_hop_plain
+
+    saved = dict(cagra_hop.launches_by_mode)
+    out = {}
+    for merge in ("arena", "extract"):
+        full = cagra_hop(*args, merge=merge)
+        for prof in PROFILES[1:]:
+            got = cagra_hop(*args, merge=merge, profile=prof)
+            for a, b in zip(got, cagra_hop_plain(*args, merge=merge, profile=prof)):
+                assert torch.equal(a, b), f"cagra_hop {prof} ({merge}) differs at the timed shape"
+            if prof == "nogate":
+                assert all(torch.equal(a, b) for a, b in zip(got, full)), (prof, merge)
+        t = {prof: cuda_ms(lambda prof=prof: cagra_hop(*args, merge=merge, profile=prof),
+                           reps=20, warm=3) for prof in PROFILES}
+        out[merge] = dict(ms=t, scoring_ms=t["full"] - t["noscore"],
+                          dedup_ms=t["full"] - t["nodedup"], merge_ms=t["full"] - t["nomerge"],
+                          gate_worth_ms=t["full"] - t["nogate"])
+        emit(phase="time", kernel="cagra_hop", part="profile", merge=merge, **out[merge])
+    cagra_hop.launches_by_mode = saved
+    return out
 
 
 def time_pq_scan(st):
@@ -3292,6 +3394,7 @@ def reset_all_counts():
     for fn in (fused_knn, bf16_split, tf32_split, topk, pq_scan, pq_scan_topk, cagra_hop):
         fn.launches = 0
     fused_knn.launches_by_mode = dict.fromkeys(fused_knn.launches_by_mode, 0)
+    cagra_hop.launches_by_mode = dict.fromkeys(cagra_hop.launches_by_mode, 0)
     fused_knn.launches_by_route = dict.fromkeys(fused_knn.launches_by_route, 0)
 
 
@@ -7703,9 +7806,562 @@ def phase_graph(st):
          card=st["card"])
 
 
+PRIM_DEV = "cuda"                    # phase d's device (a CPU rehearsal sets "cpu")
+PRIM_GEMM = 8_192                    # gemm's m = n = k
+PRIM_RSVD = (100_000, 1_024, 64)     # rows, cols, rank (and rsvd's k)
+PRIM_DECOMP = (4_096, 1_024)         # eigh / qr / svd / lstsq
+PRIM_RANK = 64                       # lstsq's rank-deficient case
+PRIM_CHOL = 1_024
+PRIM_KEYS = (1_000_000, 128, 1_024)  # reduce_rows_by_key: rows, cols, keys
+PRIM_DRAWS = 10_000_000
+PRIM_BLOBS = (1_000_000, 128, 1_000)
+PRIM_RMAT = (20, 16 * 1024 * 1024)   # r_scale = c_scale, edges
+PRIM_SAMPLE = (1_000_000, 256)       # population, samples
+PRIM_LABELS = 10_000_000             # make_monotonic
+PRIM_MERGE = (1_000_000, 100_000)    # merge_labels: points, equivalences
+PRIM_STATS = (1_000_000, 128)
+PRIM_METRIC = (1_000_000, 1_000)     # label metrics: labels, classes
+PRIM_SIL = (20_000, 128, 20)         # silhouette: rows, dims, blobs
+PRIM_TRUST = (10_000, 128, 32, 10)   # trustworthiness: rows, dims, embedding dims, k
+PRIM_BIN = (1_000_000, 128, 100_000)  # write_bin rows, dims; BinDataset chunk rows
+PRIM_REFINE = (10_000, 40, 10)       # refine_host: queries, candidates, k
+PRIM_SHARDS = 4
+PRIM_METRIC_RTOL = 1e-4              # label metrics against float64 numpy
+
+
+def prims_emit(part, wall, st, **kw):
+    emit(phase="prims", part=part, wall_s=wall, card=st["card"], **kw)
+
+
+def _gen(seed):
+    import torch
+
+    return torch.Generator(device=PRIM_DEV).manual_seed(seed)
+
+
+def prims_linalg(st, total, res):
+    """(1) linalg: gemm at 8,192^3, rsvd, the decompositions, the rank-1
+    Cholesky update and the sums by key."""
+    import torch
+
+    from raft_tpu_torch import linalg
+
+    dev = torch.device(PRIM_DEV)
+    n = PRIM_GEMM
+    a = torch.randn((n, n), generator=_gen(70), device=dev)
+    b = torch.randn((n, n), generator=_gen(71), device=dev)
+    c, counts, wall = counted(total, lambda: linalg.gemm(a, b, res=res))
+    ref = a.double() @ b.double()
+    mag = a.abs().double() @ b.abs().double()
+    excess = float(((c.double() - ref).abs() - n * 2.0 ** -24 * mag).max())
+    assert excess <= 0.0, f"gemm beyond d*2^-24 of the magnitudes by {excess}"
+    del ref, mag
+    ms = cuda_ms(lambda: linalg.gemm(a, b, res=res), reps=3)
+    tflops = 2.0 * n ** 3 / (ms * 1e-3) / 1e12
+    prims_emit("gemm", wall, st, n=n, ms=ms, tflops=tflops, peak_fp32_tflops=H100_F32_FLOPS / 1e12,
+               within_d_eps_of_magnitudes=True, launches=counts)
+    del a, b, c
+
+    m, nc, r = PRIM_RSVD
+    u0 = torch.randn((m, r), generator=_gen(72), device=dev) / m ** 0.5
+    v0 = torch.randn((nc, r), generator=_gen(73), device=dev) / nc ** 0.5
+    s0 = 10.0 * 0.95 ** torch.arange(r, device=dev, dtype=torch.float32)
+    x = (u0 * s0) @ v0.T + 1e-5 * torch.randn((m, nc), generator=_gen(74), device=dev)
+    (u, s, vt), counts, wall = counted(total, lambda: linalg.rsvd(x, r, seed=5, res=res))
+    s64 = torch.linalg.svdvals(torch.linalg.qr(x.double(), mode="r")[1])[:r]
+    rsvd_err = float(((s.double() - s64).abs() / s64).max())
+    assert rsvd_err <= 1e-3, f"rsvd singular values off by {rsvd_err} (relative)"
+    assert tuple(u.shape) == (m, r) and tuple(vt.shape) == (r, nc)
+    prims_emit("rsvd", wall, st, rows=m, cols=nc, k=r, max_rel_err=rsvd_err, launches=counts)
+    del x, u0, v0, u, vt
+
+    m, nc = PRIM_DECOMP
+    x = torch.randn((m, nc), generator=_gen(75), device=dev)
+    x64 = x.double()
+    eye = torch.eye(nc, device=dev)
+    t0 = time.perf_counter()
+    sym = linalg.gemm(x, x, trans_a=True, res=res) / m
+    w, v = linalg.eigh(sym, res=res)
+    w64 = torch.linalg.eigvalsh(sym.double())
+    eig_err = float((w.double() - w64).abs().max() / w64.abs().max())
+    eig_rec = float(((v * w) @ v.T - sym).abs().max() / sym.abs().max())
+    eig_orth = float((v.T @ v - eye).abs().max())
+    assert max(eig_err, eig_rec, eig_orth) <= 1e-4, (eig_err, eig_rec, eig_orth)
+    q, rr = linalg.qr(x, res=res)
+    r64 = torch.linalg.qr(x64, mode="r")[1]
+    qr_err = float((rr.diagonal().abs().double() - r64.diagonal().abs()).abs().max()
+                   / r64.diagonal().abs().max())
+    qr_rec = float((q @ rr - x).abs().max() / x.abs().max())
+    qr_orth = float((q.T @ q - eye).abs().max())
+    assert max(qr_err, qr_rec, qr_orth) <= 1e-4, (qr_err, qr_rec, qr_orth)
+    su, ss, svt = linalg.svd(x, res=res)
+    svd_err = float((ss.double() - torch.linalg.svdvals(r64)).abs().max() / ss.max())
+    svd_rec = float(((su * ss) @ svt - x).abs().max() / x.abs().max())
+    assert max(svd_err, svd_rec) <= 1e-4, (svd_err, svd_rec)
+    rhs = torch.randn((m, 2), generator=_gen(76), device=dev)
+    sol = linalg.lstsq(x, rhs, res=res)
+    sol64 = torch.linalg.lstsq(x64, rhs.double()).solution
+    ls_full = float((sol.double() - sol64).norm() / sol64.norm())
+    fa = torch.randn((m, PRIM_RANK), generator=_gen(77), device=dev)
+    fb = torch.randn((PRIM_RANK, nc), generator=_gen(78), device=dev)
+    low = fa @ fb
+    sol_low = linalg.lstsq(low, rhs, res=res)
+    # the float64 minimum-norm solution of fa @ fb, pinv(fb) @ pinv(fa)
+    # (JAX's cutoff, eps_f32 * max(m, n) * s_max, drops the spectrum that
+    # the float32 product's rounding adds past rank 64)
+    fa64, fb64 = fa.double(), fb.double()
+    inner = torch.linalg.solve(fa64.T @ fa64, fa64.T @ rhs.double())
+    sol_low64 = fb64.T @ torch.linalg.solve(fb64 @ fb64.T, inner)
+    ls_low = float((sol_low.double() - sol_low64).norm() / sol_low64.norm())
+    assert ls_full <= 1e-4 and ls_low <= 1e-3, (ls_full, ls_low)
+    torch.cuda.synchronize()
+    prims_emit("decompositions", time.perf_counter() - t0, st, rows=m, cols=nc,
+               eigh_value_err=eig_err, eigh_reconstruction=eig_rec, eigh_orthogonality=eig_orth,
+               qr_diag_err=qr_err, qr_reconstruction=qr_rec, qr_orthogonality=qr_orth,
+               svd_value_err=svd_err, svd_reconstruction=svd_rec, lstsq_full_rank_rel=ls_full,
+               lstsq_rank_deficient_rel=ls_low, rank=PRIM_RANK)
+    del x, x64, low, fa, fb, q, rr, su, svt, v
+
+    n = PRIM_CHOL
+    g = torch.randn((n, n), generator=_gen(79), device=dev)
+    amat = g @ g.T / n + torch.eye(n, device=dev)
+    lmat = torch.linalg.cholesky(amat)
+    xv = torch.randn(n, generator=_gen(80), device=dev)
+    l2, counts, wall = counted(total, lambda: linalg.cholesky_r1_update(lmat, xv, res=res))
+    target = amat + torch.outer(xv, xv)
+    chol_err = float((l2.double() @ l2.double().T - target.double()).abs().max()
+                     / target.abs().max())
+    assert chol_err <= 1e-4, f"cholesky_r1_update: L'L'^T off by {chol_err} (relative)"
+    prims_emit("cholesky_r1_update", wall, st, n=n, rel_err=chol_err, launches=counts)
+
+    rows, cols, nk = PRIM_KEYS
+    mat = torch.randn((rows, cols), generator=_gen(81), device=dev)
+    keys = torch.randint(0, nk, (rows,), generator=_gen(82), device=dev, dtype=torch.int32)
+    sums, counts, wall = counted(total, lambda: linalg.reduce_rows_by_key(mat, keys, nk, res=res))
+    ref = torch.zeros((nk, cols), dtype=torch.float64, device=dev).index_add_(
+        0, keys.long(), mat.double())
+    mass = torch.zeros((nk, cols), dtype=torch.float64, device=dev).index_add_(
+        0, keys.long(), mat.abs().double())
+    key_err = float(((sums.double() - ref).abs() / mass).max())
+    assert key_err <= 1e-5, f"reduce_rows_by_key off by {key_err} of the summed magnitudes"
+    again = linalg.reduce_rows_by_key(mat, keys, nk, res=res)
+    assert torch.equal(sums, again), "reduce_rows_by_key differs from itself on a repeat"
+    key_ms = cuda_ms(lambda: linalg.reduce_rows_by_key(mat, keys, nk, res=res))
+    prims_emit("reduce_rows_by_key", wall, st, rows=rows, cols=cols, keys=nk, ms=key_ms,
+               rel_err=key_err, repeat_bit_equal=True, launches=counts)
+
+
+def _moments_ok(x, mean, var, what):
+    """Mean and variance of ``x`` within 6 standard errors of the closed
+    forms (the variance's from the sample's own fourth moment)."""
+    import torch
+
+    x = x.double().reshape(-1)
+    n = x.numel()
+    mu = float(x.mean())
+    dev2 = (x - mu) ** 2
+    s2 = float(dev2.mean())
+    se_mean, se_var = (var / n) ** 0.5, float(dev2.std()) / n ** 0.5
+    assert abs(mu - mean) <= 6 * se_mean, (what, "mean", mu, mean, se_mean)
+    assert abs(s2 - var) <= 6 * se_var, (what, "variance", s2, var, se_var)
+    return dict(mean=mu, var=s2, mean_z=(mu - mean) / se_mean, var_z=(s2 - var) / se_var)
+
+
+def prims_random(st, total, res):
+    """(2) random: every distribution at 10M draws, make_blobs, R-MAT, the
+    weighted sample."""
+    import math
+
+    import torch
+
+    from raft_tpu_torch import random as rr
+
+    n = PRIM_DRAWS
+    gamma = 0.5772156649015329
+    dists = {   # name: (kwargs, mean, variance)
+        "uniform": (dict(low=2.0, high=4.0), 3.0, 4.0 / 12),
+        "uniform_int": (dict(low=-3, high=7), 1.5, 99.0 / 12),
+        "normal": (dict(mu=1.0, sigma=2.0), 1.0, 4.0),
+        "lognormal": (dict(mu=0.2, sigma=0.5), math.exp(0.325),
+                      (math.exp(0.25) - 1) * math.exp(0.65)),
+        "gumbel": (dict(mu=1.0, beta=2.0), 1.0 + 2.0 * gamma, math.pi ** 2 * 4.0 / 6),
+        "logistic": (dict(mu=1.0, scale=2.0), 1.0, 4.0 * math.pi ** 2 / 3),
+        "exponential": (dict(lam=2.0), 0.5, 0.25),
+        "rayleigh": (dict(sigma=2.0), 2.0 * math.sqrt(math.pi / 2), (4 - math.pi) / 2 * 4.0),
+        "laplace": (dict(mu=1.0, scale=2.0), 1.0, 8.0),
+        "bernoulli": (dict(prob=0.3), 0.3, 0.21),
+        "scaled_bernoulli": (dict(prob=0.3, scale=2.0), -0.8, 4.0 * 4 * 0.3 * 0.7),
+        "discrete": (dict(weights=[0.0, 1.0, 3.0, 4.0]), 19 / 8, 31 / 64),
+    }
+    t0 = time.perf_counter()
+    out = {}
+    state = rr.RngState(90)
+    for name, (kw, mean, var) in dists.items():
+        draws = getattr(rr, name)(state, (n,), res=res, **kw)
+        assert draws.shape[0] == n and draws.device.type == PRIM_DEV, name
+        out[name] = _moments_ok(draws, mean, var, name)
+        if name == "discrete":
+            assert int((draws == 0).sum()) == 0, "discrete drew a zero-weight index"
+    torch.cuda.synchronize()
+    prims_emit("distributions", time.perf_counter() - t0, st, draws=n, moments=out)
+
+    rows, cols, centers = PRIM_BLOBS
+    c = torch.rand((centers, cols), generator=_gen(91), device=torch.device(PRIM_DEV)) * 20 - 10
+    (x, lab), counts, wall = counted(total, lambda: rr.make_blobs(rows, cols, centers=c, seed=91,
+                                                                  res=res))
+    assert lab.dtype == torch.int32 and int(lab.min()) >= 0 and int(lab.max()) < centers
+    z = (x - c[lab.long()]).abs()
+    beyond6 = int((z > 6.0).sum())
+    zmax = float(z.max())
+    # 128M N(0, 1) coordinates: 0.25 beyond 6 sigma expected, none beyond 7
+    assert beyond6 <= 4 and zmax <= 7.0, (beyond6, zmax)
+    prims_emit("make_blobs", wall, st, rows=rows, cols=cols, centers=centers,
+               coords_beyond_6_std=beyond6, max_abs_z=zmax, launches=counts)
+    del x, z, lab
+
+    scale, edges = PRIM_RMAT
+    theta = [0.57, 0.19, 0.19, 0.05]
+    (src, dst), counts, wall = counted(total, lambda: rr.rmat(92, theta, scale, scale, edges,
+                                                              res=res))
+    assert int(src.max()) < 2 ** scale and int(dst.max()) < 2 ** scale
+    assert int(src.min()) >= 0 and int(dst.min()) >= 0
+    th = torch.tensor(theta, dtype=torch.float64)
+    th = th / th.sum()
+    worst = 0.0
+    for lv in range(scale):
+        q = ((src >> (scale - 1 - lv)) & 1) * 2 + ((dst >> (scale - 1 - lv)) & 1)
+        share = torch.bincount(q.long(), minlength=4).double().cpu() / edges
+        worst = max(worst, float((share - th).abs().max()))
+    assert worst <= 1e-3, f"an R-MAT level's quadrant shares are {worst} from theta"
+    prims_emit("rmat", wall, st, scale=scale, edges=edges, max_share_err=worst, launches=counts)
+    del src, dst
+
+    pop, k = PRIM_SAMPLE
+    w = torch.rand(pop, generator=_gen(93), device=torch.device(PRIM_DEV)) + 0.1
+    zero = torch.arange(pop, device=w.device) % 10 == 3
+    w[zero] = 0.0
+    idx, counts, wall = counted(
+        total, lambda: rr.sample_without_replacement(94, pop, k, weights=w, res=res))
+    assert idx.numel() == k and torch.unique(idx).numel() == k
+    assert not bool(zero[idx.long()].any()), "a zero-weight id was drawn"
+    if PRIM_DEV == "cuda":
+        assert counts.get("topk", 0) >= 1, counts
+    prims_emit("weighted_sample", wall, st, population=pop, samples=k, zero_weight_share=0.1,
+               launches=counts)
+
+
+def _canonical(comp):
+    """1 + the smallest vertex of each vertex's component (numpy)."""
+    import numpy as np
+
+    first = np.full(comp.max() + 1, len(comp), np.int64)
+    np.minimum.at(first, comp, np.arange(len(comp)))
+    return (first[comp] + 1).astype(np.int32)
+
+
+def prims_label(st, total, res):
+    """(3) label: make_monotonic on 10M labels, merge_labels on 1M."""
+    import numpy as np
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import connected_components
+
+    from raft_tpu_torch import label
+
+    y = np.random.default_rng(95).integers(-1, 100_000, PRIM_LABELS).astype(np.int32)
+    got, counts, wall = counted(
+        total, lambda: label.make_monotonic(y, filter_op=lambda t: t >= 0, res=res))
+    keep = y >= 0
+    uniq = np.unique(y[keep])
+    want = np.where(keep, np.searchsorted(uniq, y) + 1, y)
+    assert np.array_equal(got.cpu().numpy(), want), "make_monotonic differs from numpy"
+    prims_emit("make_monotonic", wall, st, labels=PRIM_LABELS, classes=len(uniq),
+               filtered=int((~keep).sum()), equal_to_numpy=True, launches=counts)
+
+    n, eq = PRIM_MERGE
+    rng = np.random.default_rng(96)
+
+    def comps(e):
+        ends = rng.integers(0, n, (2, e))
+        g = sps.coo_matrix((np.ones(e), (ends[0], ends[1])), shape=(n, n))
+        return g, connected_components(g, directed=False)[1]
+
+    ga, ca = comps(eq // 2)
+    gb, cb = comps(eq // 2)
+    cu = connected_components(ga + gb, directed=False)[1]
+    la, lb, lu = _canonical(ca), _canonical(cb), _canonical(cu)
+    merge_mod = importlib.import_module("raft_tpu_torch.label.merge_labels")
+    (out, rounds), counts, wall = counted(
+        total, lambda: merge_mod._merge(res.put(la), res.put(lb),
+                                        res.put(np.ones(n, bool)), int(np.iinfo(np.int32).max)))
+    assert np.array_equal(out.cpu().numpy(), lu), "merge_labels differs from the union-find"
+    public = label.merge_labels(la, lb, np.ones(n, bool), res=res)
+    assert np.array_equal(public.cpu().numpy(), lu)
+    prims_emit("merge_labels", wall, st, points=n, equivalences=eq, rounds=rounds,
+               components=len(np.unique(lu)), equal_to_union_find=True,
+               launches=counts)
+
+
+def _label_metrics64(a, b, nc):
+    """The JAX module's label-metric formulas in float64 numpy."""
+    import numpy as np
+
+    c = np.bincount(a.astype(np.int64) * nc + b, minlength=nc * nc).reshape(nc, nc)
+    c = c.astype(np.float64)
+    n = c.sum()
+
+    def ent(lbl):
+        p = np.bincount(lbl, minlength=nc) / len(lbl)
+        return -np.sum(np.where(p > 0, p * np.log(np.where(p > 0, p, 1.0)), 0.0))
+
+    def cond(cm):
+        ratio = cm / np.maximum(cm.sum(0)[None, :], 1e-30)
+        return -np.sum(np.where(cm > 0, (cm / n) * np.log(np.where(ratio > 0, ratio, 1.0)), 0.0))
+
+    pij = c / n
+    pi, pj = pij.sum(1, keepdims=True), pij.sum(0, keepdims=True)
+    mi = np.sum(pij * np.where(pij > 0, np.log(np.where(pij > 0, pij, 1.0))
+                               - np.log(pi * pj + 1e-30), 0.0))
+    comb = lambda x: x * (x - 1.0) / 2.0   # noqa: E731
+    sc, sr, sl = comb(c).sum(), comb(c.sum(1)).sum(), comb(c.sum(0)).sum()
+    ri = (comb(n) + 2 * sc - sr - sl) / comb(n)
+    expected = sr * sl / comb(n)
+    ari = (sc - expected) / (0.5 * (sr + sl) - expected + 1e-30)
+    h_a, h_b = ent(a), ent(b)
+    hom = 1.0 - cond(c) / h_a if h_a > 0 else 1.0
+    com = 1.0 - cond(c.T) / h_b if h_b > 0 else 1.0
+    v = 2 * hom * com / (hom + com + 1e-30)
+    return dict(entropy=ent(a), mutual_info_score=mi, rand_index=ri, adjusted_rand_index=ari,
+                homogeneity_score=hom, completeness_score=com, v_measure=v), c
+
+
+def prims_stats(st, total, res):
+    """(4) stats: moments, cov and histogram on 1M x 128; the label metrics
+    on 1M labels; silhouette; trustworthiness."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import linalg, random as rr, stats
+
+    rows, cols = PRIM_STATS
+    dev = torch.device(PRIM_DEV)
+    x = torch.randn((rows, cols), generator=_gen(97), device=dev) * 3.0 + 1.0
+    x64 = x.double()
+    scale = float(x64.abs().mean())
+    t0 = time.perf_counter()
+    errs = {}
+
+    def rel(name, got, want, tol):
+        err = float((got.double() - want).abs().max()) / tol
+        errs[name] = err * tol
+        assert err <= 1.0, (name, err * tol, tol)
+
+    mu64, var64 = x64.mean(0), x64.var(0)
+    rel("mean", stats.mean(x, res=res), mu64, 1e-5 * scale)
+    rel("vars_", stats.vars_(x, res=res), var64, 1e-5 * float(var64.max()))
+    rel("stddev", stats.stddev(x, res=res), var64.sqrt(), 1e-5 * float(var64.sqrt().max()))
+    mv = stats.meanvar(x, res=res)
+    rel("meanvar", torch.stack(mv), torch.stack([mu64, var64]), 1e-5 * float(var64.max()))
+    rel("sum_", stats.sum_(x, res=res), x64.sum(0), 1e-5 * scale * rows)
+    lo, hi = stats.minmax(x, res=res)
+    assert torch.equal(lo, x.amin(0)) and torch.equal(hi, x.amax(0))
+    w = torch.rand(rows, generator=_gen(98), device=dev)
+    rel("weighted_mean", stats.weighted_mean(x, w, res=res),
+        (x64 * w.double()[:, None]).sum(0) / w.double().sum(), 1e-5 * scale)
+    rel("mean_center", stats.mean_center(x, res=res)[:1000], x64[:1000] - mu64, 1e-5 * scale)
+    cov64 = torch.cov(x64.T)
+    rel("cov", stats.cov(x, res=res), cov64, 1e-4 * float(cov64.diagonal().max()))
+    hist = stats.histogram(x, 64, -8.0, 10.0, res=res)
+    xh = x.cpu().numpy()
+    width = (10.0 - -8.0) / 64
+    idx = np.clip(np.floor((xh - -8.0) / width), 0, 63).astype(np.int64)
+    want = np.bincount((idx + np.arange(cols)[None, :] * 64).ravel(),
+                       minlength=64 * cols).reshape(cols, 64).T
+    assert hist.dtype == torch.int32 and np.array_equal(hist.cpu().numpy(), want), \
+        "histogram counts differ from numpy's"
+    torch.cuda.synchronize()
+    prims_emit("moments", time.perf_counter() - t0, st, rows=rows, cols=cols, abs_err=errs,
+               histogram_bins=64, histogram_equal_to_numpy=True)
+    del x, x64, xh, idx
+
+    n, nc = PRIM_METRIC
+    rng = np.random.default_rng(99)
+    a = rng.integers(0, nc, n).astype(np.int32)
+    b = np.where(rng.random(n) < 0.7, a, rng.integers(0, nc, n)).astype(np.int32)
+    t0 = time.perf_counter()
+    want, c64 = _label_metrics64(a, b, nc)
+    ad, bd = res.put(a), res.put(b)
+    got = dict(entropy=stats.entropy(ad, nc, res=res),
+               mutual_info_score=stats.mutual_info_score(ad, bd, nc, res=res),
+               rand_index=stats.rand_index(ad, bd, res=res),
+               adjusted_rand_index=stats.adjusted_rand_index(ad, bd, res=res),
+               homogeneity_score=stats.homogeneity_score(ad, bd, nc, res=res),
+               completeness_score=stats.completeness_score(ad, bd, nc, res=res),
+               v_measure=stats.v_measure(ad, bd, nc, res=res))
+    cm = stats.contingency_matrix(ad, bd, res=res)
+    assert np.array_equal(cm.cpu().numpy(), c64.astype(np.int64)), "contingency counts differ"
+    yv = rng.standard_normal(n).astype(np.float32)
+    yh = (yv + 0.3 * rng.standard_normal(n)).astype(np.float32)
+    y64, yh64 = yv.astype(np.float64), yh.astype(np.float64)
+    err = np.abs(yh64 - y64)
+    want.update(accuracy=float((a == b).mean()),
+                r2_score=1 - np.sum((y64 - yh64) ** 2) / np.sum((y64 - y64.mean()) ** 2),
+                mean_abs_error=err.mean(), mean_squared_error=(err ** 2).mean(),
+                median_abs_error=float(np.median(err)))
+    mae, mse, med = stats.regression_metrics(yh, yv, res=res)
+    got.update(accuracy=stats.accuracy(ad, bd, res=res), r2_score=stats.r2_score(yv, yh, res=res),
+               mean_abs_error=mae, mean_squared_error=mse, median_abs_error=med)
+    errs = {}
+    for name, g in got.items():
+        errs[name] = abs(float(g) - want[name]) / max(abs(want[name]), 1e-30)
+        assert errs[name] <= PRIM_METRIC_RTOL, (name, float(g), want[name])
+    torch.cuda.synchronize()
+    prims_emit("label_metrics", time.perf_counter() - t0, st, labels=n, classes=nc,
+               rtol=PRIM_METRIC_RTOL, rel_err=errs, values={k: want[k] for k in want},
+               contingency_equal=True)
+
+    rows, cols, blobs = PRIM_SIL
+    xs, ls = rr.make_blobs(rows, cols, n_clusters=blobs, cluster_std=4.0, seed=100, res=res)
+    sil, counts, wall = counted(total, lambda: stats.silhouette_score(xs, ls, blobs, res=res))
+    xs64 = xs.double()
+    d64 = torch.cdist(xs64, xs64)
+    oh = torch.nn.functional.one_hot(ls.long(), blobs).double()
+    sums, cnt = d64 @ oh, oh.sum(0)
+    own = cnt[ls.long()]
+    a64 = sums.gather(1, ls.long()[:, None])[:, 0] / (own - 1).clamp_min(1)
+    b64 = torch.where(oh == 0, sums / cnt.clamp_min(1), torch.inf).amin(1)
+    s64 = float(torch.where(own > 1, (b64 - a64) / torch.maximum(a64, b64), 0.0).mean())
+    assert abs(float(sil) - s64) <= 1e-4, (float(sil), s64)
+    prims_emit("silhouette_score", wall, st, rows=rows, cols=cols, clusters=blobs,
+               score=float(sil), float64=s64, abs_err=abs(float(sil) - s64), launches=counts)
+    del d64, sums, oh
+
+    rows, cols, emb, k = PRIM_TRUST
+    xt, _ = rr.make_blobs(rows, cols, n_clusters=20, cluster_std=3.0, seed=101, res=res)
+    _, _, vt = linalg.rsvd(xt - xt.mean(0), emb, seed=6, res=res)
+    et = linalg.gemm(xt, vt, trans_b=True, res=res)
+    tw, counts, wall = counted(total, lambda: stats.trustworthiness(xt, et, k, res=res))
+    t64 = _trustworthiness64(xt.double(), et.double(), k)
+    assert abs(float(tw) - t64) <= 1e-5, (float(tw), t64)
+    if PRIM_DEV == "cuda":
+        assert counts.get("topk", 0) >= 1, counts
+    prims_emit("trustworthiness", wall, st, rows=rows, cols=cols, embedding=emb, k=k,
+               score=float(tw), float64=t64, abs_err=abs(float(tw) - t64), launches=counts)
+
+
+def _trustworthiness64(x, e, k):
+    """The JAX module's trustworthiness in float64 on the card: a stable
+    argsort for both spaces."""
+    import torch
+
+    n = x.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=x.device)
+    big = torch.finfo(torch.float32).max
+    d_o = torch.cdist(x, x).masked_fill_(eye, big)
+    order = torch.argsort(d_o, dim=1, stable=True)
+    del d_o
+    ranks = torch.empty((n, n), dtype=torch.int64, device=x.device)
+    ranks.scatter_(1, order, torch.arange(n, device=x.device).expand(n, n).contiguous())
+    del order
+    d_e = torch.cdist(e, e).masked_fill_(eye, big)
+    knn = torch.argsort(d_e, dim=1, stable=True)[:, :k]
+    r = torch.gather(ranks, 1, knn).double()
+    penalty = float(torch.clamp_min(r - (k - 1), 0.0).sum())
+    return 1.0 - 2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)) * penalty
+
+
+def prims_runtime(st, total, res):
+    """(5) runtime: the native library, a 512 MB .fbin streamed to the card
+    in chunks, host refine against the device refine, the host merge
+    against knn_merge_parts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import runtime
+    from raft_tpu_torch.neighbors.brute_force import knn_merge_parts
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.runtime import native
+
+    assert runtime.available(), "the native runtime did not build (g++ -O3 -shared)"
+    before = native.native_calls
+    rows, cols, chunk = PRIM_BIN
+    x = np.random.default_rng(102).standard_normal((rows, cols)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "base.fbin")
+        t0 = time.perf_counter()
+        runtime.write_bin(path, x)
+        write_s = time.perf_counter() - t0
+        assert os.path.getsize(path) == 8 + x.nbytes
+        ds = runtime.BinDataset(path)
+        assert (len(ds), ds.dim, ds.dtype) == (rows, cols, np.float32)
+        t0 = time.perf_counter()
+        n_chunks = 0
+        for start, part in ds.chunks(chunk):
+            dev_part = torch.from_numpy(part).to(PRIM_DEV)
+            src = x[start:start + chunk]
+            assert part.tobytes() == src.tobytes(), f"chunk at row {start} differs from the source"
+            assert torch.equal(dev_part.cpu(), torch.from_numpy(src))
+            n_chunks += 1
+        stream_s = time.perf_counter() - t0
+    assert n_chunks == -(-rows // chunk)
+    prims_emit("bin_dataset", write_s + stream_s, st, rows=rows, cols=cols, bytes=x.nbytes,
+               write_s=write_s, stream_s=stream_s, chunk_rows=chunk, chunks=n_chunks,
+               chunks_equal=True)
+
+    m, kin, k = PRIM_REFINE
+    rng = np.random.default_rng(103)
+    q = rng.standard_normal((m, cols)).astype(np.float32)
+    cand = rng.integers(0, rows, (m, kin)).astype(np.int32)
+    cand[::9, :5] = -1
+    t0 = time.perf_counter()
+    hd, hi = runtime.refine_host(x, q, cand, k)
+    host_s = time.perf_counter() - t0
+    xd = res.put(x)
+    (dd, di), counts, wall = counted(total, lambda: refine(xd, q, cand, k, res=res))
+    # the host sums each distance in dim order, the card in its own: ids
+    # equal except where two distances tie within that rounding
+    err = knn_equiv(torch.from_numpy(hd), torch.from_numpy(hi), dd.cpu(), di.cpu(),
+                    rtol=1e-5, atol=1e-5)
+    prims_emit("refine_host", host_s, st, queries=m, candidates=kin, k=k, device_s=wall,
+               max_abs_err=err, launches=counts)
+
+    s = PRIM_SHARDS
+    pd = np.sort(rng.random((s, m, k)).astype(np.float32), axis=2)
+    pi = rng.permutation(s * m * k).reshape(s, m, k).astype(np.int32)
+    t0 = time.perf_counter()
+    md, mi = runtime.merge_parts_host(pd, pi, k)
+    host_s = time.perf_counter() - t0
+    (rd, ri), counts, wall = counted(total, lambda: knn_merge_parts(pd, pi, k, res=res))
+    knn_equiv(torch.from_numpy(md), torch.from_numpy(mi), rd.cpu(), ri.cpu(), rtol=0.0, atol=0.0)
+    calls = native.native_calls - before
+    assert calls > 0, "no call took the native route"
+    prims_emit("merge_parts_host", host_s, st, shards=s, queries=m, k=k, device_s=wall,
+               native_calls=calls, launches=counts)
+
+
+def phase_prims(st):
+    """Phase d: the remaining primitives (see the module docstring)."""
+    from raft_tpu_torch.core import Resources
+
+    t_phase = time.perf_counter()
+    res = Resources(device=PRIM_DEV)
+    total = {}
+    prims_linalg(st, total, res)
+    prims_random(st, total, res)
+    prims_label(st, total, res)
+    prims_stats(st, total, res)
+    prims_runtime(st, total, res)
+    if PRIM_DEV == "cuda":
+        assert total.get("topk", 0) > 0, total
+    st["launches_prims"] = total
+    emit(phase="prims_launches", launches=total, seconds=time.perf_counter() - t_phase,
+         card=st["card"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0123456789abc",
+    ap.add_argument("--phases", default="0123456789abcd",
                     help="phases to run, e.g. 01 (default: all); 4 to 9, a and b need 2")
     ap.add_argument("--out", default=os.path.join("build", "profiles"),
                     help="directory for the IVF-PQ, CAGRA and IVF-Flat profile tables")
@@ -7765,6 +8421,8 @@ def main(argv=None):
         phase_parallel(st)
     if "c" in args.phases:
         phase_graph(st)
+    if "d" in args.phases:
+        phase_prims(st)
     if "3" in args.phases and "2" in args.phases:
         time_fused_modes(st)
         time_f32_routes(st)
@@ -7786,6 +8444,11 @@ def main(argv=None):
         net = st.get("launches_net")
         par = st.get("launches_parallel")
         graph = st.get("launches_graph")
+        prims = st.get("launches_prims")
+
+        def in_prims(name):
+            # phase d's launches, 0 where it made none (None: phase d not run)
+            return None if prims is None else prims.get(name, 0)
 
         def in_graph(name):
             # phase c's launches, 0 where it made none (None: phase c not run)
@@ -7830,7 +8493,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_rows"),
                  launches_stream=strm.get("fused_knn_rows"),
                  launches_stream_folds=fold("fused_knn_rows"),
-                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"), launches_mesh=in_mesh("fused_knn_rows"), launches_tune=in_tune("fused_knn_rows"), launches_net=in_net("fused_knn_rows"), launches_parallel=in_par("fused_knn_rows"), launches_graph=in_graph("fused_knn_rows"),
+                 launches_ooc=in_ooc("fused_knn_rows"), launches_tier=in_tier("fused_knn_rows"), launches_mesh=in_mesh("fused_knn_rows"), launches_tune=in_tune("fused_knn_rows"), launches_net=in_net("fused_knn_rows"), launches_parallel=in_par("fused_knn_rows"), launches_graph=in_graph("fused_knn_rows"), launches_prims=in_prims("fused_knn_rows"),
                  max_abs_err=st["f32_err"]["rows"], m_small=fk.M_SMALL, merge=st["merge_t"],
                  **st["rows_t"]),
             dict(name="fused_knn_tf32x3", route="cuda",
@@ -7840,7 +8503,7 @@ def main(argv=None):
                  launches_serve=serve.get("fused_knn_tf32x3"),
                  launches_stream=strm.get("fused_knn_tf32x3"),
                  launches_stream_folds=fold("fused_knn_tf32x3"),
-                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"), launches_mesh=in_mesh("fused_knn_tf32x3"), launches_tune=in_tune("fused_knn_tf32x3"), launches_net=in_net("fused_knn_tf32x3"), launches_parallel=in_par("fused_knn_tf32x3"), launches_graph=in_graph("fused_knn_tf32x3"),
+                 launches_ooc=in_ooc("fused_knn_tf32x3"), launches_tier=in_tier("fused_knn_tf32x3"), launches_mesh=in_mesh("fused_knn_tf32x3"), launches_tune=in_tune("fused_knn_tf32x3"), launches_net=in_net("fused_knn_tf32x3"), launches_parallel=in_par("fused_knn_tf32x3"), launches_graph=in_graph("fused_knn_tf32x3"), launches_prims=in_prims("fused_knn_tf32x3"),
                  max_abs_err=st["f32_err"]["tf32x3"], tf32x3_gate=st["tf32x3_gate"],
                  **st["f32_t"]),
             dict(name="fused_knn_tc", route="cuda",
@@ -7850,7 +8513,7 @@ def main(argv=None):
                  launches_by_mode=st["tc_launches"],
                  launches_stream=strm.get("fused_knn_tc"),
                  launches_stream_folds=fold("fused_knn_tc"),
-                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"), launches_mesh=in_mesh("fused_knn_tc"), launches_tune=in_tune("fused_knn_tc"), launches_net=in_net("fused_knn_tc"), launches_parallel=in_par("fused_knn_tc"), launches_graph=in_graph("fused_knn_tc"),
+                 launches_ooc=in_ooc("fused_knn_tc"), launches_tier=in_tier("fused_knn_tc"), launches_mesh=in_mesh("fused_knn_tc"), launches_tune=in_tune("fused_knn_tc"), launches_net=in_net("fused_knn_tc"), launches_parallel=in_par("fused_knn_tc"), launches_graph=in_graph("fused_knn_tc"), launches_prims=in_prims("fused_knn_tc"),
                  max_abs_err=st["tc_err"],
                  **{key: st["fused_modes_t"]["bf16"][key]
                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -7860,7 +8523,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/fused_knn.py:139", launches=st["split_launches"],
                  launches_stream=strm.get("bf16_split"),
                  launches_stream_folds=fold("bf16_split"),
-                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"), launches_mesh=in_mesh("bf16_split"), launches_tune=in_tune("bf16_split"), launches_net=in_net("bf16_split"), launches_parallel=in_par("bf16_split"), launches_graph=in_graph("bf16_split"),
+                 launches_ooc=in_ooc("bf16_split"), launches_tier=in_tier("bf16_split"), launches_mesh=in_mesh("bf16_split"), launches_tune=in_tune("bf16_split"), launches_net=in_net("bf16_split"), launches_parallel=in_par("bf16_split"), launches_graph=in_graph("bf16_split"), launches_prims=in_prims("bf16_split"),
                  launches_on="knn(compute='float32x3')", max_abs_err=0.0, **st["split_t"]),
             dict(name="tf32_split", route="cuda",
                  source="raft_tpu_torch/ops/csrc/fused_knn_tc.cu",
@@ -7868,7 +8531,7 @@ def main(argv=None):
                  launches_serve=serve.get("tf32_split"),
                  launches_stream=strm.get("tf32_split"),
                  launches_stream_folds=fold("tf32_split"),
-                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"), launches_mesh=in_mesh("tf32_split"), launches_tune=in_tune("tf32_split"), launches_net=in_net("tf32_split"), launches_parallel=in_par("tf32_split"), launches_graph=in_graph("tf32_split"),
+                 launches_ooc=in_ooc("tf32_split"), launches_tier=in_tier("tf32_split"), launches_mesh=in_mesh("tf32_split"), launches_tune=in_tune("tf32_split"), launches_net=in_net("tf32_split"), launches_parallel=in_par("tf32_split"), launches_graph=in_graph("tf32_split"), launches_prims=in_prims("tf32_split"),
                  launches_on="BruteForce.search, 10,000 queries (mode f32's batch route)",
                  max_abs_err=0.0, **st["tf32_split_t"]),
             dict(name="topk", route="cuda", source="raft_tpu_torch/ops/csrc/topk.cu",
@@ -7876,7 +8539,7 @@ def main(argv=None):
                  launches_ivf_flat=launches["topk_ivf_flat"],
                  launches_serve=serve.get("topk"), launches_stream=strm.get("topk"),
                  launches_stream_folds=fold("topk"),
-                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"), launches_mesh=in_mesh("topk"), launches_tune=in_tune("topk"), launches_net=in_net("topk"), launches_parallel=in_par("topk"), launches_graph=in_graph("topk"),
+                 launches_ooc=in_ooc("topk"), launches_tier=in_tier("topk"), launches_mesh=in_mesh("topk"), launches_tune=in_tune("topk"), launches_net=in_net("topk"), launches_parallel=in_par("topk"), launches_graph=in_graph("topk"), launches_prims=in_prims("topk"),
                  launches_ball_cover={m: launches[f"topk_ball_cover_{m}"]
                                       for m in ("sqeuclidean", "haversine")},
                  max_abs_err=st["topk_err"], **st["topk_t"]),
@@ -7885,7 +8548,7 @@ def main(argv=None):
                  launches_on="ivf_pq.search, select_impl='xla'",
                  launches_stream=strm.get("pq_scan"),
                  launches_stream_folds=fold("pq_scan"),
-                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"), launches_mesh=in_mesh("pq_scan"), launches_tune=in_tune("pq_scan"), launches_net=in_net("pq_scan"), launches_parallel=in_par("pq_scan"), launches_graph=in_graph("pq_scan"),
+                 launches_ooc=in_ooc("pq_scan"), launches_tier=in_tier("pq_scan"), launches_mesh=in_mesh("pq_scan"), launches_tune=in_tune("pq_scan"), launches_net=in_net("pq_scan"), launches_parallel=in_par("pq_scan"), launches_graph=in_graph("pq_scan"), launches_prims=in_prims("pq_scan"),
                  launches_funnel=launches["pq_scan_opq_anisotropic_4bit"],
                  max_abs_err=st["pq_err"], **st["pq_t"]),
             dict(name="pq_scan_topk", route="cuda", source="raft_tpu_torch/ops/csrc/pq_scan.cu",
@@ -7893,7 +8556,7 @@ def main(argv=None):
                  launches_serve=serve.get("pq_scan_topk"),
                  launches_stream=strm.get("pq_scan_topk"),
                  launches_stream_folds=fold("pq_scan_topk"),
-                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"), launches_mesh=in_mesh("pq_scan_topk"), launches_tune=in_tune("pq_scan_topk"), launches_net=in_net("pq_scan_topk"), launches_parallel=in_par("pq_scan_topk"), launches_graph=in_graph("pq_scan_topk"),
+                 launches_ooc=in_ooc("pq_scan_topk"), launches_tier=in_tier("pq_scan_topk"), launches_mesh=in_mesh("pq_scan_topk"), launches_tune=in_tune("pq_scan_topk"), launches_net=in_net("pq_scan_topk"), launches_parallel=in_par("pq_scan_topk"), launches_graph=in_graph("pq_scan_topk"), launches_prims=in_prims("pq_scan_topk"),
                  launches_filtered={str(f): launches[f"pq_scan_topk_filtered_{f}"]
                                     for f in FILTER_KEEP},
                  launches_codecs={n: launches[f"pq_scan_topk_{n}"]
@@ -7904,7 +8567,7 @@ def main(argv=None):
                  replaces="raft_tpu/ops/cagra_hop.py:88", launches=launches["cagra_hop"],
                  launches_serve=serve.get("cagra_hop"), launches_stream=strm.get("cagra_hop"),
                  launches_stream_folds=fold("cagra_hop"),
-                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"), launches_mesh=in_mesh("cagra_hop"), launches_tune=in_tune("cagra_hop"), launches_net=in_net("cagra_hop"), launches_parallel=in_par("cagra_hop"), launches_graph=in_graph("cagra_hop"),
+                 launches_ooc=in_ooc("cagra_hop"), launches_tier=in_tier("cagra_hop"), launches_mesh=in_mesh("cagra_hop"), launches_tune=in_tune("cagra_hop"), launches_net=in_net("cagra_hop"), launches_parallel=in_par("cagra_hop"), launches_graph=in_graph("cagra_hop"), launches_prims=in_prims("cagra_hop"),
                  launches_int8_rows=launches["cagra_hop_int8"],
                  max_abs_err=st["hop_err"], **st["hop_t"]),
         ])

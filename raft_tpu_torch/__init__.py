@@ -9,7 +9,7 @@ and every Pallas kernel of raft_tpu becomes a hand-written CUDA kernel for
 Entry points run on ``cuda`` unless the caller passes
 ``Resources(device="cpu")``; a CPU tensor takes each kernel's plain version.
 
-Ported so far:
+Everything the JAX package does is ported:
   config     the output type of the array-returning entry points, the
              persistent kernel-build cache
   core       errors, resource handle (with its mesh and communicator),
@@ -25,6 +25,10 @@ Ported so far:
              reshard, SLO burn → degrade / restore, compaction pacing
   distance   metric vocabulary, pairwise distances (every metric), fused and
              masked L2 nearest neighbour, Gram matrices (dense or CSR)
+  label      unique labels, one-vs-rest, monotonic relabelling, label merging
+  linalg     BLAS (gemm, gemv, axpy, dot), maps and reductions, norms, sums
+             by key, eigh / QR / SVD / randomized SVD / least squares, the
+             rank-1 Cholesky update
   matrix     select_k (row-wise top-k; wide rows run the ``topk`` kernel)
   net        the network front door: wire schemas, NetServer / NetClient
              over SearchService, the multi-process mesh (ProcessMesh)
@@ -38,6 +42,11 @@ Ported so far:
   ops        the kernels and their build
   parallel   the distributed drivers over comms: sharded exact kNN,
              k-means, IVF-Flat / IVF-PQ build and search, per-shard CAGRA
+  random     RngState and 13 distributions, make_blobs / make_regression /
+             multivariate Gaussians, permutations and sampling (the weighted
+             draw through the ``topk`` kernel), R-MAT graphs
+  runtime    the native host runtime (its own C++ copy, built with g++ at
+             first use): big-ANN binary files, host refine and merge
   serve      micro-batched serving with warm hot-swap (SearchService,
              IndexRegistry, MicroBatcher, StagingBuffers)
   solver     minimum spanning forest (Borůvka), thick-restart Lanczos,
@@ -47,7 +56,9 @@ Ported so far:
              kernel for wide rows), the kNN graph, the component repair
   spatial    the legacy spatial::knn entry points
   spectral   spectral partitioning and modularity clustering
-  stats      dispersion
+  stats      moments, covariance, histograms, the regression and clustering
+             metrics, silhouette, dispersion, trustworthiness (the embedding's
+             kNN through the ``topk`` kernel)
   stream     the mutable index: delta memtable, tombstones, write-ahead log,
              compaction with a warm hot-swap (serve's write path), tiered
              (beyond-HBM) row storage
@@ -63,9 +74,10 @@ import importlib
 from .core import RaftError, Resources, default_resources, set_default_resources
 from .version import __version__
 
-_SUBMODULES = {"cluster", "comms", "config", "control", "core", "distance", "matrix", "net",
-               "neighbors", "obs", "ops", "parallel", "serve", "solver", "sparse", "spatial",
-               "spectral", "stats", "stream", "testing", "tune"}
+_SUBMODULES = {"cluster", "comms", "config", "control", "core", "distance", "label", "linalg",
+               "matrix", "net", "neighbors", "obs", "ops", "parallel", "random", "runtime",
+               "serve", "solver", "sparse", "spatial", "spectral", "stats", "stream", "testing",
+               "tune"}
 
 
 def __getattr__(name):

@@ -15,8 +15,23 @@ One departure from ``cagra_hop``'s arguments: where it takes the candidate
 rows pre-gathered, (m, cw, d), this takes the ``dataset`` (n, d) float32 or
 int8 in the same position, and the kernel reads each candidate's row by id.
 ``merge="arena_smem"`` (the TPU kernel's SMEM-gated variant, with the same
-insertion rules) runs ``arena``; ``profile`` carve-outs other than "full"
-are TPU profiling aids and are not ported.
+insertion rules) runs ``arena``.
+
+``profile`` carves phases out of the hop, for an in-kernel profile (each
+carve-out's time against "full"'s is that phase's cost), with the JAX
+kernel's semantics:
+  "noscore"  scores each valid candidate ``|id|`` as float32 instead of its
+             distance (masked ones stay +inf);
+  "nodedup"  skips the beam-membership masks before an extract merge;
+  "nomerge"  passes the beam through unmerged and takes the picks from it;
+  "nogate"   runs the arena's insertion loop ungated: every candidate step,
+             whether or not the best one still beats the arena's worst (the
+             answers equal "full"'s: the gate skips only steps that insert
+             nothing).
+Under ``merge="arena"`` only "full" and "nogate" take the arena; "noscore"
+and "nodedup" take the extract merge, as the JAX kernel does. Each
+profile is its own compile-time instantiation of the kernel, so "full"'s
+code carries none of them.
 
 Summation order. :func:`cagra_hop_plain` sums as the kernel does: the dims
 are dealt to 32 lanes in runs of 4 (lane l owns dims c*128 + 4l .. +3 for
@@ -27,7 +42,8 @@ so on the card the two agree bit for bit in every output.
 
 :func:`cagra_hop` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; there is no fallback from one to the other.
-``cagra_hop.launches`` counts the kernel's launches.
+``cagra_hop.launches`` counts the kernel's launches, ``launches_by_mode``
+by profile.
 """
 
 from __future__ import annotations
@@ -41,12 +57,13 @@ import torch.nn.functional as F
 from ..core.errors import expects
 from ._build import count_launch
 
-__all__ = ["cagra_hop", "cagra_hop_plain", "hop_shapes_eligible", "MAX_D", "POOL"]
+__all__ = ["cagra_hop", "cagra_hop_plain", "hop_shapes_eligible", "MAX_D", "POOL", "PROFILES"]
 
 POOL = 128                    # beam lanes: itopk + width * degree must fit
 _BIG = 1 << 30
 _NEG = -3.0e38
 _MERGES = {"extract": 0, "arena": 1, "arena_smem": 1}
+PROFILES = ("full", "noscore", "nodedup", "nomerge", "nogate")   # csrc codes 0 .. 4
 _DATA_CODE = {torch.float32: 0, torch.int8: 1}
 _WARPS = 4                    # query rows per block (csrc/cagra_hop.cu)
 _MAX_SMEM = 232448            # shared memory a block can use (H100)
@@ -68,8 +85,8 @@ def _check(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, itopk, width,
            merge, profile):
     expects(merge in _MERGES,
             "merge must be 'extract', 'arena' or 'arena_smem', got %r", merge)
-    expects(profile == "full", "cagra_hop: profile=%r is not yet ported "
-            "(the TPU kernel's profiling carve-outs)", profile)
+    if profile not in PROFILES:
+        raise ValueError(f"unknown profile {profile!r}")
     expects(queries.ndim == 2 and queries.dtype == torch.float32,
             "cagra_hop: queries must be (m, d) float32, got %s %s",
             tuple(queries.shape), queries.dtype)
@@ -98,11 +115,14 @@ def _check(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, itopk, width,
     return m, d, cw
 
 
-def _scores(queries, nbrs, dataset, valid):
-    """(m, cw) float32 ||v - q||^2 in the kernel's order; +inf where masked."""
+def _scores(queries, nbrs, dataset, valid, profile="full"):
+    """(m, cw) float32 ||v - q||^2 in the kernel's order (|id| under
+    "noscore"); +inf where masked."""
     m, d = queries.shape
     cw = nbrs.shape[1]
     ok = (nbrs >= 0) & (valid > 0)
+    if profile == "noscore":
+        return torch.where(ok, nbrs.abs().to(torch.float32), math.inf)
     rows = dataset[nbrs.to(torch.int64).clamp_min(0)].to(torch.float32)   # (m, cw, d)
     diff = rows - queries[:, None, :]
     sq = diff * diff
@@ -119,9 +139,10 @@ def _scores(queries, nbrs, dataset, valid):
     return torch.where(ok, acc[..., 0], math.inf)
 
 
-def _merge_extract(bd, bi, bv, nd, nbrs, itopk):
+def _merge_extract(bd, bi, bv, nd, nbrs, itopk, dedup=True):
     m, cw = nbrs.shape
-    nd = torch.where((nbrs[:, :, None] == bi[:, None, :itopk]).any(-1), math.inf, nd)
+    if dedup:
+        nd = torch.where((nbrs[:, :, None] == bi[:, None, :itopk]).any(-1), math.inf, nd)
     pad = POOL - itopk - cw
     dev = bd.device
     pd = torch.cat([bd[:, :itopk], nd,
@@ -146,6 +167,8 @@ def _merge_extract(bd, bi, bv, nd, nbrs, itopk):
 
 
 def _merge_arena(bd, bi, bv, nd, nbrs, itopk):
+    # every row runs all cw steps, the gated and the ungated ("nogate")
+    # alike: a row whose best no longer beats its worst writes nothing
     od, oi, ov = bd.clone(), bi.clone(), bv.clone()
     lane = torch.arange(POOL, device=bd.device)
     in_arena = lane < itopk
@@ -188,14 +211,23 @@ def cagra_hop_plain(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, itopk
     the same outputs, on any device. Candidate ids must be below n."""
     _check(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, itopk, width,
            merge, profile)
-    nd = _scores(queries, nbrs, dataset, valid)
-    fn = _merge_extract if merge == "extract" else _merge_arena
-    od, oi, ov = fn(beam_d, beam_i, beam_v, nd, nbrs, int(itopk))
-    ov, pick, nocand = _emit_pick(od, oi, ov, int(itopk), int(width))
+    itopk = int(itopk)
+    if profile == "nomerge":
+        od, oi, ov = beam_d.clone(), beam_i.clone(), beam_v.clone()
+    else:
+        nd = _scores(queries, nbrs, dataset, valid, profile)
+        # only "full" and "nogate" take the arena; the other carve-outs extract
+        if _MERGES[merge] == 1 and profile in ("full", "nogate"):
+            od, oi, ov = _merge_arena(beam_d, beam_i, beam_v, nd, nbrs, itopk)
+        else:
+            od, oi, ov = _merge_extract(beam_d, beam_i, beam_v, nd, nbrs, itopk,
+                                        dedup=profile != "nodedup")
+    ov, pick, nocand = _emit_pick(od, oi, ov, itopk, int(width))
     return od, oi, ov, pick, nocand
 
 
-def _launch(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, itopk, width, merge):
+def _launch(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, itopk, width, merge,
+            profile):
     from ._build import load
 
     for t, name in ((queries, "queries"), (beam_d, "beam_d"), (beam_i, "beam_i"),
@@ -211,7 +243,7 @@ def _launch(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, itopk, width,
     lib = load("cagra_hop")
     fn = lib.cagra_hop_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6)
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6)
     fn.restype = ctypes.c_int
     dev = queries.device
     od = torch.empty((m, POOL), dtype=torch.float32, device=dev)
@@ -223,9 +255,10 @@ def _launch(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, itopk, width,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_DATA_CODE[dataset.dtype], queries.data_ptr(), dataset.data_ptr(), m, n, d,
                  beam_d.data_ptr(), beam_i.data_ptr(), beam_v.data_ptr(), nbrs.data_ptr(),
-                 valid.data_ptr(), cw, itopk, width, _MERGES[merge], od.data_ptr(),
-                 oi.data_ptr(), ov.data_ptr(), pick.data_ptr(), nocand.data_ptr(), stream)
-    count_launch(cagra_hop)
+                 valid.data_ptr(), cw, itopk, width, _MERGES[merge], PROFILES.index(profile),
+                 od.data_ptr(), oi.data_ptr(), ov.data_ptr(), pick.data_ptr(),
+                 nocand.data_ptr(), stream)
+    count_launch(cagra_hop, profile)
     expects(err == 0, "cagra_hop kernel launch failed: cudaError %d", err)
     return od, oi, ov, pick, nocand
 
@@ -239,7 +272,8 @@ def cagra_hop(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, itopk: int,
     1); ``nbrs`` (m, cw) int32 candidate ids (-1: none, all below n);
     ``dataset`` (n, d) float32 or int8, whose rows the candidates name;
     ``valid`` (m, cw) int32, 0 masks a candidate (all zero primes the loop);
-    ``merge`` "extract", "arena" or "arena_smem" (runs "arena").
+    ``merge`` "extract", "arena" or "arena_smem" (runs "arena");
+    ``profile`` one of :data:`PROFILES` (the module docstring's carve-outs).
 
     Returns (beam_d, beam_i, beam_v, pick (m, width) int32 clipped to
     [0, 2^30], no_cand (m, width) int32). Beam distances are the full
@@ -250,11 +284,12 @@ def cagra_hop(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, itopk: int,
            merge, profile)
     if queries.device.type == "cpu":
         return cagra_hop_plain(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid,
-                               itopk, width, merge)
+                               itopk, width, merge, profile)
     expects(queries.device.type == "cuda", "cagra_hop runs on cuda or cpu tensors, got %s",
             queries.device)
     return _launch(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, int(itopk),
-                   int(width), merge)
+                   int(width), merge, profile)
 
 
 cagra_hop.launches = 0
+cagra_hop.launches_by_mode = dict.fromkeys(PROFILES, 0)

@@ -18,6 +18,16 @@
 //   3. take `width` picks: the best unvisited lane < itopk, lowest id on
 //      ties, marked visited; pick clipped to [0, 2^30], no_cand when none.
 //
+// Profiles (the template parameter PROF; the JAX kernel's carve-outs for an
+// in-kernel profile, each one compiled apart so that FULL's code carries
+// none of them): NOSCORE scores a valid candidate as (float)|id| and reads
+// no row; NODEDUP skips the beam-membership masks of the extract merge;
+// NOMERGE passes the beam through and takes the picks from it; NOGATE runs
+// every step of the arena's insertion loop, where FULL stops a row's loop
+// once its best candidate no longer beats the arena's worst (the answers
+// are FULL's). An arena merge runs as one only under FULL and NOGATE; the
+// launcher sends NOSCORE and NODEDUP to the extract merge.
+//
 // Summation order, kept bit for bit by ops/cagra_hop.py's cagra_hop_plain:
 // lane l of the row's warp owns dims c*128 + 4l .. c*128 + 4l + 3 for
 // c = 0, 1, ...; it sums (v - q)^2 over its dims in increasing order, with
@@ -65,6 +75,9 @@ constexpr int BIG = 1 << 30;
 constexpr float NEG = -3.0e38f;
 constexpr int MAX_SMEM = 232448;         // shared memory a block can use
 constexpr unsigned FULL = 0xffffffffu;
+// profiles, the codes of ops/cagra_hop.py's PROFILES
+constexpr int PROF_FULL = 0, PROF_NOSCORE = 1, PROF_NODEDUP = 2, PROF_NOMERGE = 3,
+              PROF_NOGATE = 4;
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
@@ -147,7 +160,7 @@ __device__ __forceinline__ float sq_add(float acc, float v, float q) {
   return __fadd_rn(acc, __fmul_rn(df, df));
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, int PROF>
 __global__ void __launch_bounds__(WARPS * 32)
 cagra_hop_kernel(const float* __restrict__ queries, const T* __restrict__ data,
                  const float* __restrict__ beam_d, const int* __restrict__ beam_i,
@@ -167,19 +180,25 @@ cagra_hop_kernel(const float* __restrict__ queries, const T* __restrict__ data,
 
   float* sq = s_query + (size_t)warp * dp;
   const float* qr = queries + (size_t)row * d;
-  for (int j = lane; j < dp; j += 32) sq[j] = j < d ? qr[j] : 0.f;
+  if constexpr (PROF != PROF_NOSCORE) {
+    for (int j = lane; j < dp; j += 32) sq[j] = j < d ? qr[j] : 0.f;
+  }
   float* cd = s_cd[warp];
   int* cid = s_id[warp];
   for (int j = lane; j < cw; j += 32) {
     const int id = nbrs[(size_t)row * cw + j];
     const bool ok = id >= 0 && id < n && valid[(size_t)row * cw + j] > 0;
     cid[j] = id;
-    cd[j] = ok ? 0.f : INF;
+    if constexpr (PROF == PROF_NOSCORE) {
+      cd[j] = ok ? __int2float_rn(id) : INF;
+    } else {
+      cd[j] = ok ? 0.f : INF;
+    }
   }
   __syncwarp();
 
   // ---- 1. scores, G candidate rows at a time
-  for (int j0 = 0; j0 < cw; j0 += G) {
+  for (int j0 = 0; PROF != PROF_NOSCORE && j0 < cw; j0 += G) {
     const T* rp[G];
     bool ok[G];
     float acc[G];
@@ -233,9 +252,11 @@ cagra_hop_kernel(const float* __restrict__ queries, const T* __restrict__ data,
     pv[s] = beam_v[rb + p];
   }
 
-  if (!arena) {
+  if constexpr (PROF == PROF_NOMERGE) {
+    // the beam passes through as it came
+  } else if (!arena) {
     // candidates already in the beam carry the beam's own score: drop them
-    for (int j = 0; j < cw; ++j) {
+    for (int j = 0; PROF != PROF_NODEDUP && j < cw; ++j) {
       const int id = cid[j];
       bool hit = false;
 #pragma unroll
@@ -318,7 +339,11 @@ cagra_hop_kernel(const float* __restrict__ queries, const T* __restrict__ data,
       }
       worst = warp_max_f(worst);
       best = warp_min_f(best);
-      if (!(best < worst)) break;        // the gate closes for the row
+      if constexpr (PROF != PROF_NOGATE) {
+        if (!(best < worst)) break;      // the gate closes for the row
+      }
+      // under NOGATE a step whose best does not beat the worst writes nothing
+      const bool improve = PROF != PROF_NOGATE || best < worst;
       int bid = BIG;
 #pragma unroll
       for (int s = 0; s < SLOTS; ++s)
@@ -327,7 +352,7 @@ cagra_hop_kernel(const float* __restrict__ queries, const T* __restrict__ data,
       bool dup = false;
 #pragma unroll
       for (int s = 0; s < SLOTS; ++s) dup |= (s * 32 + lane < itopk) && pi[s] == bid;
-      if (!__any_sync(FULL, dup)) {
+      if (!__any_sync(FULL, dup) && improve) {
         int wl = -1;
 #pragma unroll
         for (int s = 0; s < SLOTS; ++s) {
@@ -347,7 +372,7 @@ cagra_hop_kernel(const float* __restrict__ queries, const T* __restrict__ data,
       }
 #pragma unroll
       for (int s = 0; s < SLOTS; ++s)
-        if (kn[s] == bid) kd[s] = INF;  // consume every copy of the id
+        if (improve && kn[s] == bid) kd[s] = INF;  // consume every copy of the id
     }
   }
 
@@ -384,29 +409,49 @@ cagra_hop_kernel(const float* __restrict__ queries, const T* __restrict__ data,
   }
 }
 
-template <typename T, bool VEC>
-int launch(const void* queries, const void* data, int m, int n, int d, const void* bd,
-           const void* bi, const void* bv, const void* nbrs, const void* valid, int cw,
-           int itopk, int width, int arena, void* od, void* oi, void* ov, void* pick,
-           void* no_cand, cudaStream_t st) {
-  const int dp = (d + 127) / 128 * 128;
+// one launch's arguments, as cagra_hop_launch takes them
+struct Args {
+  const void *queries, *data;
+  int m, n, d;
+  const void *bd, *bi, *bv, *nbrs, *valid;
+  int cw, itopk, width, arena;
+  void *od, *oi, *ov, *pick, *no_cand;
+  cudaStream_t st;
+};
+
+template <typename T, bool VEC, int PROF>
+int launch(const Args& a) {
+  const int dp = (a.d + 127) / 128 * 128;
   const size_t smem = (size_t)WARPS * dp * sizeof(float);
   const size_t static_smem = (size_t)WARPS * POOL * (sizeof(float) + sizeof(int));
   if (smem + static_smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kern = cagra_hop_kernel<T, VEC>;
+  auto kern = cagra_hop_kernel<T, VEC, PROF>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (m + WARPS - 1) / WARPS;
-  kern<<<blocks, WARPS * 32, smem, st>>>(
-      static_cast<const float*>(queries), static_cast<const T*>(data),
-      static_cast<const float*>(bd), static_cast<const int*>(bi), static_cast<const int*>(bv),
-      static_cast<const int*>(nbrs), static_cast<const int*>(valid), m, n, d, dp, cw, itopk,
-      width, arena, static_cast<float*>(od), static_cast<int*>(oi), static_cast<int*>(ov),
-      static_cast<int*>(pick), static_cast<int*>(no_cand));
+  const int blocks = (a.m + WARPS - 1) / WARPS;
+  kern<<<blocks, WARPS * 32, smem, a.st>>>(
+      static_cast<const float*>(a.queries), static_cast<const T*>(a.data),
+      static_cast<const float*>(a.bd), static_cast<const int*>(a.bi),
+      static_cast<const int*>(a.bv), static_cast<const int*>(a.nbrs),
+      static_cast<const int*>(a.valid), a.m, a.n, a.d, dp, a.cw, a.itopk, a.width, a.arena,
+      static_cast<float*>(a.od), static_cast<int*>(a.oi), static_cast<int*>(a.ov),
+      static_cast<int*>(a.pick), static_cast<int*>(a.no_cand));
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+int launch_profile(const Args& a, int profile) {
+  switch (profile) {
+    case PROF_FULL: return launch<T, VEC, PROF_FULL>(a);
+    case PROF_NOSCORE: return launch<T, VEC, PROF_NOSCORE>(a);
+    case PROF_NODEDUP: return launch<T, VEC, PROF_NODEDUP>(a);
+    case PROF_NOMERGE: return launch<T, VEC, PROF_NOMERGE>(a);
+    case PROF_NOGATE: return launch<T, VEC, PROF_NOGATE>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -415,35 +460,30 @@ int launch(const void* queries, const void* data, int m, int n, int d, const voi
 // (data_dtype 0) or int8 (1); beam_d / beam_i / beam_v (m, 128) float32 /
 // int32 / int32; nbrs and valid (m, cw) int32; outputs: the new beam
 // (m, 128) x 3, pick and no_cand (m, width) int32. merge 0 is extract, 1 is
-// arena. Needs 1 <= itopk, 1 <= cw, itopk + cw <= 128, width >= 1. Returns
-// the launch's cudaError_t.
+// arena; profile 0 .. 4 is FULL, NOSCORE, NODEDUP, NOMERGE, NOGATE. Needs
+// 1 <= itopk, 1 <= cw, itopk + cw <= 128, width >= 1. Returns the launch's
+// cudaError_t.
 extern "C" int cagra_hop_launch(int data_dtype, const void* queries, const void* data, int m,
                                 int n, int d, const void* beam_d, const void* beam_i,
                                 const void* beam_v, const void* nbrs, const void* valid, int cw,
-                                int itopk, int width, int merge, void* out_d, void* out_i,
-                                void* out_v, void* pick, void* no_cand, void* stream) {
+                                int itopk, int width, int merge, int profile, void* out_d,
+                                void* out_i, void* out_v, void* pick, void* no_cand,
+                                void* stream) {
   if (m < 1 || n < 1 || d < 1 || cw < 1 || itopk < 1 || itopk + cw > POOL || width < 1 ||
-      (merge != 0 && merge != 1))
+      (merge != 0 && merge != 1) || profile < PROF_FULL || profile > PROF_NOGATE)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int arena = merge == 1 && (profile == PROF_FULL || profile == PROF_NOGATE);
+  const Args a{queries, data, m, n, d, beam_d, beam_i, beam_v, nbrs, valid, cw, itopk, width,
+               arena, out_d, out_i, out_v, pick, no_cand, static_cast<cudaStream_t>(stream)};
   const uintptr_t addr = reinterpret_cast<uintptr_t>(data);
   if (data_dtype == 0) {
     const bool vec = d % 4 == 0 && addr % 16 == 0;
-    return vec ? launch<float, true>(queries, data, m, n, d, beam_d, beam_i, beam_v, nbrs, valid,
-                                     cw, itopk, width, merge, out_d, out_i, out_v, pick, no_cand,
-                                     st)
-               : launch<float, false>(queries, data, m, n, d, beam_d, beam_i, beam_v, nbrs,
-                                      valid, cw, itopk, width, merge, out_d, out_i, out_v, pick,
-                                      no_cand, st);
+    return vec ? launch_profile<float, true>(a, profile) : launch_profile<float, false>(a, profile);
   }
   if (data_dtype == 1) {
     const bool vec = d % 4 == 0 && addr % 4 == 0;
-    return vec ? launch<int8_t, true>(queries, data, m, n, d, beam_d, beam_i, beam_v, nbrs,
-                                      valid, cw, itopk, width, merge, out_d, out_i, out_v, pick,
-                                      no_cand, st)
-               : launch<int8_t, false>(queries, data, m, n, d, beam_d, beam_i, beam_v, nbrs,
-                                       valid, cw, itopk, width, merge, out_d, out_i, out_v, pick,
-                                       no_cand, st);
+    return vec ? launch_profile<int8_t, true>(a, profile)
+               : launch_profile<int8_t, false>(a, profile);
   }
   return (int)cudaErrorInvalidValue;
 }

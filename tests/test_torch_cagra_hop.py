@@ -36,7 +36,13 @@ def _one_torch_thread():
 def _inputs(d, itopk, width, dtype, prime, seed, deg=32, m=64):
     rng = np.random.default_rng(seed)
     cw = width * deg
-    if dtype == "int8":
+    if dtype == "exact":
+        # small integers: every distance is exact in float32 whatever the
+        # summation order, so a candidate equal to a beam id carries the
+        # beam's distance bit for bit in both packages
+        data = rng.integers(0, 16, (N, d)).astype(np.float32)
+        q = rng.integers(0, 16, (m, d)).astype(np.float32)
+    elif dtype == "int8":
         data = rng.integers(-128, 128, (N, d), dtype=np.int8)
         q = (rng.integers(-128, 128, (m, d)) + rng.random((m, d))).astype(np.float32)
     else:
@@ -66,10 +72,10 @@ def _inputs(d, itopk, width, dtype, prime, seed, deg=32, m=64):
     return q, bd, bi, bv, nbrs, data, valid
 
 
-def _jax(q, bd, bi, bv, nbrs, data, valid, itopk, width, merge):
+def _jax(q, bd, bi, bv, nbrs, data, valid, itopk, width, merge, profile="full"):
     out = j_hop(*(jnp.asarray(a) for a in (q, bd, bi, bv, nbrs, data[np.maximum(nbrs, 0)],
                                            valid)),
-                itopk, width, interpret=True, merge=merge)
+                itopk, width, interpret=True, merge=merge, profile=profile)
     return [np.asarray(a) for a in out]
 
 
@@ -92,6 +98,31 @@ def test_plain_matches_jax_kernel(d, width, dtype, merge, prime):
         np.testing.assert_array_equal(g, w, err_msg=name)
     if prime:
         assert got[1][:, 32:].max() == -1 and np.isinf(got[0][:, 32:]).all()
+
+
+@pytest.mark.parametrize("merge", ["extract", "arena", "arena_smem"])
+@pytest.mark.parametrize("profile", ["noscore", "nodedup", "nomerge", "nogate"])
+def test_profile_carve_outs_match_jax_kernel(profile, merge):
+    """Each carve-out of the plain version against the JAX kernel's, in
+    interpret mode (under an arena merge, "noscore" and "nodedup" take the
+    extract path there too), bit for bit. Without the dedup masks a beam id
+    met again as a candidate keeps the visited flag of whichever copy ties,
+    so the rows hold integers and every distance is exact in both."""
+    args = _inputs(24, 32, 2, "exact", False, seed=11)
+    want = _jax(*args, 32, 2, merge, profile)
+    got = [t.numpy() for t in cagra_hop_plain(*(torch.from_numpy(a) for a in args), 32, 2,
+                                              merge, profile)]
+    for name, g, w in zip(("beam_d", "beam_i", "beam_v", "pick", "no_cand"), got, want):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+@pytest.mark.parametrize("merge", ["extract", "arena"])
+def test_nogate_answers_as_full(merge):
+    """The gate only skips arena steps that would insert nothing."""
+    args = [torch.from_numpy(a) for a in _inputs(24, 32, 2, "f32", False, seed=12)]
+    for a, b in zip(cagra_hop(*args, 32, 2, merge=merge, profile="nogate"),
+                    cagra_hop(*args, 32, 2, merge=merge)):
+        assert torch.equal(a, b)
 
 
 def test_summation_order_is_the_kernels():
@@ -132,8 +163,8 @@ def test_contract_errors():
                                         for a in _inputs(24, 32, 1, "f32", False, seed=1))
     with pytest.raises(RaftError, match="merge"):
         cagra_hop(q, bd, bi, bv, nbrs, data, valid, 32, merge="sorted")
-    with pytest.raises(RaftError, match="not yet ported"):
-        cagra_hop(q, bd, bi, bv, nbrs, data, valid, 32, profile="noscore")
+    with pytest.raises(ValueError, match="unknown profile 'fast'"):
+        cagra_hop(q, bd, bi, bv, nbrs, data, valid, 32, profile="fast")
     with pytest.raises(RaftError, match="float32 or int8"):
         cagra_hop(q, bd, bi, bv, nbrs, data.to(torch.float64), valid, 32)
     with pytest.raises(RaftError, match="itopk"):

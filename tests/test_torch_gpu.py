@@ -631,6 +631,24 @@ def test_cagra_hop_kernel_bit_equal_to_plain(cuda, merge, width, rows, d):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("profile", ["noscore", "nodedup", "nomerge", "nogate"])
+@pytest.mark.parametrize("merge", ["extract", "arena"])
+@pytest.mark.parametrize("rows,d", [("f32", 128), ("int8", 70)])
+def test_cagra_hop_carve_outs_bit_equal_to_plain(cuda, profile, merge, rows, d):
+    """Each profile carve-out against its plain version, one launch counted
+    under its own mode; "nogate" also equals "full"."""
+    args = _hop_inputs(cuda, rows, d, 32, 2, seed=31 + d)
+    before = dict(cagra_hop.launches_by_mode)
+    got = cagra_hop(*args, 32, 2, merge=merge, profile=profile)
+    torch.cuda.synchronize()
+    assert cagra_hop.launches_by_mode[profile] == before[profile] + 1
+    for a, b in zip(got, cagra_hop_plain(*args, 32, 2, merge=merge, profile=profile)):
+        assert torch.equal(a, b)
+    if profile == "nogate":
+        for a, b in zip(got, cagra_hop(*args, 32, 2, merge=merge)):
+            assert torch.equal(a, b)
+
+
 def test_cagra_byte_build_searches_int8_rows_on_card(cuda):
     """A uint8 dataset built on the card is held as int8 rows; the card's
     fused search runs cagra_hop over them and answers as the CPU's search

@@ -122,13 +122,14 @@ def test_packages_export_the_front_door_exporter_and_controller():
 
 
 def test_only_the_named_carve_outs_are_not_yet_ported():
-    """The tuned hooks, ``publish(tuned=)``, ``warmup``, ``config``, the
-    mesh's ``comms=`` and sparse ``gram_matrix`` are ported; what still
-    refuses is ``cagra_hop``'s ``profile=`` (a TPU profiling aid)."""
+    """Nothing is left: the tuned hooks, ``publish(tuned=)``, ``warmup``,
+    ``config``, the mesh's ``comms=``, sparse ``gram_matrix`` and
+    ``cagra_hop``'s ``profile=`` carve-outs are all ported, and no module
+    of the port refuses a call as not yet ported."""
     hits = sorted({str(f.relative_to(ROOT / "raft_tpu_torch"))
                    for f in (ROOT / "raft_tpu_torch").rglob("*.py")
                    if "not yet ported" in f.read_text()})
-    assert hits == ["ops/cagra_hop.py"], hits
+    assert hits == [], hits
 
 
 def test_package_exports_the_deploy_surface():
@@ -219,3 +220,39 @@ def test_cluster_exports_single_linkage():
 
     for name in ("single_linkage", "SingleLinkageOutput"):
         assert name in cluster.__all__ and hasattr(cluster, name), name
+
+
+# the modules of the remaining primitives' slice
+PRIMITIVE_MODULES = ("linalg/__init__.py", "linalg/blas.py", "linalg/map_reduce.py",
+                     "linalg/solvers.py", "random/__init__.py", "random/rng.py",
+                     "random/sampling.py", "random/datagen.py", "random/rmat.py",
+                     "stats/__init__.py", "stats/moments.py", "stats/metrics.py",
+                     "label/__init__.py", "label/classlabels.py", "label/merge_labels.py",
+                     "runtime/__init__.py", "runtime/native.py")
+
+
+@pytest.mark.parametrize("rel", PRIMITIVE_MODULES)
+def test_primitive_modules_import_neither_jax_nor_raft_tpu(rel):
+    path = ROOT / "raft_tpu_torch" / rel
+    assert path.is_file(), rel
+    names = list(_imports(path))
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+    assert "cpp" not in path.read_text().replace("runtime.cpp", "")
+
+
+@pytest.mark.parametrize("pkg", ["linalg", "random", "stats", "label", "runtime"])
+def test_primitive_packages_keep_the_jax_names(pkg):
+    """Each package exports every name of the JAX package's ``__all__``."""
+    import importlib
+
+    port = importlib.import_module(f"raft_tpu_torch.{pkg}")
+    tree = ast.parse((ROOT / "raft_tpu" / pkg / "__init__.py").read_text())
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and getattr(node.targets[0], "id", None) == "__all__")
+    assert sorted(port.__all__) == sorted(names)
+    for name in names:
+        assert hasattr(port, name), name
+    import raft_tpu_torch
+
+    assert getattr(raft_tpu_torch, pkg) is port
