@@ -46,12 +46,13 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import time
 
 import numpy as np
 import torch
 
 from ..config import auto_convert_output
-from ..core import chunked
+from ..core import chunked, tracing
 from ..core.chunked import is_reader
 from ..core.errors import expects
 from ..core.resources import Resources, default_resources
@@ -61,7 +62,9 @@ from ..core.serialize import (atomic_write, check_header, deserialize_mdspan,
 from ..distance.pairwise import full_f32
 from ..distance.types import DistanceType, resolve_metric
 from ..matrix.select_k import _select_k, select_k_impl
+from ..obs import build as obs_build
 from ..obs import mem as obs_mem
+from ..obs import metrics as obs_metrics
 from ..obs.instrument import dtype_of, instrument, nrows
 from . import ivf_pq as ivf_pq_mod
 from .ivf_pq import _L2_METRICS, _SQRT_METRICS
@@ -370,6 +373,16 @@ def estimate_seed_pool(dataset, knn_graph, seed: int = 0,
     return pool
 
 
+def _phase_seconds(phase: str, t0: float, out) -> None:
+    """Observe ``raft_tpu_build_phase_seconds{phase=...}`` since ``t0``
+    (``time.perf_counter``), after the device has finished ``out``; nothing
+    while metrics are off."""
+    if obs_metrics.enabled():
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        obs_build.build_phase().observe(time.perf_counter() - t0, phase=phase)
+
+
 @instrument("cagra.build",
             items=lambda a, kw: nrows(a[1] if len(a) > 1 else kw["dataset"]),
             labels=lambda a, kw: {
@@ -418,10 +431,17 @@ def build(params: IndexParams, dataset, res: Resources | None = None) -> CagraIn
         obs_mem.gate(res, lambda: obs_mem.plan("cagra", params, x.shape[0], x.shape[1],
                                                dtype=kind)["index_bytes"],
                      site="build", detail=f"cagra {x.shape[0]}x{x.shape[1]}")
-    knn_graph = build_knn_graph(params, xf, res=res)
-    hint = estimate_seed_pool(xf, knn_graph, seed=params.seed, res=res)
+    with tracing.range("cagra.build.knn_graph"):
+        t0 = time.perf_counter()
+        knn_graph = build_knn_graph(params, xf, res=res)
+        _phase_seconds("cagra/knn_graph", t0, knn_graph)
+    with tracing.range("cagra.build.seed_pool"):
+        hint = estimate_seed_pool(xf, knn_graph, seed=params.seed, res=res)
     del xf
-    graph = optimize(knn_graph, params.graph_degree, res=res)
+    with tracing.range("cagra.build.optimize"):
+        t0 = time.perf_counter()
+        graph = optimize(knn_graph, params.graph_degree, res=res)
+        _phase_seconds("cagra/optimize", t0, graph)
     return CagraIndex(dataset=x, graph=graph, metric=mt, data_kind=kind, seed_pool_hint=hint)
 
 
@@ -520,16 +540,58 @@ def _cagra_search(index: CagraIndex, queries, k: int, itopk: int, max_iter: int,
     ``_cagra_search``). ``pool_ids`` overrides the random draw: the scored
     entry pool (``seed_pool`` ids) where the pool is larger than the beam's
     entries, else the shared random entries; a test hands it the JAX
-    package's draw."""
+    package's draw.
+
+    Spans (:mod:`raft_tpu_torch.core.tracing`): ``cagra.search`` over the
+    call, with ``queries``, ``hops`` (loop iterations that launched a hop)
+    and ``stop`` ("converged" where the flag ended the loop, else
+    "max_iter"); under it ``cagra.search.entry``, ``cagra.search.hops`` (one
+    ``cagra.hop`` an iteration, each with a ``cagra.hop.flag_read`` around
+    the flag's device read) and ``cagra.search.finish``."""
+    with tracing.range("cagra.search") as span:
+        span.set("queries", queries.shape[0])
+        qf = queries.to(torch.float32)
+        with tracing.range("cagra.search.entry"):
+            beam_ids, beam_d, visited = _entry_beam(index, qf, itopk, search_width, seed_pool,
+                                                    keep_mask, seed, pool_ids)
+        if hop_impl in _MERGE_OF:
+            return _fused_loop(index, qf, beam_ids, beam_d, visited, k, itopk, max_iter,
+                               search_width, sqrt_out, _MERGE_OF[hop_impl], keep_mask, span)
+        data = index.dataset
+        with tracing.range("cagra.search.hops"):
+            dn2 = data.to(torch.float32).square().sum(dim=1)   # the hops reach rows anywhere
+            hops, stop = 0, "max_iter"
+            for _ in range(max_iter):
+                with tracing.range("cagra.hop"):
+                    beam_ids, beam_d, visited, no_cand = _xla_hop(
+                        data, dn2, qf, index.graph, beam_ids, beam_d, visited, itopk,
+                        search_width, keep_mask)
+                    hops += 1
+                    done = no_cand.all()
+                    with tracing.range("cagra.hop.flag_read"):
+                        done = bool(done)
+                if done:
+                    stop = "converged"
+                    break
+        span.set("hops", hops)
+        span.set("stop", stop)
+        with tracing.range("cagra.search.finish"):
+            out_d = (beam_d[:, :k] + (qf * qf).sum(dim=1, keepdim=True)).clamp_min(0.0)
+            if sqrt_out:
+                out_d = torch.sqrt(out_d)
+            return out_d, torch.where(torch.isinf(out_d), -1, beam_ids[:, :k])
+
+
+def _entry_beam(index: CagraIndex, qf, itopk: int, width: int, seed_pool: int,
+                keep_mask, seed: int, pool_ids):
+    """The search's first beam for the float32 queries ``qf`` (ids,
+    distances without |q|^2, visited), in ``_dedup_sort``'s order: the best
+    entries of a scored pool, or shared random entries."""
     data = index.dataset
     n = data.shape[0]
     dev = data.device
-    m = queries.shape[0]
-    deg = index.graph_degree
-    graph = index.graph
-    qf = queries.to(torch.float32)
-    width = search_width
-    exp_per_hop = width * deg
+    m = qf.shape[0]
+    exp_per_hop = width * index.graph_degree
 
     n_init = min(max(itopk, exp_per_hop), n)
     pool = min(int(seed_pool), n)
@@ -563,63 +625,61 @@ def _cagra_search(index: CagraIndex, queries, k: int, itopk: int, max_iter: int,
                           torch.full((m, pad), -1, dtype=torch.int32, device=dev)], 1)
     beam_d = torch.cat([init_d, torch.full((m, pad), math.inf, device=dev)], 1)
     visited = torch.zeros((m, beam_w), dtype=torch.bool, device=dev)
-    beam_ids, beam_d, visited = _dedup_sort(beam_ids, beam_d, visited)
-
-    if hop_impl in _MERGE_OF:
-        return _fused_loop(index, qf, beam_ids, beam_d, visited, k, itopk, max_iter, width,
-                           sqrt_out, _MERGE_OF[hop_impl], keep_mask)
-
-    dn2 = data.to(torch.float32).square().sum(dim=1)   # the hops reach rows anywhere
-    for _ in range(max_iter):
-        beam_ids, beam_d, visited, no_cand = _xla_hop(data, dn2, qf, graph, beam_ids, beam_d,
-                                                      visited, itopk, width, keep_mask)
-        if bool(no_cand.all()):
-            break
-    out_d = (beam_d[:, :k] + (qf * qf).sum(dim=1, keepdim=True)).clamp_min(0.0)
-    if sqrt_out:
-        out_d = torch.sqrt(out_d)
-    return out_d, torch.where(torch.isinf(out_d), -1, beam_ids[:, :k])
+    return _dedup_sort(beam_ids, beam_d, visited)
 
 
 def _fused_loop(index, qf, beam_ids, beam_d, visited, k, itopk, max_iter, width, sqrt_out,
-                merge, keep_mask):
+                merge, keep_mask, span):
     """The hop loop through ops.cagra_hop: one launch per hop, beam state
-    (m, 128) with the full ||v - q||^2; one flag read back per hop."""
+    (m, 128) with the full ||v - q||^2; one flag read back per hop. Sets
+    ``hops`` and ``stop`` on the caller's ``cagra.search`` span."""
     from ..ops.cagra_hop import POOL, cagra_hop
 
     data, graph = index.dataset, index.graph
     n, deg = data.shape[0], index.graph_degree
     m, dev = qf.shape[0], qf.device
-    qn = (qf * qf).sum(dim=1, keepdim=True)
-    bd = torch.full((m, POOL), math.inf, device=dev)
-    bd[:, :itopk] = (beam_d[:, :itopk] + qn).clamp_min(0.0)
-    bi = torch.full((m, POOL), -1, dtype=torch.int32, device=dev)
-    bi[:, :itopk] = beam_ids[:, :itopk]
-    bv = torch.ones((m, POOL), dtype=torch.int32, device=dev)
-    bv[:, :itopk] = visited[:, :itopk].to(torch.int32)
-    cw = width * deg
-    qf = qf.contiguous()
-    # prime: every candidate masked, so the merge only restates the beam and
-    # the kernel emits the first hop's picks
-    bd, bi, bv, pick, nocand = cagra_hop(
-        qf, bd, bi, bv, torch.full((m, cw), -1, dtype=torch.int32, device=dev), data,
-        torch.zeros((m, cw), dtype=torch.int32, device=dev), itopk, width, merge=merge)
-    for _ in range(max_iter):
-        # a row is done when its first pick found nothing unvisited
-        if bool((nocand[:, 0] > 0).all()):
-            break
-        nbrs = graph[pick.to(torch.int64).clamp_max(n - 1)].reshape(m, cw)
-        valid = (1 - nocand).repeat_interleave(deg, dim=1)
-        if keep_mask is not None:
-            valid = valid * keep_mask[nbrs.to(torch.int64).clamp_min(0)].to(torch.int32)
-        bd, bi, bv, pick, nocand = cagra_hop(qf, bd, bi, bv, nbrs.contiguous(), data,
-                                             valid.contiguous(), itopk, width, merge=merge)
-    if merge != "extract":
-        bd, bi = _select_k(bd, bi, itopk, True)      # the arena is unsorted
-    out_d = bd[:, :k].clamp_min(0.0)
-    if sqrt_out:
-        out_d = torch.sqrt(out_d)
-    return out_d, torch.where(torch.isinf(out_d), -1, bi[:, :k])
+    with tracing.range("cagra.search.hops"):
+        qn = (qf * qf).sum(dim=1, keepdim=True)
+        bd = torch.full((m, POOL), math.inf, device=dev)
+        bd[:, :itopk] = (beam_d[:, :itopk] + qn).clamp_min(0.0)
+        bi = torch.full((m, POOL), -1, dtype=torch.int32, device=dev)
+        bi[:, :itopk] = beam_ids[:, :itopk]
+        bv = torch.ones((m, POOL), dtype=torch.int32, device=dev)
+        bv[:, :itopk] = visited[:, :itopk].to(torch.int32)
+        cw = width * deg
+        qf = qf.contiguous()
+        # prime: every candidate masked, so the merge only restates the beam
+        # and the kernel emits the first hop's picks
+        bd, bi, bv, pick, nocand = cagra_hop(
+            qf, bd, bi, bv, torch.full((m, cw), -1, dtype=torch.int32, device=dev), data,
+            torch.zeros((m, cw), dtype=torch.int32, device=dev), itopk, width, merge=merge)
+        hops, stop = 0, "max_iter"
+        for _ in range(max_iter):
+            with tracing.range("cagra.hop"):
+                # a row is done when its first pick found nothing unvisited
+                done = (nocand[:, 0] > 0).all()
+                with tracing.range("cagra.hop.flag_read"):
+                    done = bool(done)
+                if done:
+                    stop = "converged"
+                    break
+                nbrs = graph[pick.to(torch.int64).clamp_max(n - 1)].reshape(m, cw)
+                valid = (1 - nocand).repeat_interleave(deg, dim=1)
+                if keep_mask is not None:
+                    valid = valid * keep_mask[nbrs.to(torch.int64).clamp_min(0)].to(torch.int32)
+                bd, bi, bv, pick, nocand = cagra_hop(qf, bd, bi, bv, nbrs.contiguous(), data,
+                                                     valid.contiguous(), itopk, width,
+                                                     merge=merge)
+                hops += 1
+    span.set("hops", hops)
+    span.set("stop", stop)
+    with tracing.range("cagra.search.finish"):
+        if merge != "extract":
+            bd, bi = _select_k(bd, bi, itopk, True)      # the arena is unsorted
+        out_d = bd[:, :k].clamp_min(0.0)
+        if sqrt_out:
+            out_d = torch.sqrt(out_d)
+        return out_d, torch.where(torch.isinf(out_d), -1, bi[:, :k])
 
 
 @auto_convert_output

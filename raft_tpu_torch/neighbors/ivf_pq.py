@@ -71,7 +71,7 @@ from ..cluster import kmeans_balanced
 from ..cluster.kmeans_balanced import KMeansBalancedParams
 from ..config import auto_convert_output
 from ..core import serialize as core_serialize
-from ..core import chunked
+from ..core import chunked, tracing
 from ..core.chunked import is_reader
 from ..core.errors import expects
 from ..core.resources import Resources, default_resources
@@ -1132,27 +1132,36 @@ def _tiled(index: IvfPqIndex, queries, n_probes: int, k: int, query_tile: int,
     coarse probes and the rotated queries, then per tile of ``query_tile``
     queries ``chunk_step(qrot_tile, probes_chunk) -> (values, ids)`` over
     chunks of ``probe_chunk`` probes; a tile of one chunk keeps that
-    chunk's k, a tile of several merges them."""
+    chunk's k, a tile of several merges them.
+
+    Spans (:mod:`raft_tpu_torch.core.tracing`): ``ivf_pq.search`` over the
+    call, with ``queries`` and ``tiles``; under it ``ivf_pq.search.coarse``
+    (the probes and the rotation) and one ``ivf_pq.search.scan`` a tile."""
     inner = index.metric == DistanceType.InnerProduct
-    qf = queries.to(torch.float32)
-    probes = _coarse_probes(index, qf, n_probes)
-    with full_f32():
-        qrot = qf @ index.rotation.T
-    dists, idx = [], []
-    for t0 in range(0, qf.shape[0], query_tile):
-        q = qrot[t0:t0 + query_tile]
-        pr = probes[t0:t0 + query_tile].to(torch.int64)
-        parts = [chunk_step(q, pr[:, c0:c0 + probe_chunk])
-                 for c0 in range(0, n_probes, probe_chunk)]
-        v, i = parts[0]
-        if len(parts) > 1:
-            v, i = select_k_impl(torch.cat([p[0] for p in parts], dim=1),
-                                 torch.cat([p[1] for p in parts], dim=1), k, not inner,
-                                 impl=select_impl)
-        dists.append(v)
-        idx.append(i)
-    return _finish(index, torch.cat(dists), torch.cat(idx),
-                   torch.isinf if keep_mask is not None else None)
+    with tracing.range("ivf_pq.search") as span:
+        qf = queries.to(torch.float32)
+        span.set("queries", qf.shape[0])
+        with tracing.range("ivf_pq.search.coarse"):
+            probes = _coarse_probes(index, qf, n_probes)
+            with full_f32():
+                qrot = qf @ index.rotation.T
+        dists, idx = [], []
+        for t0 in range(0, qf.shape[0], query_tile):
+            with tracing.range("ivf_pq.search.scan"):
+                q = qrot[t0:t0 + query_tile]
+                pr = probes[t0:t0 + query_tile].to(torch.int64)
+                parts = [chunk_step(q, pr[:, c0:c0 + probe_chunk])
+                         for c0 in range(0, n_probes, probe_chunk)]
+                v, i = parts[0]
+                if len(parts) > 1:
+                    v, i = select_k_impl(torch.cat([p[0] for p in parts], dim=1),
+                                         torch.cat([p[1] for p in parts], dim=1), k, not inner,
+                                         impl=select_impl)
+                dists.append(v)
+                idx.append(i)
+        span.set("tiles", len(dists))
+        return _finish(index, torch.cat(dists), torch.cat(idx),
+                       torch.isinf if keep_mask is not None else None)
 
 
 def _pq_search(index: IvfPqIndex, queries, n_probes: int, k: int, query_tile: int,

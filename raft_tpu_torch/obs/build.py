@@ -1,11 +1,15 @@
 """Shared build-cost metrics, the ``raft_tpu_build_*`` catalogue.
 
 Counterpart of raft_tpu/obs/build.py, under the same names, help strings
-and labels (docs/observability.md). The port emits the out-of-core family:
-the chunk counter and staged-bytes counter of the streamed builds
-(:mod:`raft_tpu_torch.core.chunked`) and their chunk-rows gauge. The trainer
-and CAGRA phase metrics are declared for the catalogue's sake; nothing in
-the port emits them yet.
+and labels (docs/observability.md). The port emits the out-of-core family
+(the chunk counter and staged-bytes counter of the streamed builds,
+:mod:`raft_tpu_torch.core.chunked`, and their chunk-rows gauge), the
+distributed coarse trainer's passes, sampled rows and
+``parallel.ivf/coarse_em`` phase (:mod:`raft_tpu_torch.parallel.ivf`), and
+the CAGRA build's ``cagra/knn_graph`` and ``cagra/optimize`` phases, each
+after a device synchronise (:mod:`raft_tpu_torch.neighbors.cagra`). The
+single-device trainer's phases and ``cagra/knn_chunk`` are declared for the
+catalogue's sake; nothing in the port emits them.
 """
 
 from __future__ import annotations

@@ -320,6 +320,80 @@ def test_search_seed_contract(data, port_built):
     assert _recall(i3, gt) > 0.9
 
 
+@pytest.mark.parametrize("max_iterations,stop", [(3, "max_iter"), (500, "converged")])
+@pytest.mark.parametrize("impl", ["xla", "fused_arena"])
+def test_search_records_its_span_tree(data, port_built, monkeypatch, impl, max_iterations,
+                                      stop):
+    """Under tracing, a search records ``cagra.search`` (queries, hops,
+    stop) over entry, hops and finish; one ``cagra.hop`` an iteration, each
+    holding one ``cagra.hop.flag_read``; ``hops`` counts the hops the route
+    ran (``_xla_hop`` calls, or ``cagra_hop`` launches less the prime)."""
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.ops import cagra_hop as hop_mod
+
+    _, q, _ = data
+    calls = []
+    for mod, name in ((tc, "_xla_hop"), (hop_mod, "cagra_hop")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _real=real, _n=name, **kw:
+                            calls.append(_n) or _real(*a, **kw))
+    params = tc.SearchParams(itopk_size=32, max_iterations=max_iterations, hop_impl=impl)
+    tracing.clear()
+    tracing.enable()
+    try:
+        tc.search(params, port_built, q, 10)
+    finally:
+        tracing.disable()
+    spans = tracing.spans()
+    tracing.clear()
+    ran = calls.count("_xla_hop") if impl == "xla" else calls.count("cagra_hop") - 1
+    (top,) = [s for s in spans if s.name == "cagra.search"]
+    assert top.attrs == {"queries": q.shape[0], "hops": ran, "stop": stop}
+    assert top.parent == 0 and {s.call for s in spans} == {top.id}
+    kids = sorted((s for s in spans if s.parent == top.id), key=lambda s: s.start_ns)
+    assert [s.name for s in kids] == ["cagra.search.entry", "cagra.search.hops",
+                                      "cagra.search.finish"]
+    hops = [s for s in spans if s.name == "cagra.hop"]
+    reads = [s for s in spans if s.name == "cagra.hop.flag_read"]
+    # the fused route reads the flag first: the iteration that finds the
+    # search converged launches nothing
+    assert len(hops) == ran + (impl != "xla" and stop == "converged")
+    assert {s.parent for s in hops} == {kids[1].id}
+    assert sorted(s.parent for s in reads) == sorted(s.id for s in hops)
+    if stop == "max_iter":
+        assert ran == max_iterations
+
+
+def test_build_observes_its_phases_and_records_their_spans(data):
+    """``cagra.build`` observes ``raft_tpu_build_phase_seconds`` for
+    cagra/knn_graph and cagra/optimize (docs/observability.md) and records a
+    span for each phase and the seed-pool estimate."""
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.obs import metrics
+
+    x, _, _ = data
+
+    def observed():
+        meta = metrics.snapshot().get("raft_tpu_build_phase_seconds", {"series": []})
+        return {s["labels"]["phase"]: (s["count"], s["sum"]) for s in meta["series"]}
+
+    before = observed()
+    tracing.clear()
+    tracing.enable()
+    try:
+        tc.build(tc.IndexParams(intermediate_graph_degree=16, graph_degree=8), x[:800], res=CPU)
+    finally:
+        tracing.disable()
+    after = observed()
+    for phase in ("cagra/knn_graph", "cagra/optimize"):
+        n0, s0 = before.get(phase, (0, 0.0))
+        assert after[phase][0] == n0 + 1 and after[phase][1] > s0
+    names = [s.name for s in tracing.spans()]
+    tracing.clear()
+    for name in ("cagra.build.knn_graph", "cagra.build.seed_pool", "cagra.build.optimize"):
+        assert names.count(name) == 1
+
+
 def test_jax_file_loads_and_bytes_round_trip(data, jax_built, tmp_path):
     _, q, _ = data
     _, jindex = jax_built

@@ -1103,3 +1103,52 @@ def test_two_gloo_ranks_share_the_card(cuda):
     for gd, gi in got:
         assert torch.equal(gi, i.cpu())
         torch.testing.assert_close(gd, d.cpu(), rtol=1e-5, atol=0)
+
+
+def test_cagra_spans_line_up_with_the_device_trace(cuda):
+    """A CUDA-only profiler session over CAGRA batches on the card records
+    the program's spans on the trace's clock: each ``cagra.hop.flag_read``
+    span holds the ``cudaStreamSynchronize`` its device read issues (at
+    least 99% of them), and the trace's ``cagra_hop`` launches equal the sum
+    over the searches of ``hops`` + 1 (the prime launch) exactly."""
+    import statistics
+
+    from raft_tpu_torch.core import tracing
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    centers = torch.rand((64, 64), generator=g, device=cuda) * 4
+    x = centers[torch.randint(0, 64, (60_000,), generator=g, device=cuda)]
+    x = x + 0.3 * torch.randn(x.shape, generator=g, device=cuda)
+    q = x[torch.randint(0, 60_000, (3_000,), generator=g, device=cuda)] + 0.05
+    index = cagra.build(cagra.IndexParams(intermediate_graph_degree=32, graph_degree=16), x,
+                        res=Resources(device="cuda"))
+    params = cagra.SearchParams(itopk_size=32)
+    cagra.search(params, index, q, 10)
+    torch.cuda.synchronize()
+    tracing.clear()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        for _ in range(3):
+            cagra.search(params, index, q, 10)
+        torch.cuda.synchronize()
+    spans = tracing.spans()
+    syncs, launches = [], 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type().name == "CUDA":
+            launches += "cagra_hop_kernel" in ev.name()
+        elif ev.name() == "cudaStreamSynchronize":
+            syncs.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+    searches = [s for s in spans if s.name == "cagra.search"]
+    assert len(searches) == 3 and tracing.dropped() == 0
+    assert launches == sum(s.attrs["hops"] + 1 for s in searches)
+    reads = [s for s in spans if s.name == "cagra.hop.flag_read"]
+    assert reads
+    offsets = []
+    for r in reads:
+        inside = [s0 - r.start_ns for s0, s1 in syncs if r.start_ns <= s0 and s1 <= r.end_ns]
+        if inside:
+            offsets.append(inside[0])
+    assert len(offsets) >= 0.99 * len(reads), (len(offsets), len(reads))
+    print(f"flag reads {len(reads)}, holding their sync {len(offsets)}, median offset "
+          f"{statistics.median(offsets)} ns; cagra_hop launches {launches}; hops "
+          f"{[s.attrs['hops'] for s in searches]} stop {[s.attrs['stop'] for s in searches]}")

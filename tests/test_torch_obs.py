@@ -449,7 +449,12 @@ def test_wrappers_count_through_count_launch():
 
 def test_tracing_ranges_off_by_default_and_on_when_enabled():
     assert not tracing._enabled
+    tracing.clear()
+    with tracing.range("serve/flush/%d", 4):
+        torch.ones(4).sum()
+    assert tracing.spans() == []
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        # an open profiler session records without enable()
         with tracing.range("serve/flush/%d", 8):
             torch.ones(4).sum()
         tracing.enable()
@@ -460,8 +465,179 @@ def test_tracing_ranges_off_by_default_and_on_when_enabled():
         finally:
             tracing.disable()
     names = {e.key for e in prof.key_averages()}
-    assert "serve/flush/16" in names and "my_fn" in names
-    assert "serve/flush/8" not in names
+    assert {"serve/flush/16", "my_fn"} <= names and "serve/flush/4" not in names
+    # a session alone annotates where every session records CPU activity
+    assert ("serve/flush/8" in names) == (not torch.cuda.is_available())
+    tracing.enable()
+    try:
+        with tracing.range("serve/publish/%s", "a"):
+            pass
+    finally:
+        tracing.disable()
+    assert [s.name for s in tracing.spans()] == ["serve/flush/8", "serve/flush/16", "my_fn",
+                                                 "serve/publish/a"]
+    tracing.clear()
+
+
+def test_tracing_off_site_is_the_shared_no_op_and_records_nothing():
+    tracing.clear()
+    assert tracing.range("a") is tracing.range("b.%d", 3) is tracing._OFF
+    with tracing.range("cagra.search") as span:
+        span.set("hops", 3)
+    assert tracing.spans() == [] and tracing.dropped() == 0
+
+    def sites(n):
+        r = tracing.range
+        for _ in range(n):
+            with r("cagra.hop") as span:
+                span.set("hops", 1)
+
+    sites(100)
+    before = sys.getallocatedblocks()
+    sites(20_000)
+    assert sys.getallocatedblocks() - before < 2_000   # a block a site would be 20,000
+
+
+def test_tracing_records_under_enable_and_inside_a_profiler_session():
+    tracing.clear()
+    with tracing.range("off.before"):
+        pass
+    tracing.enable()
+    try:
+        with tracing.range("on.enable"):
+            pass
+    finally:
+        tracing.disable()
+    with tracing.range("off.between"):
+        pass
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with tracing.range("on.profiler"):
+            pass
+    with tracing.range("off.after"):
+        pass
+    assert [s.name for s in tracing.spans()] == ["on.enable", "on.profiler"]
+    tracing.clear()
+
+
+def test_tracing_spans_nest_with_parent_and_call_ids_on_each_thread():
+    tracing.clear()
+    go = threading.Barrier(2)
+
+    def work(tag):
+        with tracing.range(f"{tag}.outer") as outer:
+            outer.set("tag", tag)
+            go.wait()
+            with tracing.range(f"{tag}.mid"):
+                with tracing.range(f"{tag}.inner"):
+                    pass
+            with tracing.range(f"{tag}.second"):
+                pass
+        with tracing.range(f"{tag}.next"):
+            pass
+
+    tracing.enable()
+    try:
+        threads = [threading.Thread(target=work, args=(t,)) for t in ("a", "b")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        tracing.disable()
+    by = {s.name: s for s in tracing.spans()}
+    assert len(by) == 10
+    for tag in ("a", "b"):
+        outer, mid, inner, second, nxt = (by[f"{tag}.{n}"] for n in
+                                          ("outer", "mid", "inner", "second", "next"))
+        assert outer.parent == 0 and outer.call == outer.id and outer.attrs == {"tag": tag}
+        assert mid.parent == outer.id and second.parent == outer.id and inner.parent == mid.id
+        assert {mid.call, inner.call, second.call} == {outer.id}
+        assert nxt.parent == 0 and nxt.call == nxt.id != outer.id
+        assert len({outer.thread, mid.thread, inner.thread, nxt.thread}) == 1
+        assert outer.start_ns <= mid.start_ns <= inner.start_ns <= inner.end_ns <= mid.end_ns
+        assert mid.end_ns <= second.start_ns <= second.end_ns <= outer.end_ns <= nxt.start_ns
+    assert by["a.outer"].thread != by["b.outer"].thread
+    assert by["a.outer"].call != by["b.outer"].call
+    tracing.clear()
+
+
+@pytest.mark.parametrize("threads", [1, 16])
+def test_tracing_buffer_drops_and_counts_past_its_bound(monkeypatch, threads):
+    """The bound and the dropped count are exact, also with threads closing
+    spans at once (more threads than cores, switching often)."""
+    tracing.clear()
+    per = 8 if threads == 1 else 2_000
+    monkeypatch.setattr(tracing, "MAX_SPANS", 5 if threads == 1 else 10_000)
+
+    def work(t):
+        for i in range(per):
+            with tracing.range("s%d", i):
+                pass
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    tracing.enable()
+    try:
+        pool = [threading.Thread(target=work, args=(t,)) for t in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        tracing.disable()
+        sys.setswitchinterval(interval)
+    kept = tracing.MAX_SPANS
+    assert len(tracing.spans()) == kept and tracing.dropped() == threads * per - kept
+    if threads == 1:
+        assert [s.name for s in tracing.spans()] == ["s0", "s1", "s2", "s3", "s4"]
+    tracing.clear()
+    assert tracing.spans() == [] and tracing.dropped() == 0
+
+
+def test_tracing_spans_share_the_profiler_clock():
+    """A span and a ``record_function`` event around the same region, under
+    a CPU profiler, agree to within 100 µs at both ends in the median
+    region: spans are stamped on the clock the profiler's events carry (the
+    first region, which pays the session's first annotation, is left out)."""
+    tracing.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(6):
+            with torch.profiler.record_function("clock.outer"):
+                with tracing.range("clock.span"):
+                    torch.ones(64).sum()
+    events = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                    for e in prof.profiler.kineto_results.events() if e.name() == "clock.outer")
+    spans = sorted((s.start_ns, s.end_ns) for s in tracing.spans() if s.name == "clock.span")
+    assert len(events) == len(spans) == 6
+    starts = sorted(abs(s0 - e0) for (e0, _), (s0, _) in zip(events[1:], spans[1:]))
+    ends = sorted(abs(s1 - e1) for (_, e1), (_, s1) in zip(events[1:], spans[1:]))
+    # the median region: one preempted region cannot fail the clock
+    assert starts[2] < 100_000 and ends[2] < 100_000, (starts, ends)
+    tracing.clear()
+
+
+def test_ivf_pq_search_records_coarse_and_a_scan_span_a_tile():
+    x = np.random.default_rng(0).standard_normal((2_000, 16)).astype(np.float32)
+    q = np.random.default_rng(1).standard_normal((300, 16)).astype(np.float32)
+    pq = ivf_pq.build(ivf_pq.IndexParams(n_lists=16, pq_dim=8, pq_bits=4, seed=0), x,
+                      res=CPU)
+    tracing.clear()
+    tracing.enable()
+    try:
+        ivf_pq.search(ivf_pq.SearchParams(n_probes=4), pq, q, 10)
+    finally:
+        tracing.disable()
+    spans = tracing.spans()
+    (top,) = [s for s in spans if s.name == "ivf_pq.search"]
+    coarse = [s for s in spans if s.name == "ivf_pq.search.coarse"]
+    scans = [s for s in spans if s.name == "ivf_pq.search.scan"]
+    assert top.parent == 0 and top.attrs["queries"] == 300
+    assert len(coarse) == 1 and len(scans) == top.attrs["tiles"] >= 3
+    assert {s.parent for s in coarse + scans} == {top.id}
+    assert {s.call for s in spans} == {top.id}
+    assert coarse[0].end_ns <= min(s.start_ns for s in scans)
+    tracing.clear()
 
 
 def test_logger_basic_config():
