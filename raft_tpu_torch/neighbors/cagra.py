@@ -18,8 +18,10 @@ same algorithm:
   ``hop_impl="xla"`` runs the hop as plain PyTorch (gather, batched product,
   two-sort dedup); the ``fused*`` impls (and "auto" where the shape is
   eligible) run one ``cagra_hop`` kernel launch per hop (ops/cagra_hop.py),
-  which on a CPU tensor runs its plain version. The loop's exit test reads
-  one flag per hop back to the host.
+  which on a CPU tensor runs its plain version. The fused loop runs in
+  chunks of hops and reads its convergence flag back to the host once a
+  chunk; on a CUDA index a chunk is one replay of a captured CUDA graph
+  (:class:`HopGraphs`, from a key's second search on).
 
 Entry points run on the handle's device ("cuda" unless the caller passes
 ``Resources(device="cpu")``); an index lives on its dataset's device. Files
@@ -43,9 +45,12 @@ The distributed CAGRA build waits for ``parallel/``.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import logging
 import math
+import threading
 import time
 
 import numpy as np
@@ -66,6 +71,9 @@ from ..obs import build as obs_build
 from ..obs import mem as obs_mem
 from ..obs import metrics as obs_metrics
 from ..obs.instrument import dtype_of, instrument, nrows
+from ..ops import cagra_hop as _hop_mod
+from ..ops._build import count_launch
+from ..ops.cagra_hop import POOL
 from . import ivf_pq as ivf_pq_mod
 from .ivf_pq import _L2_METRICS, _SQRT_METRICS
 from .refine import refine
@@ -78,6 +86,22 @@ logger = logging.getLogger("raft_tpu_torch")
 
 _HOP_IMPLS = ("auto", "xla", "fused", "fused_arena", "fused_arena_smem")
 _MERGE_OF = {"fused": "extract", "fused_arena": "arena", "fused_arena_smem": "arena_smem"}
+# Hops a chunk of the fused loop: the host reads the convergence flag once a
+# chunk, and a CUDA graph holds one chunk. At 10,000 queries of SIFT-1M on an
+# H100 a hop takes ~80 us on the card, so 8 hops keep ~0.6 ms queued ahead of
+# each flag read, and the default budget of 74 hops is 10 reads; chunks of 4,
+# 8 and 16 served 496k, 513k-516k and 512k queries/s there. A converging
+# batch runs at most two chunks of masked hops past its last useful one. A
+# search run hop by hop runs the same chunks: a flag read left behind the
+# launches costs no more than the masked hops (a new key at 1, 8 and 64
+# queries there, two runs: 13.2-16.3, 16.7-17.5 and 14.8-16.6 ms a search,
+# against 14.3-16.1, 18.1-18.6 and 17.3-18.5 ms for a read before every hop).
+_CHUNK = 8
+_GRAPHS_KEPT = 16       # keys an index remembers (seen once, or captured)
+# the hop the fused loop captures into graphs; a caller's replacement of
+# ops.cagra_hop.cagra_hop (a wrapper that counts or inspects each launch) runs
+# hop by hop, since it must see every hop and may read the device
+_OWN_HOP = _hop_mod.cagra_hop
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +155,9 @@ class CagraIndex:
     data_kind: str = "float32"    # "float32" | "int8" | "uint8"
     seed_pool_hint: int = 0       # measured at build; 0: no clump structure seen
     tuned: dict | None = None
+    # the search loop's captured graphs; no part of the index's state
+    hop_graphs: "HopGraphs" = dataclasses.field(default_factory=lambda: HopGraphs(),
+                                                init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -543,11 +570,15 @@ def _cagra_search(index: CagraIndex, queries, k: int, itopk: int, max_iter: int,
     package's draw.
 
     Spans (:mod:`raft_tpu_torch.core.tracing`): ``cagra.search`` over the
-    call, with ``queries``, ``hops`` (loop iterations that launched a hop)
-    and ``stop`` ("converged" where the flag ended the loop, else
-    "max_iter"); under it ``cagra.search.entry``, ``cagra.search.hops`` (one
-    ``cagra.hop`` an iteration, each with a ``cagra.hop.flag_read`` around
-    the flag's device read) and ``cagra.search.finish``."""
+    call, with ``queries``, ``hops`` (hops launched) and ``stop``
+    ("converged" where the flag ended the loop, else "max_iter"); under it
+    ``cagra.search.entry``, ``cagra.search.hops`` and
+    ``cagra.search.finish``. Under ``cagra.search.hops`` the ``"xla"`` route
+    records one ``cagra.hop`` a hop, each with a ``cagra.hop.flag_read``
+    around the flag's device read; the fused route one ``cagra.hop.chunk`` a
+    chunk (``hops``; ``graph``, true where a captured graph ran it), each
+    with one ``cagra.hop.flag_read``, and over a chunk run hop by hop one
+    ``cagra.hop`` a hop."""
     with tracing.range("cagra.search") as span:
         span.set("queries", queries.shape[0])
         qf = queries.to(torch.float32)
@@ -628,58 +659,239 @@ def _entry_beam(index: CagraIndex, qf, itopk: int, width: int, seed_pool: int,
     return _dedup_sort(beam_ids, beam_d, visited)
 
 
+@functools.lru_cache(maxsize=None)
+def _graph_total():
+    return obs_metrics.counter(
+        "raft_tpu_cagra_hop_graph_total",
+        "chunks of CAGRA's fused hop loop by how they ran (replay: one launch of a captured "
+        "CUDA graph; eager_chunk: hop by hop), and graph captures")
+
+
+def _converged(nocand):
+    """The loop's exit flag as a device scalar: every row's first pick found
+    nothing unvisited."""
+    return (nocand[:, 0] > 0).all()
+
+
+def _next_hop(hop, qf, state, data, graph, itopk: int, merge: str, keep_mask):
+    """One hop of the fused loop from ``state`` (beam_d, beam_i, beam_v,
+    pick, no_cand): the picks' graph rows, their valid mask and one ``hop``
+    call. A row whose pick found nothing has every candidate masked, which
+    both merges leave as it is, so hops past a row's convergence change
+    nothing. No host read: it is captured into graphs as it stands."""
+    bd, bi, bv, pick, nocand = state
+    (m, width), (n, deg) = pick.shape, graph.shape
+    nbrs = graph[pick.to(torch.int64).clamp_max(n - 1)].reshape(m, width * deg)
+    valid = (1 - nocand)[:, :, None].expand(m, width, deg).reshape(m, width * deg).contiguous()
+    if keep_mask is not None:
+        valid = valid * keep_mask[nbrs.to(torch.int64).clamp_min(0)].to(torch.int32)
+    return hop(qf, bd, bi, bv, nbrs, data, valid, itopk, width, merge=merge)
+
+
+class _HopGraph:
+    """One key's captured chunks of the fused loop (a graph a chunk length)
+    and the static buffers they read and write: the queries, the loop state,
+    the flag and the keep-mask, each search's copied in. ``lock`` is held by
+    the search using it; ``done`` marks where that search's finish has read
+    the state, on its stream."""
+
+    def __init__(self, m: int, d: int, width: int, n: int, filtered: bool, dev):
+        def new(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        self.dev = dev
+        self.q = new((m, d), torch.float32)
+        self.state = (new((m, POOL), torch.float32), new((m, POOL), torch.int32),
+                      new((m, POOL), torch.int32), new((m, width), torch.int32),
+                      new((m, width), torch.int32))
+        self.flag = new((), torch.bool)
+        self.mask = new((n,), torch.bool) if filtered else None
+        self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.lock = threading.Lock()
+        self.done = torch.cuda.Event()
+        self.stream = torch.cuda.Stream(dev)     # the one captures run on
+
+    def load(self, qf, state, flag, keep_mask) -> None:
+        """Copy a search's queries, loop state, flag and mask in, after the
+        previous search's finish has read the state."""
+        torch.cuda.current_stream(self.dev).wait_event(self.done)
+        self.q.copy_(qf)
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+        self.flag.copy_(flag)
+        if self.mask is not None:
+            # a keep-mask may be longer than the dataset; the hops read ids < n
+            self.mask.copy_(keep_mask[:self.mask.shape[0]])
+
+    def capture(self, lengths, hop, data, graph, itopk: int, merge: str) -> None:
+        """Capture a graph of each chunk length not held yet: its hops from
+        the static state back into it, then the flag. Capture runs nothing."""
+        missing = sorted(set(lengths) - set(self.graphs))
+        if not missing:
+            return
+        pool = next(iter(self.graphs.values())).pool() if self.graphs else None
+        # unlike torch.cuda.graph, this neither waits for the device nor
+        # empties the allocator's caches (which the next batch would refill)
+        with torch.cuda.device(self.dev), torch.cuda.stream(self.stream):
+            for c in missing:
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    state = self.state
+                    for _ in range(c):
+                        state = _next_hop(hop, self.q, state, data, graph, itopk, merge,
+                                          self.mask)
+                    for dst, src in zip(self.state, state):
+                        dst.copy_(src)
+                    self.flag.copy_(_converged(state[4]))
+                finally:
+                    g.capture_end()
+                pool = g.pool()     # one pool: an entry's graphs never run at once
+                self.graphs[c] = g
+        _graph_total().inc(event="capture")
+
+    def replay(self, c: int, hop) -> None:
+        self.graphs[c].replay()
+        count_launch(hop, "full", n=c)
+        _graph_total().inc(event="replay")
+
+    def release(self) -> None:
+        self.done.record(torch.cuda.current_stream(self.dev))
+        self.lock.release()
+
+
+class HopGraphs:
+    """A CAGRA index's captured hop-loop graphs: at most
+    :data:`_GRAPHS_KEPT` keys, least recently used first out. A key, (m, d,
+    itopk, width, degree, merge, filtered), is remembered on its first
+    search and captured on its second, so one-off shapes capture nothing.
+    Keys are dropped when the index's dataset or graph tensor is replaced.
+    A copy or a pickle of the index starts with none."""
+
+    def __init__(self):
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        self._tensors = None
+        self._lock = threading.Lock()
+
+    def __reduce__(self):
+        return HopGraphs, ()
+
+    def __len__(self) -> int:
+        return sum(e is not None for e in self._entries.values())
+
+    def take(self, key: tuple, data, graph):
+        """The key's entry, locked for the caller; None on the key's first
+        search and while another search holds it."""
+        tensors = (data.data_ptr(), tuple(data.shape), data.dtype,
+                   graph.data_ptr(), tuple(graph.shape))
+        with self._lock:
+            if tensors != self._tensors:
+                self._entries.clear()
+                self._tensors = tensors
+            if key not in self._entries:
+                self._entries[key] = None
+                if len(self._entries) > _GRAPHS_KEPT:
+                    self._entries.popitem(last=False)
+                return None
+            self._entries.move_to_end(key)
+            entry = self._entries[key]
+            if entry is None:
+                m, d, _, width, _, _, filtered = key
+                entry = self._entries[key] = _HopGraph(m, d, width, data.shape[0], filtered,
+                                                       data.device)
+        return entry if entry.lock.acquire(blocking=False) else None
+
+
+def _chunk_lengths(max_iter: int) -> set:
+    """The chunk lengths a hop budget runs: whole chunks and a shorter last one."""
+    return {min(_CHUNK, max_iter), max_iter % _CHUNK if max_iter > _CHUNK else 0} - {0}
+
+
 def _fused_loop(index, qf, beam_ids, beam_d, visited, k, itopk, max_iter, width, sqrt_out,
                 merge, keep_mask, span):
-    """The hop loop through ops.cagra_hop: one launch per hop, beam state
-    (m, 128) with the full ||v - q||^2; one flag read back per hop. Sets
-    ``hops`` and ``stop`` on the caller's ``cagra.search`` span."""
-    from ..ops.cagra_hop import POOL, cagra_hop
-
+    """The hop loop through ops.cagra_hop: beam state (m, 128) with the full
+    ||v - q||^2, in chunks of :data:`_CHUNK` hops. Before a chunk the host
+    asks for the flag of the hops so far, and reads it while the chunk runs;
+    once it reads converged, the loop ends (a converged batch's extra hops
+    are masked and change nothing). On a CUDA index whose hop is
+    ``ops.cagra_hop``'s own, a chunk replays a captured CUDA graph from a
+    key's second search on; otherwise, and on the CPU, it runs hop by hop.
+    Sets ``hops`` (hops launched) and ``stop`` on the caller's
+    ``cagra.search`` span."""
+    hop = _hop_mod.cagra_hop
     data, graph = index.dataset, index.graph
-    n, deg = data.shape[0], index.graph_degree
-    m, dev = qf.shape[0], qf.device
-    with tracing.range("cagra.search.hops"):
-        qn = (qf * qf).sum(dim=1, keepdim=True)
-        bd = torch.full((m, POOL), math.inf, device=dev)
-        bd[:, :itopk] = (beam_d[:, :itopk] + qn).clamp_min(0.0)
-        bi = torch.full((m, POOL), -1, dtype=torch.int32, device=dev)
-        bi[:, :itopk] = beam_ids[:, :itopk]
-        bv = torch.ones((m, POOL), dtype=torch.int32, device=dev)
-        bv[:, :itopk] = visited[:, :itopk].to(torch.int32)
-        cw = width * deg
-        qf = qf.contiguous()
-        # prime: every candidate masked, so the merge only restates the beam
-        # and the kernel emits the first hop's picks
-        bd, bi, bv, pick, nocand = cagra_hop(
-            qf, bd, bi, bv, torch.full((m, cw), -1, dtype=torch.int32, device=dev), data,
-            torch.zeros((m, cw), dtype=torch.int32, device=dev), itopk, width, merge=merge)
-        hops, stop = 0, "max_iter"
-        for _ in range(max_iter):
-            with tracing.range("cagra.hop"):
-                # a row is done when its first pick found nothing unvisited
-                done = (nocand[:, 0] > 0).all()
-                with tracing.range("cagra.hop.flag_read"):
-                    done = bool(done)
+    m, dev, cuda = qf.shape[0], qf.device, qf.is_cuda
+    entry = None
+    try:
+        with tracing.range("cagra.search.hops"):
+            qn = (qf * qf).sum(dim=1, keepdim=True)
+            bd = torch.full((m, POOL), math.inf, device=dev)
+            bd[:, :itopk] = (beam_d[:, :itopk] + qn).clamp_min(0.0)
+            bi = torch.full((m, POOL), -1, dtype=torch.int32, device=dev)
+            bi[:, :itopk] = beam_ids[:, :itopk]
+            bv = torch.ones((m, POOL), dtype=torch.int32, device=dev)
+            bv[:, :itopk] = visited[:, :itopk].to(torch.int32)
+            cw = width * index.graph_degree
+            qf = qf.contiguous()
+            # prime: every candidate masked, so the merge only restates the
+            # beam and the kernel emits the first hop's picks
+            state = hop(qf, bd, bi, bv, torch.full((m, cw), -1, dtype=torch.int32, device=dev),
+                        data, torch.zeros((m, cw), dtype=torch.int32, device=dev), itopk,
+                        width, merge=merge)
+            flag = _converged(state[4])
+            if cuda and hop is _OWN_HOP:
+                entry = index.hop_graphs.take(
+                    (m, qf.shape[1], itopk, width, index.graph_degree, merge,
+                     keep_mask is not None), data, graph)
+            if entry is not None:
+                entry.load(qf, state, flag, keep_mask)
+                entry.capture(_chunk_lengths(max_iter), hop, data, graph, itopk, merge)
+                state, flag = entry.state, entry.flag
+            if cuda:
+                host = torch.empty((), dtype=torch.bool, pin_memory=True)
+                ready = torch.cuda.Event()
+            hops, stop = 0, "max_iter"
+            while hops < max_iter:
+                c = min(_CHUNK, max_iter - hops)
+                with tracing.range("cagra.hop.chunk") as chunk:
+                    chunk.set("hops", c)
+                    chunk.set("graph", entry is not None)
+                    # the flag of the hops so far comes back while this chunk runs
+                    if cuda:
+                        host.copy_(flag, non_blocking=True)
+                        ready.record(torch.cuda.current_stream(dev))
+                    else:
+                        host = flag
+                    if entry is not None:
+                        entry.replay(c, hop)
+                    else:
+                        for _ in range(c):
+                            with tracing.range("cagra.hop"):
+                                state = _next_hop(hop, qf, state, data, graph, itopk, merge,
+                                                  keep_mask)
+                        flag = _converged(state[4])
+                        _graph_total().inc(event="eager_chunk")
+                    hops += c
+                    with tracing.range("cagra.hop.flag_read"):
+                        if cuda:
+                            ready.synchronize()
+                        done = bool(host)
                 if done:
                     stop = "converged"
                     break
-                nbrs = graph[pick.to(torch.int64).clamp_max(n - 1)].reshape(m, cw)
-                valid = (1 - nocand).repeat_interleave(deg, dim=1)
-                if keep_mask is not None:
-                    valid = valid * keep_mask[nbrs.to(torch.int64).clamp_min(0)].to(torch.int32)
-                bd, bi, bv, pick, nocand = cagra_hop(qf, bd, bi, bv, nbrs.contiguous(), data,
-                                                     valid.contiguous(), itopk, width,
-                                                     merge=merge)
-                hops += 1
-    span.set("hops", hops)
-    span.set("stop", stop)
-    with tracing.range("cagra.search.finish"):
-        if merge != "extract":
-            bd, bi = _select_k(bd, bi, itopk, True)      # the arena is unsorted
-        out_d = bd[:, :k].clamp_min(0.0)
-        if sqrt_out:
-            out_d = torch.sqrt(out_d)
-        return out_d, torch.where(torch.isinf(out_d), -1, bi[:, :k])
+        span.set("hops", hops)
+        span.set("stop", stop)
+        with tracing.range("cagra.search.finish"):
+            bd, bi = state[0], state[1]
+            if merge != "extract":
+                bd, bi = _select_k(bd, bi, itopk, True)      # the arena is unsorted
+            out_d = bd[:, :k].clamp_min(0.0)
+            if sqrt_out:
+                out_d = torch.sqrt(out_d)
+            return out_d, torch.where(torch.isinf(out_d), -1, bi[:, :k])
+    finally:
+        if entry is not None:
+            entry.release()
 
 
 @auto_convert_output

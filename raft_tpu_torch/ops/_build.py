@@ -58,21 +58,22 @@ _count_lock = threading.Lock()  # launch counters
 _tallies = threading.local()    # this thread's open launch_tally dicts
 
 
-def count_launch(fn, mode=None, route=None) -> None:
-    """Add one to the wrapper ``fn``'s ``launches`` (and to
+def count_launch(fn, mode=None, route=None, n: int = 1) -> None:
+    """Add ``n`` launches (one by default; a replayed CUDA graph's launches
+    at once) to the wrapper ``fn``'s ``launches`` (and to
     ``launches_by_mode[mode]`` and ``launches_by_route[route]``): a
     read-modify-write that concurrent flushes would otherwise lose. Also
-    adds one to ``(fn.__name__, mode, route)`` in every :func:`launch_tally`
-    open on the calling thread."""
+    adds them to ``(fn.__name__, mode, route)`` in every
+    :func:`launch_tally` open on the calling thread."""
     with _count_lock:
-        fn.launches += 1
+        fn.launches += n
         if mode is not None:
-            fn.launches_by_mode[mode] += 1
+            fn.launches_by_mode[mode] += n
         if route is not None:
-            fn.launches_by_route[route] += 1
+            fn.launches_by_route[route] += n
     for tally in getattr(_tallies, "open", ()):
         key = (fn.__name__, mode, route)
-        tally[key] = tally.get(key, 0) + 1
+        tally[key] = tally.get(key, 0) + n
 
 
 @contextlib.contextmanager

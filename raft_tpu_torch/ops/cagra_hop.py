@@ -42,8 +42,9 @@ so on the card the two agree bit for bit in every output.
 
 :func:`cagra_hop` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; there is no fallback from one to the other.
-``cagra_hop.launches`` counts the kernel's launches, ``launches_by_mode``
-by profile.
+``cagra_hop.launches`` counts the kernel's launches that ran,
+``launches_by_mode`` by profile: a launch captured into a CUDA graph counts
+when the graph replays (``neighbors/cagra.py``'s hop loop counts them).
 """
 
 from __future__ import annotations
@@ -258,7 +259,8 @@ def _launch(queries, beam_d, beam_i, beam_v, nbrs, dataset, valid, itopk, width,
                  valid.data_ptr(), cw, itopk, width, _MERGES[merge], PROFILES.index(profile),
                  od.data_ptr(), oi.data_ptr(), ov.data_ptr(), pick.data_ptr(),
                  nocand.data_ptr(), stream)
-    count_launch(cagra_hop, profile)
+    if not torch.cuda.is_current_stream_capturing():   # a captured launch counts on replay
+        count_launch(cagra_hop, profile)
     expects(err == 0, "cagra_hop kernel launch failed: cudaError %d", err)
     return od, oi, ov, pick, nocand
 

@@ -325,9 +325,12 @@ def test_search_seed_contract(data, port_built):
 def test_search_records_its_span_tree(data, port_built, monkeypatch, impl, max_iterations,
                                       stop):
     """Under tracing, a search records ``cagra.search`` (queries, hops,
-    stop) over entry, hops and finish; one ``cagra.hop`` an iteration, each
-    holding one ``cagra.hop.flag_read``; ``hops`` counts the hops the route
-    ran (``_xla_hop`` calls, or ``cagra_hop`` launches less the prime)."""
+    stop) over entry, hops and finish; ``hops`` counts the hops the route
+    ran (``_xla_hop`` calls, or ``cagra_hop`` launches less the prime). The
+    "xla" route records one ``cagra.hop`` an iteration, each holding one
+    ``cagra.hop.flag_read``; the fused route one ``cagra.hop.chunk`` a chunk
+    (its ``hops``; ``graph`` false on the CPU), each holding one
+    ``cagra.hop.flag_read`` and a ``cagra.hop`` for each of its hops."""
     from raft_tpu_torch.core import tracing
     from raft_tpu_torch.ops import cagra_hop as hop_mod
 
@@ -355,13 +358,79 @@ def test_search_records_its_span_tree(data, port_built, monkeypatch, impl, max_i
                                       "cagra.search.finish"]
     hops = [s for s in spans if s.name == "cagra.hop"]
     reads = [s for s in spans if s.name == "cagra.hop.flag_read"]
-    # the fused route reads the flag first: the iteration that finds the
-    # search converged launches nothing
-    assert len(hops) == ran + (impl != "xla" and stop == "converged")
-    assert {s.parent for s in hops} == {kids[1].id}
-    assert sorted(s.parent for s in reads) == sorted(s.id for s in hops)
+    assert len(hops) == ran
+    if impl == "xla":
+        assert {s.parent for s in hops} == {kids[1].id}
+        assert sorted(s.parent for s in reads) == sorted(s.id for s in hops)
+    else:
+        chunks = sorted((s for s in spans if s.name == "cagra.hop.chunk"),
+                        key=lambda s: s.start_ns)
+        assert chunks and {s.parent for s in chunks} == {kids[1].id}
+        assert sorted(s.parent for s in reads) == sorted(s.id for s in chunks)
+        assert sum(s.attrs["hops"] for s in chunks) == ran
+        assert [s.attrs["hops"] for s in chunks[:-1]] == [tc._CHUNK] * (len(chunks) - 1)
+        assert not any(s.attrs["graph"] for s in chunks)
+        by_chunk = {s.id: s.attrs["hops"] for s in chunks}
+        for s in hops:
+            by_chunk[s.parent] -= 1
+        assert set(by_chunk.values()) == {0}
     if stop == "max_iter":
         assert ran == max_iterations
+
+
+def _per_hop_search(index, q, k, itopk, width, max_iter, merge, seed_pool, keep_mask):
+    """The fused route as a plain loop that reads the convergence flag before
+    every hop and stops at the first that reads converged."""
+    from raft_tpu_torch.ops.cagra_hop import POOL, cagra_hop
+
+    qf = torch.as_tensor(q, dtype=torch.float32)
+    ids, dist, vis = tc._entry_beam(index, qf, itopk, width, seed_pool, keep_mask, 0, None)
+    m, n, deg = qf.shape[0], index.size, index.graph_degree
+    bd = torch.full((m, POOL), np.inf)
+    bd[:, :itopk] = (dist[:, :itopk] + (qf * qf).sum(1, keepdim=True)).clamp_min(0.0)
+    bi = torch.full((m, POOL), -1, dtype=torch.int32)
+    bi[:, :itopk] = ids[:, :itopk]
+    bv = torch.ones((m, POOL), dtype=torch.int32)
+    bv[:, :itopk] = vis[:, :itopk].to(torch.int32)
+    cw = width * deg
+    bd, bi, bv, pick, nocand = cagra_hop(qf, bd, bi, bv, torch.full((m, cw), -1, dtype=torch.int32),
+                                         index.dataset, torch.zeros((m, cw), dtype=torch.int32),
+                                         itopk, width, merge=merge)
+    for _ in range(max_iter):
+        if bool((nocand[:, 0] > 0).all()):
+            break
+        nbrs = index.graph[pick.to(torch.int64).clamp_max(n - 1)].reshape(m, cw)
+        valid = (1 - nocand).repeat_interleave(deg, dim=1)
+        if keep_mask is not None:
+            valid = valid * keep_mask[nbrs.to(torch.int64).clamp_min(0)].to(torch.int32)
+        bd, bi, bv, pick, nocand = cagra_hop(qf, bd, bi, bv, nbrs, index.dataset, valid, itopk,
+                                             width, merge=merge)
+    if merge != "extract":
+        bd, bi = tc._select_k(bd, bi, itopk, True)
+    out_d = bd[:, :k].clamp_min(0.0)
+    return out_d, torch.where(torch.isinf(out_d), -1, bi[:, :k])
+
+
+@pytest.mark.parametrize("max_iterations", [3, 9, 74, 500])
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("impl", ["fused", "fused_arena"])
+def test_chunked_loop_answers_as_a_per_hop_loop(data, port_built, impl, width, filtered,
+                                                max_iterations):
+    """The fused route's chunks (a flag read a chunk, masked hops past a
+    batch's convergence, a shorter last chunk) answer bit for bit as a loop
+    that reads the flag before every hop: ids and distances, both merges."""
+    x, q, _ = data
+    keep = (torch.from_numpy(np.random.default_rng(5).random(x.shape[0])) < 0.6
+            if filtered else None)
+    params = tc.SearchParams(itopk_size=32, search_width=width, max_iterations=max_iterations,
+                             seed_pool=512, hop_impl=impl)
+    got_d, got_i = tc.search(params, port_built, q, 10, sample_filter=keep)
+    want_d, want_i = _per_hop_search(port_built, q, 10, 32, width, max_iterations,
+                                     tc._MERGE_OF[impl], 512, keep)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+    if filtered:
+        assert keep[got_i[got_i >= 0].to(torch.int64)].all()
 
 
 def test_build_observes_its_phases_and_records_their_spans(data):

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from raft_tpu_torch.core import Resources
+from raft_tpu_torch.core import Resources, tracing
 from raft_tpu_torch.matrix import select_k, wide_cols_threshold
 from raft_tpu_torch.matrix.select_k import set_wide_cols_threshold
 from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
@@ -696,6 +696,167 @@ def test_cagra_search_on_card_equals_cpu(cuda, tmp_path):
     _knn_equiv(d.cpu(), i.cpu(), rd, ri, rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def cagra_60k():
+    """A CAGRA index of 60,000 clustered rows (d 64, degree 32) built on the
+    card, and 10,000 queries near its rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    centers = torch.rand((64, 64), generator=g, device=dev) * 4
+    x = centers[torch.randint(0, 64, (60_000,), generator=g, device=dev)]
+    x = x + 0.3 * torch.randn(x.shape, generator=g, device=dev)
+    q = x[torch.randint(0, 60_000, (10_000,), generator=g, device=dev)] + 0.05
+    index = cagra.build(cagra.IndexParams(intermediate_graph_degree=64, graph_degree=32), x,
+                        res=Resources(device="cuda"))
+    return index, q
+
+
+def _hop_by_hop(monkeypatch, fn):
+    """``fn()`` with ``ops.cagra_hop.cagra_hop`` wrapped, so the hop loop
+    runs its chunks hop by hop."""
+    from raft_tpu_torch.ops import cagra_hop as hop_mod
+
+    real = hop_mod.cagra_hop
+
+    def wrapped(*args, **kwargs):
+        return real(*args, **kwargs)
+
+    wrapped.__dict__.update(real.__dict__)     # the launch counters the launcher adds to
+    with monkeypatch.context() as mp:
+        mp.setattr(hop_mod, "cagra_hop", wrapped)
+        return fn()
+
+
+def _graph_events():
+    from raft_tpu_torch.obs import metrics
+
+    snap = metrics.snapshot().get("raft_tpu_cagra_hop_graph_total", {"series": []})
+    return {s["labels"]["event"]: s["value"] for s in snap["series"]}
+
+
+@pytest.mark.parametrize("m,itopk,width,filtered,max_iter", [
+    (1, 32, 1, False, 0), (1, 64, 2, True, 0), (64, 64, 1, False, 0), (64, 32, 2, True, 5),
+    (10_000, 64, 1, False, 0), (10_000, 32, 2, True, 0), (10_000, 64, 1, False, 20),
+    (10_000, 64, 2, False, 74), (64, 64, 1, "longer", 0), (10_000, 32, 2, "longer", 20),
+])
+def test_cagra_graph_replay_answers_as_the_hop_by_hop_loop(cagra_60k, monkeypatch, m, itopk,
+                                                          width, filtered, max_iter):
+    """A key's first search runs hop by hop, its second captures, later ones
+    replay: every one answers bit for bit as the loop run hop by hop with a
+    wrapped hop, converging or capped. The counter shows one capture and
+    one replay a chunk; ``cagra_hop.launches`` counts the replayed hops. A
+    keep-mask may be longer than the dataset ("longer")."""
+    index, q = cagra_60k
+    q = q[:m]
+    keep = None
+    if filtered:
+        n = index.size + (1000 if filtered == "longer" else 0)
+        keep = torch.rand(n, generator=torch.Generator(device="cuda").manual_seed(3),
+                          device="cuda") < 0.7
+    params = cagra.SearchParams(itopk_size=itopk, search_width=width, max_iterations=max_iter,
+                                hop_impl="fused_arena" if width == 1 else "fused")
+    index.hop_graphs = cagra.HopGraphs()
+
+    def run():
+        return cagra.search(params, index, q, 10, sample_filter=keep)
+
+    want = _hop_by_hop(monkeypatch, run)
+    assert len(index.hop_graphs) == 0
+    before = _graph_events()
+    got = [run() for _ in range(2)]          # the first remembers the key, the second captures
+    after = _graph_events()
+    assert after.get("capture", 0) == before.get("capture", 0) + 1
+    assert after["eager_chunk"] > before.get("eager_chunk", 0)
+    launches, replays = cagra_hop.launches, after["replay"]
+    tracing.clear()
+    tracing.enable()
+    try:
+        got.append(run())
+    finally:
+        tracing.disable()
+    spans = tracing.spans()
+    tracing.clear()
+    (top,) = [s for s in spans if s.name == "cagra.search"]
+    chunks = [s for s in spans if s.name == "cagra.hop.chunk"]
+    assert chunks and all(s.attrs["graph"] for s in chunks)
+    assert not [s for s in spans if s.name == "cagra.hop"]   # no hop runs on its own
+    assert _graph_events()["replay"] == replays + len(chunks)
+    assert cagra_hop.launches == launches + top.attrs["hops"] + 1
+    for d, i in got:
+        assert torch.equal(i, want[1]) and torch.equal(d, want[0])
+    if max_iter:
+        assert top.attrs["hops"] <= max_iter
+
+
+def test_cagra_graphs_recapture_when_the_dataset_is_replaced(cagra_60k, monkeypatch):
+    """Replacing the index's dataset tensor drops its graphs: the next
+    search runs hop by hop, the one after captures anew, and both answer as
+    the hop-by-hop loop over the new rows."""
+    index, q = cagra_60k
+    params = cagra.SearchParams(itopk_size=64)
+    q = q[:512]
+    index.hop_graphs = cagra.HopGraphs()
+    old = index.dataset
+    try:
+        for _ in range(2):
+            cagra.search(params, index, q, 10)
+        assert len(index.hop_graphs) == 1
+        index.dataset = old.flip(0).contiguous()
+        want = _hop_by_hop(monkeypatch, lambda: cagra.search(params, index, q, 10))
+        before = _graph_events()
+        for held in (0, 1, 1):
+            d, i = cagra.search(params, index, q, 10)
+            assert torch.equal(i, want[1]) and torch.equal(d, want[0])
+            assert len(index.hop_graphs) == held
+        assert _graph_events()["capture"] == before["capture"] + 1
+    finally:
+        index.dataset = old
+        index.hop_graphs = cagra.HopGraphs()
+
+
+def test_cagra_graphs_under_concurrent_searches(cagra_60k, monkeypatch):
+    """Threads searching one index with one key at once: one holds the
+    key's graphs at a time, the others run hop by hop, and every answer
+    equals the hop-by-hop loop's."""
+    import sys
+    import threading
+
+    index, q = cagra_60k
+    params = cagra.SearchParams(itopk_size=64)
+    index.hop_graphs = cagra.HopGraphs()
+    slices = [q[i * 256:(i + 1) * 256] for i in range(6)]
+    want = [_hop_by_hop(monkeypatch, lambda s=s: cagra.search(params, index, s, 10))
+            for s in slices]
+    wrong, errors = [], []
+
+    def worker(i):
+        try:
+            for r in range(5):
+                j = (i + r) % len(slices)
+                d, ids = cagra.search(params, index, slices[j], 10)
+                if not (torch.equal(ids, want[j][1]) and torch.equal(d, want[j][0])):
+                    wrong.append((i, r))
+        except Exception as e:      # reported below with the thread's number
+            errors.append((i, repr(e)))
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and not wrong, (errors, wrong)
+    assert len(index.hop_graphs) == 1
+    index.hop_graphs = cagra.HopGraphs()
+
+
 def test_pipelined_service_on_card_equals_direct_search(cuda):
     """The pipelined serve path on the card: full 64-row buckets submitted
     back to back through pinned staging buffers and device slots (the
@@ -1108,12 +1269,12 @@ def test_two_gloo_ranks_share_the_card(cuda):
 def test_cagra_spans_line_up_with_the_device_trace(cuda):
     """A CUDA-only profiler session over CAGRA batches on the card records
     the program's spans on the trace's clock: each ``cagra.hop.flag_read``
-    span holds the ``cudaStreamSynchronize`` its device read issues (at
+    span holds the ``cudaEventSynchronize`` its wait for the flag issues (at
     least 99% of them), and the trace's ``cagra_hop`` launches equal the sum
-    over the searches of ``hops`` + 1 (the prime launch) exactly."""
+    over the searches of ``hops`` + 1 (the prime launch) exactly: the
+    profiler sees the kernels the searches' captured graphs launch (the
+    first traced search captures, the other two replay)."""
     import statistics
-
-    from raft_tpu_torch.core import tracing
 
     g = torch.Generator(device=cuda).manual_seed(11)
     centers = torch.rand((64, 64), generator=g, device=cuda) * 4
@@ -1136,10 +1297,11 @@ def test_cagra_spans_line_up_with_the_device_trace(cuda):
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type().name == "CUDA":
             launches += "cagra_hop_kernel" in ev.name()
-        elif ev.name() == "cudaStreamSynchronize":
+        elif ev.name() == "cudaEventSynchronize":
             syncs.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
     searches = [s for s in spans if s.name == "cagra.search"]
     assert len(searches) == 3 and tracing.dropped() == 0
+    assert all(s.attrs["graph"] for s in spans if s.name == "cagra.hop.chunk")
     assert launches == sum(s.attrs["hops"] + 1 for s in searches)
     reads = [s for s in spans if s.name == "cagra.hop.flag_read"]
     assert reads
